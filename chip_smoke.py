@@ -1,0 +1,435 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # one card, no arguments
+
+Phases (each prints its lines; any failure raises and exits non-zero):
+
+1. device  — the card's name and power limit (nvidia-smi);
+2. build   — compile ``qwen3_asr_swift_tpu_torch/csrc/*.cu`` with nvcc;
+3. k1      — kernel K1 (packed int4/int8 group-quant matmul) against its
+             plain version at the decoder's full-width shapes;
+4. k3      — kernel K3 (int8-KV decode attention) against its plain version
+             at B=32, Hq 16, Hkv 8, D 128, L 580 with holes in ``valid``;
+5. step    — full-width prefill + first decode step for 2 clips of 8 s,
+             fp32 on the card (kernels) and on the host CPU (plain
+             versions), logits compared;
+6. slice   — ``transcribe_batch`` of 32 × 30 s clips, 100 tokens, packed
+             4-bit decoder, int8 KV, dpcm4 wire, 15-token decode chunks;
+             the kernels' launch counters must rise by the decode's count;
+7. serve   — the same model behind ``SpeechServer`` answers 4 concurrent
+             ``POST /transcribe`` and one ``GET /health``.
+
+Weights are random (numpy, seed 0) at the full width of the 0.6B
+configuration. The line before the last is ``{"kernels": [...]}``; the
+last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+K1_TOL = 1e-4   # max|err| / max|ref|: fp32 sum order + fused multiply-adds
+K3_TOL = 1e-4   # max|err| / max|ref|: fp32 sum order over 580 keys, online softmax
+# relative L2 of the first decode step's logits, card vs host CPU. The
+# decoder runs in bf16 even in an fp32 model, because the packed embedding
+# lookup returns bf16 rows (as the reference's does); fp32 sums taken in
+# another order flip single bf16 roundings, which compound over 28 layers.
+STEP_TOL = 5e-2
+SLICE_CLIPS, SLICE_CLIP_S, SLICE_TOKENS = 32, 30, 100
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def input_sets(make, bytes_per_set: int, cold_bytes: int = 192 << 20):
+    """Enough copies of one call's inputs that cycling through them
+    overflows the card's 50 MB L2: on the main path every layer reads its
+    own weights and cache, so a kernel meets its operands cold."""
+    return [make() for _ in range(max(2, -(-cold_bytes // bytes_per_set)))]
+
+
+def time_pair(fn_kernel, fn_plain, sets, iters: int = 24, warmup: int = 3):
+    """Per-call times of a kernel and its plain version, cycling through
+    ``sets`` of arguments, in turns: plain, kernel, kernel, plain. Returns
+    ((kernel_ms, plain_ms) from CUDA events around the loop, launch gaps
+    included; (kernel_ms, plain_ms) of device time from the profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def loop(fn):
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+
+    def wall(fn):
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        loop(fn)
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1) / iters
+
+    def device(fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            loop(fn)
+            torch.cuda.synchronize()
+        return sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / 1e3 / iters
+
+    for i in range(warmup):
+        fn_plain(*sets[i % len(sets)])
+        fn_kernel(*sets[i % len(sets)])
+    torch.cuda.synchronize()
+    out = []
+    for measure in (wall, device):
+        p1, k1, k2, p2 = measure(fn_plain), measure(fn_kernel), measure(fn_kernel), measure(fn_plain)
+        out.append(((k1 + k2) / 2, (p1 + p2) / 2))
+    return out
+
+
+def rel_err(got, ref) -> tuple:
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / max(ref.float().abs().max().item(), 1e-30)
+
+
+# --------------------------------------------------------------------------- #
+
+def phase_k1(dev):
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    hidden, inter, vocab, nq, nkv = 1024, 3072, 151936, 16 * 128, 2 * 8 * 128
+    # (name, rows, in, out, bits, calls per decode step)
+    cases = [("qkv", 32, hidden, nq + nkv, 4, 28), ("o", 32, nq, hidden, 4, 28),
+             ("gate_up", 32, hidden, 2 * inter, 4, 28), ("down", 32, inter, hidden, 4, 28),
+             ("lm_head", 32, hidden, vocab, 4, 1),
+             ("qkv_rows1", 1, hidden, nq + nkv, 4, 0), ("qkv_rows256", 256, hidden, nq + nkv, 4, 0),
+             ("qkv_bits8", 32, hidden, nq + nkv, 8, 0)]
+    worst, step, step_dev = 0.0, [0.0, 0.0], [0.0, 0.0]
+    for name, rows, d_in, d_out, bits, per_step in cases:
+        def make():
+            p = {"codes": torch.randint(-2**31, 2**31 - 1, (d_out, d_in * bits // 32),
+                                        generator=g, device=dev, dtype=torch.int32),
+                 "scales": torch.rand((d_out, d_in // 64), generator=g, device=dev) * 0.02,
+                 "biases": (torch.rand((d_out, d_in // 64), generator=g, device=dev) - 0.5) * 0.2}
+            return torch.randn((rows, d_in), generator=g, device=dev), p
+
+        sets = input_sets(make, d_out * (d_in * bits // 8 + 2 * 4 * d_in // 64))
+        got = quant.quant_matmul_cuda(*sets[0])
+        ref = quant.quant_matmul(*sets[0])
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        (ms, plain_ms), (dev_ms, plain_dev_ms) = time_pair(quant.quant_matmul_cuda,
+                                                           quant.quant_matmul, sets)
+        log(f"K1 {name:12s} rows={rows:3d} in={d_in:4d} out={d_out:6d} bits={bits} "
+            f"max_abs_err={err:.3e} rel={rel:.3e} (tol {K1_TOL:g}) kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} device: kernel_ms={dev_ms:.4f} plain_ms={plain_dev_ms:.4f}")
+        if not rel <= K1_TOL:
+            raise AssertionError(f"K1 {name}: rel error {rel} > {K1_TOL}")
+        worst = max(worst, err)
+        step = [step[0] + per_step * ms, step[1] + per_step * plain_ms]
+        step_dev = [step_dev[0] + per_step * dev_ms, step_dev[1] + per_step * plain_dev_ms]
+        del sets
+    log(f"K1 per decode step (28 layers x 4 + LM head, rows 32): kernel_ms={step[0]:.4f} "
+        f"plain_ms={step[1]:.4f} device: kernel_ms={step_dev[0]:.4f} plain_ms={step_dev[1]:.4f}")
+    return {"name": "quant_matmul_cuda", "route": "cuda",
+            "source": "qwen3_asr_swift_tpu_torch/csrc/quant_matmul.cu",
+            "replaces": "qwen3_asr_swift_tpu/ops/quant.py:252",
+            "max_abs_err": worst, "ms": step[0], "plain_ms": step[1],
+            "device_ms": step_dev[0], "plain_device_ms": step_dev[1],
+            "ms_per": "one decode step at batch 32 (28x qkv, o, gate_up, down + LM head), "
+                      "operands cold in L2"}
+
+
+def phase_k3(dev):
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.ops import attention_int8
+    from qwen3_asr_swift_tpu_torch.ops.kv_cache import quantize_kv
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    b, hq, hkv, length, d = 32, 16, 8, 580, 128
+
+    def make():
+        q = torch.randn((b, hq, 1, d), generator=g, device=dev).to(torch.bfloat16)
+        kq, ks = quantize_kv(torch.randn((b, hkv, length, d), generator=g, device=dev))
+        vq, vs = quantize_kv(torch.randn((b, hkv, length, d), generator=g, device=dev))
+        valid = torch.rand((b, length), generator=g, device=dev) > 0.3
+        valid[:, 448:] = False   # the unwritten decode rows
+        valid[:, 40] = True
+        return q, kq, ks, vq, vs, valid
+
+    sets = input_sets(make, 2 * b * hkv * length * (d + 4))
+    got = attention_int8.decode_attention_int8(*sets[0])
+    ref = attention_int8.decode_attention_int8_ref(*sets[0])
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    (ms, plain_ms), (dev_ms, plain_dev_ms) = time_pair(
+        attention_int8.decode_attention_int8, attention_int8.decode_attention_int8_ref, sets)
+    log(f"K3 B={b} Hq={hq} Hkv={hkv} L={length} D={d} max_abs_err={err:.3e} rel={rel:.3e} "
+        f"(tol {K3_TOL:g}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"device: kernel_ms={dev_ms:.4f} plain_ms={plain_dev_ms:.4f}")
+    if not rel <= K3_TOL:
+        raise AssertionError(f"K3: rel error {rel} > {K3_TOL}")
+    return {"name": "decode_attention_int8", "route": "cuda",
+            "source": "qwen3_asr_swift_tpu_torch/csrc/decode_attn_int8.cu",
+            "replaces": "qwen3_asr_swift_tpu/ops/attention_pallas.py:33",
+            "max_abs_err": err, "ms": 28 * ms, "plain_ms": 28 * plain_ms,
+            "device_ms": 28 * dev_ms, "plain_device_ms": 28 * plain_dev_ms,
+            "ms_per": "one decode step at batch 32 (28 layers), operands cold in L2"}
+
+
+def make_weights():
+    from qwen3_asr_swift_tpu_torch.core.params import init_random_params
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr import CONFIG_SMALL
+
+    t0 = time.perf_counter()
+    enc, dec = init_random_params(CONFIG_SMALL, seed=0, quant_bits=4)
+    log(f"weights: CONFIG_SMALL random seed 0, decoder packed 4-bit group 64 "
+        f"({time.perf_counter() - t0:.1f} s on the host)")
+    return enc, dec
+
+
+def build_model(enc, dec, device, dtype, **kw):
+    import dataclasses
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr import CONFIG_SMALL, Qwen3ASR
+
+    cfg = dataclasses.replace(CONFIG_SMALL, decoder=dataclasses.replace(
+        CONFIG_SMALL.decoder, bits=4, group_size=64))
+    return Qwen3ASR.from_params(cfg, enc, dec, device=device, dtype=dtype,
+                                kv_dtype=torch.int8, wire_dtype="dpcm4",
+                                decode_chunk_tokens=15, quant_compute="packed",
+                                audio_buckets_s=(8, 16, 32, 64), **kw)
+
+
+def phase_step(weights):
+    """Full-width prefill + first decode step, card (kernels) vs host CPU
+    (plain versions), both fp32 with TF32 off."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr.decoder import decode_step
+    from qwen3_asr_swift_tpu_torch.ops.sampling import SamplingOptions
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    clips = [(0.1 * rng.standard_normal(8 * 16000)).astype(np.float32) for _ in range(2)]
+    out = {}
+    tok = None
+    for where in ("cpu", "cuda"):
+        model = build_model(*weights, where, torch.float32)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            st = model.prestage(clips)
+            audio_tokens, n_audio = model._encode(st)
+            prompt = model._prompt(st.b, None, None)
+            state = model._gen_start(audio_tokens, n_audio, prompt, 4, SamplingOptions(max_tokens=4))
+            if tok is None:
+                tok = state.tokens[:, 0].cpu()
+            logits, _ = decode_step(model.decoder_params, model.cfg.decoder, tok.to(model.device),
+                                    state.cache)
+        out[where] = (audio_tokens.float().cpu(), logits.float().cpu())
+        log(f"step on {where}: {time.perf_counter() - t0:.1f} s")
+        del model
+    torch.backends.cudnn.allow_tf32 = True
+    enc_rel = (torch.linalg.vector_norm(out["cuda"][0] - out["cpu"][0])
+               / torch.linalg.vector_norm(out["cpu"][0])).item()
+    rel = (torch.linalg.vector_norm(out["cuda"][1] - out["cpu"][1])
+           / torch.linalg.vector_norm(out["cpu"][1])).item()
+    same = (out["cuda"][1].argmax(-1) == out["cpu"][1].argmax(-1)).tolist()
+    log(f"step: encoder rel L2 {enc_rel:.3e}; decode-step logits rel L2 {rel:.3e} "
+        f"(tol {STEP_TOL:g}); argmax equal per clip {same}")
+    if not rel <= STEP_TOL:
+        raise AssertionError(f"decode-step logits rel L2 {rel} > {STEP_TOL}")
+
+
+def phase_slice(model, counters, dev_name, power):
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.ops.sampling import SamplingOptions
+
+    rng = np.random.default_rng(0)
+    sr = 16000
+    clips = [(0.1 * rng.standard_normal(SLICE_CLIP_S * sr)).astype(np.float32)
+             for _ in range(SLICE_CLIPS)]
+    opts = SamplingOptions(max_tokens=SLICE_TOKENS)
+    t0 = time.perf_counter()
+    model.transcribe_batch(clips[:2], options=SamplingOptions(max_tokens=2))  # allocator warm-up
+    torch.cuda.synchronize()
+    log(f"slice warm-up: {time.perf_counter() - t0:.1f} s")
+    # n_gen = sum(tokens != pad_id) per row, as the model computes it, read
+    # where it hands it to _finalize
+    n_gens = []
+    finalize = model._finalize
+
+    def capture(tokens, n_gen, *rest):
+        n_gens.append(n_gen.copy())
+        return finalize(tokens, n_gen, *rest)
+
+    model._finalize = capture
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = model.transcribe_batch(clips, options=opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.name: c.value for c in counters}
+    del model._finalize
+    steps = SLICE_TOKENS - 1
+    need_k1, need_k3 = steps * 28 * 4 + steps, steps * 28
+    log(f"slice: {SLICE_CLIPS} x {SLICE_CLIP_S} s, {SLICE_TOKENS} tokens: wall {wall:.3f} s, "
+        f"{SLICE_CLIPS * SLICE_CLIP_S / wall:.1f} audio-s/s on {dev_name} ({power}); launches {launches}")
+    if len(results) != SLICE_CLIPS:
+        raise AssertionError(f"{len(results)} results for {SLICE_CLIPS} clips")
+    (n_gen,) = n_gens
+    log(f"slice: n_gen per row min {n_gen.min()} max {n_gen.max()}")
+    for i, r in enumerate(results):
+        if n_gen[i] == 0 or not np.isfinite(r.confidence):
+            raise AssertionError(f"clip {i}: n_gen {n_gen[i]}, confidence {r.confidence}")
+    if launches["quant_matmul_cuda"] < need_k1 or launches["decode_attention_int8"] < need_k3:
+        raise AssertionError(f"launch counters {launches} below K1 {need_k1} / K3 {need_k3}")
+
+    # where the time goes (information): stage times with a sync at each
+    # boundary, then the device's busy share under the profiler
+    timings = {}
+    model.transcribe_batch(clips, options=opts, timings=timings)
+    log("slice stages (synced at boundaries): "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()))
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.transcribe_batch(clips, options=opts)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values()) / 1e6
+    log(f"slice under the profiler: wall {prof_wall:.3f} s, device busy {busy:.3f} s "
+        f"({100 * busy / prof_wall:.1f} %), idle {100 * (1 - busy / prof_wall):.1f} %")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"  device {us / 1e3:9.2f} ms  {name[:100]}")
+    return launches, wall
+
+
+def phase_serve(model):
+    import asyncio
+    import http.client
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from qwen3_asr_swift_tpu_torch.audio import wav_bytes
+    from qwen3_asr_swift_tpu_torch.serving import SpeechServer, build_registry
+
+    server = SpeechServer(build_registry(model), port=0)
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    try:
+        asyncio.run_coroutine_threadsafe(server.start(), loop).result(timeout=30)
+        port = server._server.sockets[0].getsockname()[1]
+        rng = np.random.default_rng(3)
+        bodies = [wav_bytes((0.1 * rng.standard_normal(8 * 16000)).astype(np.float32), 16000)
+                  for _ in range(4)]
+
+        def request(method, path, body=None):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            try:
+                headers = {"Content-Type": "audio/wav"} if body is not None else {}
+                conn.request(method, path, body=body, headers=headers)
+                resp = conn.getresponse()
+                return resp.status, json.loads(resp.read())
+            finally:
+                conn.close()
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=5) as pool:
+            futs = [pool.submit(request, "POST", "/transcribe", b) for b in bodies]
+            futs.append(pool.submit(request, "GET", "/health"))
+            answers = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        for status, payload in answers[:4]:
+            if status != 200 or "text" not in payload:
+                raise AssertionError(f"/transcribe answered {status} {payload}")
+        status, payload = answers[4]
+        if status != 200 or payload.get("status") != "ok":
+            raise AssertionError(f"/health answered {status} {payload}")
+        log(f"serve: 4 x POST /transcribe (8 s WAV) + GET /health on port {port}: "
+            f"statuses {[a[0] for a in answers]} in {wall:.1f} s; health {json.dumps(payload)}")
+    finally:
+        asyncio.run_coroutine_threadsafe(server.stop(), loop).result(timeout=60)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=30)
+        loop.close()
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 2
+
+    from qwen3_asr_swift_tpu_torch.device import resolve_device
+    from qwen3_asr_swift_tpu_torch.ops import cuda_build
+    from qwen3_asr_swift_tpu_torch.ops.attention_int8 import K3_LAUNCHES
+    from qwen3_asr_swift_tpu_torch.ops.quant import K1_LAUNCHES
+
+    dev = resolve_device("cuda")
+    dev_name = torch.cuda.get_device_name(0)
+    card = card_line()
+    power = card.split(",")[-1].strip()
+    log(f"device: {dev_name}; torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"count {torch.cuda.device_count()}")
+    log(f"nvidia-smi: {card}")
+
+    t0 = time.perf_counter()
+    cuda_build.library()
+    log(f"build: {time.perf_counter() - t0:.1f} s ({'cached' if cuda_build.build_info.get('cached') else 'nvcc'})"
+        f" → {cuda_build.build_info.get('path')}")
+    for line in cuda_build.build_info.get("log", "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    k1, k3 = phase_k1(dev), phase_k3(dev)
+    weights = make_weights()
+    phase_step(weights)
+    model = build_model(*weights, "cuda", torch.bfloat16)
+    launches, _ = phase_slice(model, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
+    k1["launches"] = launches["quant_matmul_cuda"]
+    k3["launches"] = launches["decode_attention_int8"]
+    phase_serve(model)
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+
+    log(json.dumps({"kernels": [k1, k3]}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name,
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,188 @@
+"""Group-quantized (int2/4/8) linear algebra — port of
+``qwen3_asr_swift_tpu/ops/quant.py``.
+
+Param convention (as in the reference): a quantized linear is a dict
+``{"codes": int32[out, in*bits/32], "scales": f32[out, in/gs],
+"biases": f32[out, in/gs], optional "bias": [out]}`` with MLX codes packed
+LSB-first; the codes are the reference's uint32 words viewed as int32
+(core/params.py), so every unpack masks after shifting.
+
+Two compute paths, as in the reference:
+
+- :func:`quant_matmul` — the plain group decomposition (the
+  counterpart of ``quant_matmul_xla``). Prefill-shaped calls take it on
+  every device, as the reference leaves them outside Pallas.
+- :func:`quant_matmul_cuda` — the wrapper of kernel K1
+  (``csrc/quant_matmul.cu``). For a CUDA tensor it launches the kernel or
+  raises; only for a CPU tensor does it take :func:`quant_matmul`.
+
+:func:`quant_linear` and :func:`quant_tied_lm_head` route decode-shaped
+calls (at most :data:`KERNEL_MAX_ROWS` activation rows) to the wrapper,
+the same row rule as the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_build
+
+#: decode-shaped calls (≤ this many activation rows) go to kernel K1
+KERNEL_MAX_ROWS = 256
+
+#: launches of kernel K1
+K1_LAUNCHES = cuda_build.LaunchCounter("quant_matmul_cuda")
+
+
+def infer_quant_dims(in_dim: int, codes_shape, scales_shape):
+    """(bits, group_size) from static shapes."""
+    packed = codes_shape[-1]
+    groups = scales_shape[-1]
+    bits = (32 * packed) // in_dim
+    if bits not in (2, 4, 8) or (32 * packed) % in_dim:
+        raise ValueError(f"cannot infer bits: in={in_dim} packed={packed}")
+    if in_dim % groups:
+        raise ValueError(f"cannot infer group size: in={in_dim} groups={groups}")
+    return bits, in_dim // groups
+
+
+def unpack_codes(codes: torch.Tensor, bits: int, in_dim: int) -> torch.Tensor:
+    """int32 words [..., in*bits/32] → float32 codes [..., in] (LSB-first)."""
+    per_word = 32 // bits
+    shifts = torch.arange(per_word, device=codes.device, dtype=torch.int32) * bits
+    u = (codes[..., :, None] >> shifts) & ((1 << bits) - 1)  # mask after the shift
+    return u.reshape(*codes.shape[:-1], in_dim).to(torch.float32)
+
+
+def dequantize(p, in_dim: int, dtype=torch.float32) -> torch.Tensor:
+    """Materialize the dense [out, in] weight."""
+    bits, gs = infer_quant_dims(in_dim, p["codes"].shape, p["scales"].shape)
+    c = unpack_codes(p["codes"], bits, in_dim)
+    s = torch.repeat_interleave(p["scales"].float(), gs, dim=-1)
+    b = torch.repeat_interleave(p["biases"].float(), gs, dim=-1)
+    return (c * s + b).to(dtype)
+
+
+def quant_matmul(x: torch.Tensor, p) -> torch.Tensor:
+    """x [..., in] @ dequant(W)^T → fp32 [..., out], the group
+    decomposition of the reference's ``quant_matmul_xla`` with each group's
+    scale folded into its codes: ``y = x·(s⊙c)ᵀ + Σ_g β[o,g]·Σx_g``. The
+    bias term stays an exact product of group sums; folding the scale
+    first changes only fp32 rounding, and turns the per-group partials
+    into one GEMM (no [rows, groups, out] intermediate at prefill)."""
+    in_dim = x.shape[-1]
+    bits, gs = infer_quant_dims(in_dim, p["codes"].shape, p["scales"].shape)
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, in_dim).to(torch.float32)
+    scaled = unpack_codes(p["codes"], bits, in_dim)                          # [out, in]
+    scaled *= torch.repeat_interleave(p["scales"].float(), gs, dim=-1)
+    xsum = xf.reshape(xf.shape[0], in_dim // gs, gs).sum(dim=-1)            # [B, G]
+    y = torch.addmm(xsum @ p["biases"].float().T, xf, scaled.T)
+    return y.reshape(*lead, -1)
+
+
+def _check_kernel_args(x, p):
+    codes, scales, biases = p["codes"], p["scales"], p["biases"]
+    for name, t in (("codes", codes), ("scales", scales), ("biases", biases)):
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if codes.dtype != torch.int32:
+        raise TypeError(f"codes must be int32 (uint32 words viewed), got {codes.dtype}")
+    if scales.dtype != torch.float32 or biases.dtype != torch.float32:
+        raise TypeError("scales and biases must be float32")
+    if codes.dim() != 2 or scales.shape != biases.shape or scales.shape[0] != codes.shape[0]:
+        raise ValueError(f"bad shapes codes {tuple(codes.shape)} scales "
+                         f"{tuple(scales.shape)} biases {tuple(biases.shape)}")
+
+
+def quant_matmul_cuda(x: torch.Tensor, p) -> torch.Tensor:
+    """Kernel K1: x [..., in] @ dequant(W)^T → fp32 [..., out].
+
+    A CPU tensor takes the plain :func:`quant_matmul`; a CUDA tensor
+    launches ``qs_quant_matmul`` (csrc/quant_matmul.cu) or raises."""
+    if x.device.type == "cpu":
+        return quant_matmul(x, p)
+    if x.device.type != "cuda":
+        raise ValueError(f"quant_matmul_cuda: unsupported device {x.device}")
+    in_dim = x.shape[-1]
+    bits, gs = infer_quant_dims(in_dim, p["codes"].shape, p["scales"].shape)
+    _check_kernel_args(x, p)
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, in_dim).to(torch.float32).contiguous()
+    n_out = p["codes"].shape[0]
+    y = torch.empty((xf.shape[0], n_out), dtype=torch.float32, device=x.device)
+    lib = cuda_build.library()
+    err = lib.qs_quant_matmul(
+        xf.data_ptr(), p["codes"].data_ptr(), p["scales"].data_ptr(),
+        p["biases"].data_ptr(), y.data_ptr(), xf.shape[0], in_dim, n_out, bits, gs,
+        cuda_build.stream_handle(x.device))
+    cuda_build.check(err, "qs_quant_matmul")
+    K1_LAUNCHES.add()
+    return y.reshape(*lead, n_out)
+
+
+def _rows(x) -> int:
+    n = 1
+    for d in x.shape[:-1]:
+        n *= int(d)
+    return n
+
+
+def _matmul(x, p):
+    if _rows(x) <= KERNEL_MAX_ROWS:
+        return quant_matmul_cuda(x, p)
+    return quant_matmul(x, p)
+
+
+def quant_linear(x: torch.Tensor, p) -> torch.Tensor:
+    """Quantized y = x @ W^T (+ bias), in x's dtype."""
+    y = _matmul(x, p)
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def quant_tied_lm_head(hidden: torch.Tensor, p) -> torch.Tensor:
+    """logits = hidden @ dequant(table)^T, fp32 (out = vocab)."""
+    return _matmul(hidden, p)
+
+
+def quant_embedding_lookup(p, ids: torch.Tensor, dim: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """Gather + dequantize rows of a quantized table. ids [...] → [..., dim]."""
+    bits, gs = infer_quant_dims(dim, p["codes"].shape, p["scales"].shape)
+    ids = ids.long()
+    c = unpack_codes(p["codes"][ids], bits, dim)
+    s = torch.repeat_interleave(p["scales"][ids].float(), gs, dim=-1)
+    b = torch.repeat_interleave(p["biases"][ids].float(), gs, dim=-1)
+    return (c * s + b).to(dtype)
+
+
+def dequantize_tree(params, bits: int, group_size: int = 64, dtype=torch.bfloat16,
+                    embed_keys=("embed_tokens",)):
+    """Every packed tensor back to dense ``dtype`` (the reference's
+    ``dequantize_tree``): linears become ``{"kernel": [in, out]}``, tables
+    named in ``embed_keys`` dense ``[vocab, dim]``."""
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            if "codes" in node:
+                in_dim = node["codes"].shape[-1] * 32 // bits
+                got = infer_quant_dims(in_dim, node["codes"].shape, node["scales"].shape)
+                if got != (bits, group_size):
+                    raise ValueError(f"packing mismatch at {name!r}: tree is {got[0]}-bit "
+                                     f"group-{got[1]}, caller said {bits}-bit group-{group_size}")
+                w = dequantize(node, in_dim, dtype)
+                if name in embed_keys:
+                    return w
+                out = {"kernel": w.T.contiguous()}
+                if "bias" in node:
+                    out["bias"] = node["bias"].to(dtype)
+                return out
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, name) for v in node]
+        return node
+
+    return walk(params)

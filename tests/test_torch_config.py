@@ -1,0 +1,110 @@
+"""The PyTorch port's configuration, device rules and import hygiene.
+
+- the port's copied config dataclasses equal the JAX package's, field by
+  field, for every preset;
+- asking for a CUDA device without a card raises (no silent CPU);
+- importing and running the port never imports jax;
+- a CPU call leaves the kernels' launch counters at 0.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from qwen3_asr_swift_tpu.models.qwen3_asr import config as jax_config
+from qwen3_asr_swift_tpu_torch.models.qwen3_asr import config as port_config
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _fields(obj):
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        out[f.name] = _fields(v) if dataclasses.is_dataclass(v) else v
+    return out
+
+
+@pytest.mark.parametrize("name", ["CONFIG_SMALL", "CONFIG_LARGE", "ENCODER_SMALL",
+                                  "ENCODER_LARGE", "ENCODER_ALIGNER", "DECODER_SMALL",
+                                  "DECODER_LARGE", "config_tiny"])
+def test_presets_match_reference_field_by_field(name):
+    ref, port = getattr(jax_config, name), getattr(port_config, name)
+    if callable(ref):
+        ref, port = ref(), port()
+    assert _fields(port) == _fields(ref)
+    assert [f.name for f in dataclasses.fields(port)] == [f.name for f in dataclasses.fields(ref)]
+
+
+@pytest.mark.parametrize("cls", ["AudioEncoderConfig", "TextDecoderConfig", "Qwen3ASRConfig"])
+def test_defaults_and_properties_match(cls):
+    ref, port = getattr(jax_config, cls)(), getattr(port_config, cls)()
+    assert _fields(port) == _fields(ref)
+    for prop in ("chunk_frames", "tokens_per_chunk", "chunks_per_window", "window_tokens", "head_dim"):
+        if hasattr(ref, prop):
+            assert getattr(port, prop) == getattr(ref, prop)
+
+
+def test_cuda_device_without_card_raises(monkeypatch):
+    from qwen3_asr_swift_tpu_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    with pytest.raises(ValueError):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_model_refuses_cuda_without_card(monkeypatch):
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr import Qwen3ASR, config_tiny
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Qwen3ASR.init_random(config_tiny(), 0, device="cuda", dtype=torch.float32)
+
+
+def test_port_runs_without_importing_jax():
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np, torch
+        from qwen3_asr_swift_tpu_torch.models.qwen3_asr import Qwen3ASR, config_tiny
+        from qwen3_asr_swift_tpu_torch.audio import wav_bytes
+        from qwen3_asr_swift_tpu_torch.serving import SpeechServer, build_registry
+        m = Qwen3ASR.init_random(config_tiny(), 0, device="cpu", dtype=torch.float32,
+                                 audio_buckets_s=(8,), wire_dtype="dpcm4")
+        r = m.transcribe_batch([np.zeros(8000, np.float32), np.ones(12000, np.float32) * 0.1],
+                               max_tokens=3)
+        SpeechServer(build_registry(m), port=0)
+        wav_bytes(np.zeros(160, np.float32), 16000)
+        assert len(r) == 2 and all(x.text for x in r), r
+        assert "jax" not in sys.modules, [k for k in sys.modules if k.startswith("jax")]
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=240, env=env, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("OK")
+
+
+def test_cpu_call_leaves_launch_counters_at_zero():
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr import Qwen3ASR, config_tiny
+    from qwen3_asr_swift_tpu_torch.ops.attention_int8 import K3_LAUNCHES
+    from qwen3_asr_swift_tpu_torch.ops.quant import K1_LAUNCHES
+
+    cfg = config_tiny()
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, hidden_size=128, intermediate_size=256, num_heads=4, num_kv_heads=2,
+        head_dim=32), encoder=dataclasses.replace(cfg.encoder, output_dim=128))
+    m = Qwen3ASR.init_random(cfg, 0, device="cpu", dtype=torch.float32, quant_bits=4,
+                             kv_dtype=torch.int8, audio_buckets_s=(8,))
+    before = (K1_LAUNCHES.value, K3_LAUNCHES.value)
+    m.transcribe_batch([np.zeros(16000, np.float32)], max_tokens=3)
+    assert (K1_LAUNCHES.value, K3_LAUNCHES.value) == before

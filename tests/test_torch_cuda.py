@@ -1,0 +1,144 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Marked ``cuda``: they skip (inside the test, via the ``card`` fixture)
+where torch sees no CUDA device. On the card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+Tolerances: 1e-5 relative to max |plain| for K1 and K3 (both fp32; they
+differ from the plain versions in summation order and fused multiply-adds,
+~1e-7 measured at full width); 2e-2 relative L2 for the tiny decoder's
+logits, whose activations are bf16 (packed embedding), so a bf16 rounding
+may land the other way between the card and the host.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from qwen3_asr_swift_tpu_torch.core.params import init_random_params
+from qwen3_asr_swift_tpu_torch.models.qwen3_asr import Qwen3ASR, config_tiny
+from qwen3_asr_swift_tpu_torch.models.qwen3_asr.decoder import decode_step
+from qwen3_asr_swift_tpu_torch.ops import attention_int8 as k3
+from qwen3_asr_swift_tpu_torch.ops import quant as k1
+from qwen3_asr_swift_tpu_torch.ops.kv_cache import quantize_kv
+from qwen3_asr_swift_tpu_torch.ops.sampling import SamplingOptions
+
+pytestmark = pytest.mark.cuda
+TOL = 1e-5
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def rel(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def packed(out_dim, in_dim, bits, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {"codes": torch.randint(-2**31, 2**31 - 1, (out_dim, in_dim * bits // 32),
+                                   generator=g, device=dev, dtype=torch.int32),
+            "scales": torch.rand((out_dim, in_dim // 64), generator=g, device=dev) * 0.02,
+            "biases": (torch.rand((out_dim, in_dim // 64), generator=g, device=dev) - 0.5) * 0.2}
+
+
+@pytest.mark.parametrize("rows,in_dim,out_dim,bits", [
+    (1, 1024, 4096, 4), (9, 192, 12, 4), (32, 3072, 1024, 4), (33, 2048, 100, 2),
+    (256, 1024, 300, 8), (5, 128, 31, 2)])
+def test_k1_matches_plain(card, rows, in_dim, out_dim, bits):
+    p = packed(out_dim, in_dim, bits, card, seed=rows)
+    x = torch.randn((rows, in_dim), device=card)
+    before = k1.K1_LAUNCHES.value
+    got = k1.quant_matmul_cuda(x, p)
+    torch.cuda.synchronize()
+    assert k1.K1_LAUNCHES.value == before + 1
+    assert got.shape == (rows, out_dim) and got.dtype == torch.float32
+    assert rel(got, k1.quant_matmul(x, p)) <= TOL
+
+
+def test_k1_leading_dims_and_bf16_input(card):
+    p = packed(64, 256, 4, card)
+    x = torch.randn((2, 3, 256), device=card).to(torch.bfloat16)
+    got = k1.quant_matmul_cuda(x, p)
+    assert got.shape == (2, 3, 64)
+    assert rel(got, k1.quant_matmul(x, p)) <= TOL
+
+
+def test_k1_rejects_bad_inputs(card):
+    p = packed(64, 256, 4, card)
+    x = torch.randn((2, 256), device=card)
+    with pytest.raises(TypeError):
+        k1.quant_matmul_cuda(x, dict(p, scales=p["scales"].half()))
+    with pytest.raises(ValueError):
+        k1.quant_matmul_cuda(x, dict(p, codes=p["codes"].cpu()))
+    with pytest.raises(ValueError):
+        k1.quant_matmul_cuda(x, dict(p, scales=p["scales"].t().contiguous().t()))
+
+
+@pytest.mark.parametrize("b,hq,hkv,length,d", [
+    (32, 16, 8, 580, 128), (2, 4, 2, 37, 32), (3, 8, 8, 130, 64), (1, 8, 1, 64, 128),
+    (1, 2, 1, 3, 256)])
+def test_k3_matches_plain(card, b, hq, hkv, length, d):
+    g = torch.Generator(device=card).manual_seed(length)
+    q = torch.randn((b, hq, 1, d), generator=g, device=card).to(torch.bfloat16)
+    kq, ks = quantize_kv(torch.randn((b, hkv, length, d), generator=g, device=card))
+    vq, vs = quantize_kv(torch.randn((b, hkv, length, d), generator=g, device=card))
+    valid = torch.rand((b, length), generator=g, device=card) > 0.3
+    valid[:, 0] = True
+    before = k3.K3_LAUNCHES.value
+    got = k3.decode_attention_int8(q, kq, ks, vq, vs, valid)
+    torch.cuda.synchronize()
+    assert k3.K3_LAUNCHES.value == before + 1
+    assert rel(got, k3.decode_attention_int8_ref(q, kq, ks, vq, vs, valid)) <= TOL
+
+
+def test_k3_rejects_bad_inputs(card):
+    q = torch.randn((1, 4, 1, 32), device=card)
+    kq = torch.zeros((1, 2, 8, 32), dtype=torch.int8, device=card)
+    s = torch.ones((1, 2, 8), device=card)
+    valid = torch.ones((1, 8), dtype=torch.bool, device=card)
+    with pytest.raises(TypeError):
+        k3.decode_attention_int8(q, kq.float(), s, kq, s, valid)
+    with pytest.raises(ValueError):
+        k3.decode_attention_int8(q, kq, s, kq, s, valid.to(torch.uint8))
+
+
+def test_tiny_decoder_on_card_matches_host_and_launches_kernels(card):
+    cfg = config_tiny()
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, hidden_size=128, intermediate_size=256, num_heads=4, num_kv_heads=2,
+        head_dim=32), encoder=dataclasses.replace(cfg.encoder, output_dim=128))
+    enc, dec = init_random_params(cfg, 0, quant_bits=4)
+    rng = np.random.default_rng(0)
+    clips = [(0.1 * rng.standard_normal(16000)).astype(np.float32)] * 2
+    logits, tok = {}, None
+    for where in ("cpu", "cuda"):
+        m = Qwen3ASR(cfg, enc, dec, device=where, dtype=torch.float32, kv_dtype=torch.int8,
+                     audio_buckets_s=(8,))
+        with torch.inference_mode():
+            st = m.prestage(clips)
+            audio, n_audio = m._encode(st)
+            state = m._gen_start(audio, n_audio, m._prompt(2, None, None), 4,
+                                 SamplingOptions(max_tokens=4))
+            tok = state.tokens[:, 0].cpu() if tok is None else tok
+            before = (k1.K1_LAUNCHES.value, k3.K3_LAUNCHES.value)
+            out, _ = decode_step(m.decoder_params, cfg.decoder, tok.to(m.device), state.cache)
+            after = (k1.K1_LAUNCHES.value, k3.K3_LAUNCHES.value)
+        logits[where] = out.float().cpu()
+        if where == "cuda":
+            # 2 layers × 4 packed products + LM head; 2 layers of K3
+            assert after[0] - before[0] == 9 and after[1] - before[1] == 2
+        res = m.transcribe_batch(clips, max_tokens=5)
+        assert all(r.text for r in res)
+    rel_l2 = (torch.linalg.vector_norm(logits["cuda"] - logits["cpu"])
+              / torch.linalg.vector_norm(logits["cpu"])).item()
+    assert rel_l2 <= 2e-2
