@@ -6,19 +6,32 @@
 Phases (each prints its lines; any failure raises and exits non-zero):
 
 1. device  — the card's name and power limit (nvidia-smi);
-2. build   — compile ``qwen3_asr_swift_tpu_torch/csrc/*.cu`` with nvcc;
-3. k1      — kernel K1 (packed int4/int8 group-quant matmul) against its
-             plain version at the decoder's full-width shapes;
-4. k3      — kernel K3 (int8-KV decode attention) against its plain version
+2. build   — compile ``qwen3_asr_swift_tpu_torch/csrc/*.cu`` with nvcc,
+             one process per source, all started together;
+3. k1      — kernel K1 (packed 2/4/8-bit group-quant matmul, fp32) against
+             its plain version at the decoder's full-width shapes;
+4. k2      — kernel K2 (the bit-plane variant with bf16 planes on the
+             tensor cores) against its plain version at the same shapes,
+             rows 16 and 32, 1 and 256, 2-, 4- and 8-bit;
+5. k3      — kernel K3 (int8-KV decode attention) against its plain version
              at B=32, Hq 16, Hkv 8, D 128, L 580 with holes in ``valid``;
-5. step    — full-width prefill + first decode step for 2 clips of 8 s,
+6. step    — full-width prefill + first decode step for 2 clips of 8 s,
              fp32 on the card (kernels) and on the host CPU (plain
              versions), logits compared;
-6. slice   — ``transcribe_batch`` of 32 × 30 s clips, 100 tokens, packed
+7. slice   — ``transcribe_batch`` of 32 × 30 s clips, 100 tokens, packed
              4-bit decoder, int8 KV, dpcm4 wire, 15-token decode chunks;
-             the kernels' launch counters must rise by the decode's count;
-7. serve   — the same model behind ``SpeechServer`` answers 4 concurrent
-             ``POST /transcribe`` and one ``GET /health``.
+             the launch counters of K1 and K3 must rise by the decode's count;
+8. pool    — the slot pool (``SlotPoolASR``, 16 slots, 8-token ticks) under
+             ``quant.KERNEL = "plane"``: 24 clips of 3/8/15/30 s in two
+             bursts and a latency probe; every product of the tick goes
+             through K2 (its count must rise by ticks × 8 × 113) and K1
+             must not run;
+9. beam    — ``transcribe_batch`` with ``beam=4`` (K1 and K3 at 16 rows)
+             and a sampled decode (temperature, top-k, both penalties) run
+             twice with one seed: identical tokens;
+10. serve  — the same model behind ``SpeechServer`` answers 4 concurrent
+             ``POST /transcribe`` and one ``GET /health`` with the group
+             scheduler, and again through the port's slot pool.
 
 Weights are random (numpy, seed 0) at the full width of the 0.6B
 configuration. The line before the last is ``{"kernels": [...]}``; the
@@ -35,6 +48,10 @@ import time
 import numpy as np
 
 K1_TOL = 1e-4   # max|err| / max|ref|: fp32 sum order + fused multiply-adds
+# max|err| / max|ref|: K2 rounds exactly as its plain version does (bf16 x,
+# scales and code*scale products); only its fp32 tensor-core sums differ
+# from the plain version's float64 ones
+K2_TOL = 1e-4
 K3_TOL = 1e-4   # max|err| / max|ref|: fp32 sum order over 580 keys, online softmax
 # relative L2 of the first decode step's logits, card vs host CPU. The
 # decoder runs in bf16 even in an fp32 model, because the packed embedding
@@ -42,6 +59,9 @@ K3_TOL = 1e-4   # max|err| / max|ref|: fp32 sum order over 580 keys, online soft
 # another order flip single bf16 roundings, which compound over 28 layers.
 STEP_TOL = 5e-2
 SLICE_CLIPS, SLICE_CLIP_S, SLICE_TOKENS = 32, 30, 100
+POOL_SLOTS, POOL_TICK, POOL_MAX_NEW = 16, 8, 64
+POOL_SECONDS, POOL_BURSTS = (3, 8, 15, 30), (16, 8)
+DECODE_PRODUCTS = 28 * 4 + 1     # packed products of one decode step
 
 
 def log(msg: str) -> None:
@@ -108,19 +128,25 @@ def rel_err(got, ref) -> tuple:
 
 # --------------------------------------------------------------------------- #
 
-def phase_k1(dev):
+HIDDEN, INTER, VOCAB, NQ, NKV = 1024, 3072, 151936, 16 * 128, 2 * 8 * 128
+
+
+def step_cases(rows: int, per_step: int):
+    """(name, rows, in, out, bits, calls per decode step) of one decode step."""
+    return [("qkv", rows, HIDDEN, NQ + NKV, 4, 28 * per_step),
+            ("o", rows, NQ, HIDDEN, 4, 28 * per_step),
+            ("gate_up", rows, HIDDEN, 2 * INTER, 4, 28 * per_step),
+            ("down", rows, INTER, HIDDEN, 4, 28 * per_step),
+            ("lm_head", rows, HIDDEN, VOCAB, 4, per_step)]
+
+
+def packed_pair(dev, label, kernel, plain, cases, tol, seed):
+    """A packed-matmul kernel against its plain version at each case's shape;
+    returns (worst max-abs error, [kernel, plain] CUDA-event ms and
+    [kernel, plain] device ms summed over one decode step's calls)."""
     import torch
 
-    from qwen3_asr_swift_tpu_torch.ops import quant
-
-    g = torch.Generator(device=dev).manual_seed(0)
-    hidden, inter, vocab, nq, nkv = 1024, 3072, 151936, 16 * 128, 2 * 8 * 128
-    # (name, rows, in, out, bits, calls per decode step)
-    cases = [("qkv", 32, hidden, nq + nkv, 4, 28), ("o", 32, nq, hidden, 4, 28),
-             ("gate_up", 32, hidden, 2 * inter, 4, 28), ("down", 32, inter, hidden, 4, 28),
-             ("lm_head", 32, hidden, vocab, 4, 1),
-             ("qkv_rows1", 1, hidden, nq + nkv, 4, 0), ("qkv_rows256", 256, hidden, nq + nkv, 4, 0),
-             ("qkv_bits8", 32, hidden, nq + nkv, 8, 0)]
+    g = torch.Generator(device=dev).manual_seed(seed)
     worst, step, step_dev = 0.0, [0.0, 0.0], [0.0, 0.0]
     for name, rows, d_in, d_out, bits, per_step in cases:
         def make():
@@ -131,21 +157,32 @@ def phase_k1(dev):
             return torch.randn((rows, d_in), generator=g, device=dev), p
 
         sets = input_sets(make, d_out * (d_in * bits // 8 + 2 * 4 * d_in // 64))
-        got = quant.quant_matmul_cuda(*sets[0])
-        ref = quant.quant_matmul(*sets[0])
+        got = kernel(*sets[0])
+        ref = plain(*sets[0])
         torch.cuda.synchronize()
         err, rel = rel_err(got, ref)
-        (ms, plain_ms), (dev_ms, plain_dev_ms) = time_pair(quant.quant_matmul_cuda,
-                                                           quant.quant_matmul, sets)
-        log(f"K1 {name:12s} rows={rows:3d} in={d_in:4d} out={d_out:6d} bits={bits} "
-            f"max_abs_err={err:.3e} rel={rel:.3e} (tol {K1_TOL:g}) kernel_ms={ms:.4f} "
+        del got, ref
+        (ms, plain_ms), (dev_ms, plain_dev_ms) = time_pair(kernel, plain, sets)
+        log(f"{label} {name:12s} rows={rows:3d} in={d_in:4d} out={d_out:6d} bits={bits} "
+            f"max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:g}) kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} device: kernel_ms={dev_ms:.4f} plain_ms={plain_dev_ms:.4f}")
-        if not rel <= K1_TOL:
-            raise AssertionError(f"K1 {name}: rel error {rel} > {K1_TOL}")
+        if not rel <= tol:
+            raise AssertionError(f"{label} {name}: rel error {rel} > {tol}")
         worst = max(worst, err)
         step = [step[0] + per_step * ms, step[1] + per_step * plain_ms]
         step_dev = [step_dev[0] + per_step * dev_ms, step_dev[1] + per_step * plain_dev_ms]
         del sets
+    return worst, step, step_dev
+
+
+def phase_k1(dev):
+    from qwen3_asr_swift_tpu_torch.ops import quant
+
+    cases = step_cases(32, 1) + [
+        ("qkv_rows1", 1, HIDDEN, NQ + NKV, 4, 0), ("qkv_rows256", 256, HIDDEN, NQ + NKV, 4, 0),
+        ("qkv_bits8", 32, HIDDEN, NQ + NKV, 8, 0)]
+    worst, step, step_dev = packed_pair(dev, "K1", quant.quant_matmul_cuda, quant.quant_matmul,
+                                        cases, K1_TOL, seed=0)
     log(f"K1 per decode step (28 layers x 4 + LM head, rows 32): kernel_ms={step[0]:.4f} "
         f"plain_ms={step[1]:.4f} device: kernel_ms={step_dev[0]:.4f} plain_ms={step_dev[1]:.4f}")
     return {"name": "quant_matmul_cuda", "route": "cuda",
@@ -154,6 +191,27 @@ def phase_k1(dev):
             "max_abs_err": worst, "ms": step[0], "plain_ms": step[1],
             "device_ms": step_dev[0], "plain_device_ms": step_dev[1],
             "ms_per": "one decode step at batch 32 (28x qkv, o, gate_up, down + LM head), "
+                      "operands cold in L2"}
+
+
+def phase_k2(dev):
+    from qwen3_asr_swift_tpu_torch.ops import quant
+
+    # rows 16 (the pool's slots) carry the per-step sum; rows 32, 1, 256
+    # and the 2- and 8-bit packings are checked and timed beside them
+    cases = step_cases(16, 1) + step_cases(32, 0) + [
+        ("qkv_rows1", 1, HIDDEN, NQ + NKV, 4, 0), ("qkv_rows256", 256, HIDDEN, NQ + NKV, 4, 0),
+        ("qkv_bits2", 32, HIDDEN, NQ + NKV, 2, 0), ("qkv_bits8", 32, HIDDEN, NQ + NKV, 8, 0)]
+    worst, step, step_dev = packed_pair(dev, "K2", quant.quant_matmul_plane_cuda,
+                                        quant.quant_matmul_plane, cases, K2_TOL, seed=4)
+    log(f"K2 per decode step (28 layers x 4 + LM head, rows 16): kernel_ms={step[0]:.4f} "
+        f"plain_ms={step[1]:.4f} device: kernel_ms={step_dev[0]:.4f} plain_ms={step_dev[1]:.4f}")
+    return {"name": "quant_matmul_plane_cuda", "route": "cuda",
+            "source": "qwen3_asr_swift_tpu_torch/csrc/quant_matmul_plane.cu",
+            "replaces": "qwen3_asr_swift_tpu/ops/quant.py:208",
+            "max_abs_err": worst, "ms": step[0], "plain_ms": step[1],
+            "device_ms": step_dev[0], "plain_device_ms": step_dev[1],
+            "ms_per": "one decode step at 16 rows (28x qkv, o, gate_up, down + LM head), "
                       "operands cold in L2"}
 
 
@@ -335,16 +393,144 @@ def phase_slice(model, counters, dev_name, power):
     return launches, wall
 
 
-def phase_serve(model):
+def phase_pool(model, counters, dev_name, power):
+    """The slot pool under K2: two bursts of mixed-length clips and a
+    latency probe; every request's token list is read where ``_retire``
+    reads it."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.ops import quant
+    from qwen3_asr_swift_tpu_torch.ops.sampling import SamplingOptions
+    from qwen3_asr_swift_tpu_torch.serving import SlotPoolASR
+
+    k1, k2 = counters
+    rng = np.random.default_rng(5)
+    sr = 16000
+    n_bulk = sum(POOL_BURSTS)
+    seconds = [POOL_SECONDS[i % len(POOL_SECONDS)] for i in range(n_bulk)]
+    clips = [(0.1 * rng.standard_normal(s * sr)).astype(np.float32) for s in seconds]
+    probe = (0.1 * rng.standard_normal(2 * sr)).astype(np.float32)
+    eos = model.cfg.eos_id
+    saved = quant.KERNEL
+    quant.KERNEL = "plane"
+    try:
+        pool = SlotPoolASR(model, slots=POOL_SLOTS, tick_tokens=POOL_TICK, max_new=POOL_MAX_NEW,
+                           max_len=SlotPoolASR.max_len_for(model, 32, POOL_MAX_NEW))
+        try:
+            warm = pool.submit(probe, max_new=2)          # allocator and kernel warm-up
+            warm.result(timeout=300)
+            torch.cuda.synchronize()
+            retired = {}
+            retire = pool._retire
+
+            def capture(slot):
+                live = pool._live[slot]
+                retired[id(live.fut)] = list(live.tokens)
+                return retire(slot)
+
+            pool._retire = capture
+            ticks0 = pool._ticks
+            for c in (k1, k2):
+                c.reset()
+            t0 = time.perf_counter()
+            futs = [pool.submit(c) for c in clips[:POOL_BURSTS[0]]]
+            futs[0].result(timeout=600)
+            futs += [pool.submit(c) for c in clips[POOL_BURSTS[0]:]]
+            futs.append(pool.submit(probe, priority="latency"))
+            results = [f.result(timeout=600) for f in futs]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {c.name: c.value for c in (k1, k2)}
+            ticks = pool._ticks - ticks0
+            stats = pool.stats
+        finally:
+            pool.close()
+        tokens = [retired.get(id(f)) for f in futs]
+        n_tok = sum(len(t) for t in tokens if t is not None)
+        log(f"pool: {len(futs)} requests ({n_bulk} bulk of {sorted(set(seconds))} s + a 2 s "
+            f"latency probe), {POOL_SLOTS} slots, ticks of {POOL_TICK}: wall {wall:.3f} s, "
+            f"{len(futs) / wall:.2f} req/s, {n_tok / wall:.1f} generated tokens/s, {ticks} ticks, "
+            f"tick_ms_p50 {stats.get('tick_ms_p50')} p90 {stats.get('tick_ms_p90')}, "
+            f"admit groups {stats['admit_groups']} (mean {stats['mean_admit_group']}) on "
+            f"{dev_name} ({power}); launches {launches}")
+        for i, (toks, res) in enumerate(zip(tokens, results)):
+            if toks is None:
+                raise AssertionError(f"request {i} was not retired by the pool")
+            if not (len(toks) == POOL_MAX_NEW or (toks and toks[-1] == eos)) or not res.text:
+                raise AssertionError(f"request {i}: {len(toks)} tokens, text {res.text!r}")
+        if pool._fb_thread is not None:
+            raise AssertionError("a request went to the fallback worker")
+        need = ticks * POOL_TICK * DECODE_PRODUCTS
+        if launches["quant_matmul_plane_cuda"] < need:
+            raise AssertionError(f"K2 launches {launches} below {need}")
+        if launches["quant_matmul_cuda"] != 0:
+            raise AssertionError(f"K1 ran in the plane phase: {launches}")
+        # information: the solo path under the same kernel, for a sample
+        sample = list(range(0, n_bulk, 3)) + [n_bulk]
+        same = 0
+        for i in sample:
+            audio = probe if i == n_bulk else clips[i]
+            solo = model.transcribe(audio, options=SamplingOptions(max_tokens=POOL_MAX_NEW))
+            same += solo.text == results[i].text
+        log(f"pool: transcripts equal to the solo path's (K2, batch 1, the model's int8 KV "
+            f"where the pool's arena is bf16): {same} of {len(sample)}")
+    finally:
+        quant.KERNEL = saved
+    return launches
+
+
+def phase_beam_sampling(model, counters):
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.ops.sampling import SamplingOptions
+
+    rng = np.random.default_rng(6)
+    clips = [(0.1 * rng.standard_normal(8 * 16000)).astype(np.float32) for _ in range(4)]
+    n_gens = []
+    finalize = model._finalize
+
+    def capture(tokens, n_gen, *rest):
+        n_gens.append((tokens.copy(), n_gen.copy()))
+        return finalize(tokens, n_gen, *rest)
+
+    model._finalize = capture
+    try:
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        model.transcribe_batch(clips, options=SamplingOptions(max_tokens=32, beam=4))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.name: c.value for c in counters}
+        _, n_gen = n_gens[-1]
+        log(f"beam: 4 x 8 s, beam 4, 32 tokens, int8 KV: wall {wall:.3f} s, n_gen {n_gen.tolist()}, "
+            f"launches {launches}")
+        if (n_gen <= 0).any() or any(v <= 0 for v in launches.values()):
+            raise AssertionError(f"beam: n_gen {n_gen}, launches {launches}")
+        opts = SamplingOptions(max_tokens=32, temperature=0.8, top_k=50, repetition_penalty=1.1,
+                               no_repeat_ngram=3)
+        runs = []
+        for _ in range(2):
+            model.transcribe_batch(clips, options=opts, seed=7)
+            runs.append(n_gens[-1][0])
+        log(f"sampling: temperature 0.8, top-k 50, repetition 1.1, no-repeat 3-gram, seed 7 "
+            f"twice: identical tokens {bool(np.array_equal(runs[0], runs[1]))}")
+        if not np.array_equal(runs[0], runs[1]):
+            raise AssertionError("sampling with one seed drew different tokens")
+    finally:
+        del model._finalize
+
+
+def serve_requests(server, n_clips: int):
+    """Start ``server`` on a free port, POST ``n_clips`` 8 s WAVs and GET
+    /health concurrently, stop it; returns the answers and the wall time."""
     import asyncio
     import http.client
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
     from qwen3_asr_swift_tpu_torch.audio import wav_bytes
-    from qwen3_asr_swift_tpu_torch.serving import SpeechServer, build_registry
 
-    server = SpeechServer(build_registry(model), port=0)
     loop = asyncio.new_event_loop()
     thread = threading.Thread(target=loop.run_forever, daemon=True)
     thread.start()
@@ -353,7 +539,7 @@ def phase_serve(model):
         port = server._server.sockets[0].getsockname()[1]
         rng = np.random.default_rng(3)
         bodies = [wav_bytes((0.1 * rng.standard_normal(8 * 16000)).astype(np.float32), 16000)
-                  for _ in range(4)]
+                  for _ in range(n_clips)]
 
         def request(method, path, body=None):
             conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
@@ -366,24 +552,42 @@ def phase_serve(model):
                 conn.close()
 
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=5) as pool:
+        with ThreadPoolExecutor(max_workers=n_clips + 1) as pool:
             futs = [pool.submit(request, "POST", "/transcribe", b) for b in bodies]
             futs.append(pool.submit(request, "GET", "/health"))
             answers = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
-        for status, payload in answers[:4]:
+        for status, payload in answers[:n_clips]:
             if status != 200 or "text" not in payload:
                 raise AssertionError(f"/transcribe answered {status} {payload}")
-        status, payload = answers[4]
+        status, payload = answers[n_clips]
         if status != 200 or payload.get("status") != "ok":
             raise AssertionError(f"/health answered {status} {payload}")
-        log(f"serve: 4 x POST /transcribe (8 s WAV) + GET /health on port {port}: "
-            f"statuses {[a[0] for a in answers]} in {wall:.1f} s; health {json.dumps(payload)}")
+        return port, answers, wall
     finally:
         asyncio.run_coroutine_threadsafe(server.stop(), loop).result(timeout=60)
         loop.call_soon_threadsafe(loop.stop)
         thread.join(timeout=30)
         loop.close()
+
+
+def phase_serve(model):
+    from qwen3_asr_swift_tpu_torch.serving import SlotPoolASR, SpeechServer, build_registry
+
+    server = SpeechServer(build_registry(model), port=0)
+    port, answers, wall = serve_requests(server, 4)
+    log(f"serve: 4 x POST /transcribe (8 s WAV) + GET /health on port {port}: "
+        f"statuses {[a[0] for a in answers]} in {wall:.1f} s; health {json.dumps(answers[4][1])}")
+
+    server = SpeechServer(build_registry(model), port=0, scheduler="slotpool", max_batch=4)
+    port, answers, wall = serve_requests(server, 4)
+    batcher = server._batcher_for(model)
+    served = batcher.stats["requests_served"] if isinstance(batcher, SlotPoolASR) else None
+    log(f"serve (slotpool): 4 x POST /transcribe (8 s WAV) + GET /health on port {port}: "
+        f"statuses {[a[0] for a in answers]} in {wall:.1f} s; pool served {served}, "
+        f"stats {json.dumps(batcher.stats)}")
+    if not isinstance(batcher, SlotPoolASR) or served < 4:
+        raise AssertionError(f"slotpool server: batcher {type(batcher).__name__}, served {served}")
 
 
 def main() -> int:
@@ -396,7 +600,7 @@ def main() -> int:
     from qwen3_asr_swift_tpu_torch.device import resolve_device
     from qwen3_asr_swift_tpu_torch.ops import cuda_build
     from qwen3_asr_swift_tpu_torch.ops.attention_int8 import K3_LAUNCHES
-    from qwen3_asr_swift_tpu_torch.ops.quant import K1_LAUNCHES
+    from qwen3_asr_swift_tpu_torch.ops.quant import K1_LAUNCHES, K2_LAUNCHES
 
     dev = resolve_device("cuda")
     dev_name = torch.cuda.get_device_name(0)
@@ -414,18 +618,21 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
-    k1, k3 = phase_k1(dev), phase_k3(dev)
+    k1, k2, k3 = phase_k1(dev), phase_k2(dev), phase_k3(dev)
     weights = make_weights()
     phase_step(weights)
     model = build_model(*weights, "cuda", torch.bfloat16)
     launches, _ = phase_slice(model, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
     k1["launches"] = launches["quant_matmul_cuda"]
     k3["launches"] = launches["decode_attention_int8"]
+    k2["launches"] = phase_pool(model, (K1_LAUNCHES, K2_LAUNCHES), dev_name,
+                                power)["quant_matmul_plane_cuda"]
+    phase_beam_sampling(model, (K1_LAUNCHES, K3_LAUNCHES))
     phase_serve(model)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    log(json.dumps({"kernels": [k1, k3]}))
+    log(json.dumps({"kernels": [k1, k2, k3]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -9,8 +9,11 @@ The path of one ``transcribe_batch``:
    over clips (:meth:`Qwen3ASR._encode`);
 3. the static prompt ``[prefix | audio | suffix]`` prefilled into a static
    KV cache (:meth:`Qwen3ASR._gen_start`);
-4. greedy decode in chunks (:meth:`Qwen3ASR._gen_chunk`). The host
-   fetches ``done`` only at chunk boundaries, never per token.
+4. decode in chunks (:meth:`Qwen3ASR._gen_chunk`), greedy or sampled
+   (temperature, top-k, the repetition and n-gram penalties). The host
+   fetches ``done`` only at chunk boundaries, never per token. With
+   ``SamplingOptions(beam=K)`` steps 3-4 are beam search instead
+   (``beam.py``), under the dispatch gate's latency lane.
 
 The state after ``_gen_start`` and after every chunk matches the
 reference's exactly: ``tokens`` start as ``pad_id``, rows that are done
@@ -24,8 +27,8 @@ and decode chunk holds a gate slot and syncs before releasing it; a
 request's first chunk rides the latency lane, and a single gated clip runs
 encode, prefill and its first chunk under one latency slot.
 
-Not ported yet: beam search, sampling beyond greedy, the ``groupdot``
-compute mode, sharding, and ``from_pretrained``.
+Not ported yet: the ``groupdot`` compute mode, sharding, and
+``from_pretrained``.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ from ...ops.nn import embedding_lookup, tied_lm_head
 from ...ops.quant import dequantize_tree
 from ...ops.sampling import (SamplingOptions, check_supported, force_eos_after,
                              log_softmax_confidence, sample_token)
+from .beam import beam_search
 from .config import CONFIG_SMALL, Qwen3ASRConfig
 from .decoder import decode_step, fuse_for_inference, make_cache, prefill
 from .encoder import encode
@@ -100,6 +104,7 @@ class DecodeState:
     cache: KVCache
     done: torch.Tensor         # [B] bool
     last_tok: torch.Tensor     # [B] int64
+    generator: Optional[torch.Generator] = None   # temperature noise
 
 
 class Qwen3ASR(SpeechRecognitionModel):
@@ -297,9 +302,10 @@ class Qwen3ASR(SpeechRecognitionModel):
                        put(suffix_ids), put(np.full((b,), len(suffix), np.int64)))
 
     @torch.inference_mode()
-    def _gen_start(self, audio_tokens, n_audio, prompt: _Prompt, max_new: int,
-                   opts: SamplingOptions) -> DecodeState:
-        """Embed the static prompt, prefill the cache, pick token 0."""
+    def _prefill(self, audio_tokens, n_audio, prompt: _Prompt, cache_len: int, kv_dtype):
+        """Embed the static prompt ``[prefix | audio | suffix]`` and prefill
+        a new ``cache_len``-row cache. Returns (logits of each row's last
+        prompt token fp32 [B, V], cache, prompt valid map [B, T])."""
         dcfg = self.cfg.decoder
         dev = self.device
         b, pb = prompt.prefix_ids.shape
@@ -314,19 +320,28 @@ class Qwen3ASR(SpeechRecognitionModel):
             torch.arange(a_pad, device=dev)[None] < n_audio[:, None],
             torch.arange(sb, device=dev)[None] < prompt.suffix_len[:, None],
         ], dim=1)
-        t_prompt = pb + a_pad + sb
-        cache = make_cache(dcfg, b, t_prompt + max_new, self.kv_dtype, dev)
+        cache = make_cache(dcfg, b, cache_len, kv_dtype, dev)
         hidden, cache = prefill(self.decoder_params, dcfg, embeds, valid, cache)
         last_idx = pb + a_pad + prompt.suffix_len - 1
         logits = tied_lm_head(hidden[torch.arange(b, device=dev), last_idx], table)
+        return logits, cache, valid
 
+    @torch.inference_mode()
+    def _gen_start(self, audio_tokens, n_audio, prompt: _Prompt, max_new: int,
+                   opts: SamplingOptions, generator: Optional[torch.Generator] = None
+                   ) -> DecodeState:
+        """Prefill a cache with room for ``max_new`` tokens, pick token 0."""
+        t_prompt = prompt.prefix_ids.shape[1] + audio_tokens.shape[1] + prompt.suffix_ids.shape[1]
+        logits, cache, _ = self._prefill(audio_tokens, n_audio, prompt, t_prompt + max_new,
+                                         self.kv_dtype)
+        b, dev = logits.shape[0], self.device
         tokens = torch.full((b, max_new), self.cfg.pad_id, dtype=torch.int64, device=dev)
         logprobs = torch.zeros((b, max_new), dtype=torch.float32, device=dev)
-        tok0 = sample_token(logits, opts)
+        tok0 = sample_token(logits, opts, generator, tokens, 0)
         tokens[:, 0] = tok0
         logprobs[:, 0] = log_softmax_confidence(logits, tok0)
         return DecodeState(step=1, tokens=tokens, logprobs=logprobs, cache=cache,
-                           done=tok0 == self.cfg.eos_id, last_tok=tok0)
+                           done=tok0 == self.cfg.eos_id, last_tok=tok0, generator=generator)
 
     @torch.inference_mode()
     def _gen_chunk(self, state: DecodeState, end: int, opts: SamplingOptions) -> DecodeState:
@@ -335,7 +350,8 @@ class Qwen3ASR(SpeechRecognitionModel):
         for step in range(state.step, end):
             logits, _ = decode_step(self.decoder_params, self.cfg.decoder, state.last_tok,
                                     state.cache)
-            tok = force_eos_after(sample_token(logits, opts), step, opts, eos)
+            tok = sample_token(logits, opts, state.generator, state.tokens, step)
+            tok = force_eos_after(tok, step, opts, eos)
             lp = log_softmax_confidence(logits, tok)
             tok = torch.where(state.done, torch.full_like(tok, pad), tok)
             state.tokens[:, step] = tok  # rows already done write the pad they hold
@@ -350,12 +366,13 @@ class Qwen3ASR(SpeechRecognitionModel):
         return bool(state.done.all().item())  # host sync: chunk boundaries only
 
     def _generate(self, st: _StagedBatch, prompt_args, opts: SamplingOptions, priority,
-                  timings=None) -> DecodeState:
-        """Encode + prefill + chunked decode, under the dispatch gate if any."""
+                  generator: torch.Generator, timings=None):
+        """Encode + prefill + chunked decode (or beam search), under the
+        dispatch gate if any. Returns (tokens [B, max_new], logprobs)."""
         gate = self.dispatch_gate
         max_new = opts.max_tokens
         chunk = self.decode_chunk_tokens or max_new
-        fused = gate is not None and st.n_req == 1 and timings is None
+        fused = gate is not None and st.n_req == 1 and timings is None and opts.beam <= 1
         enc_prio = priority if priority is not None else (LATENCY if st.n_req == 1 else BULK)
         first_prio = LATENCY if priority is None else priority
         cont_prio = BULK if priority is None else priority
@@ -371,8 +388,19 @@ class Qwen3ASR(SpeechRecognitionModel):
             return audio
 
         def start(audio):
-            return self._gen_start(*audio, self._prompt(st.b, *prompt_args), max_new, opts)
+            return self._gen_start(*audio, self._prompt(st.b, *prompt_args), max_new, opts,
+                                   generator)
 
+        if opts.beam > 1:
+            # one monolithic search under the latency lane, as the reference
+            with gate_slot(gate, enc_prio):
+                audio = encode()
+            with gate_slot(gate, LATENCY if priority is None else priority):
+                out = beam_search(self, *audio, self._prompt(st.b, *prompt_args), max_new,
+                                  opts.beam, opts.length_penalty)
+                if gate is not None:
+                    self._sync()  # the search completes before its slot is released
+            return out
         if gate is None:
             state = start(encode())
             first_end = min(1 + chunk, max_new)
@@ -405,7 +433,7 @@ class Qwen3ASR(SpeechRecognitionModel):
                     self._gen_chunk(state, end, opts)
                     done = self._all_done(state)
             step = end
-        return state
+        return state.tokens, state.logprobs
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -431,8 +459,8 @@ class Qwen3ASR(SpeechRecognitionModel):
                          timings: Optional[dict] = None, priority: Optional[int] = None,
                          prestaged: Optional[_StagedBatch] = None) -> List[TranscriptionResult]:
         """Transcribe a batch: one audio bucket (the largest needed), one
-        prompt shape. ``seed`` is accepted for the reference's signature;
-        greedy decoding draws nothing. ``timings`` receives per-stage wall
+        prompt shape. ``seed`` seeds the ``torch.Generator`` that
+        temperature sampling draws from. ``timings`` receives per-stage wall
         times ({host_prep, encode, generate, postprocess} s) with a device
         sync at each boundary. ``prestaged`` is a :meth:`prestage` handle."""
         t_start = time.perf_counter()
@@ -443,14 +471,16 @@ class Qwen3ASR(SpeechRecognitionModel):
             self._sync()
             timings["host_prep"] = time.perf_counter() - t_start
         t_gen = time.perf_counter()
-        state = self._generate(st, (language, context), opts, priority, timings)
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        tokens, logprobs = self._generate(st, (language, context), opts, priority, generator,
+                                          timings)
         if timings is not None:
             self._sync()
             timings["generate"] = time.perf_counter() - t_gen - timings.get("encode", 0.0)
         t_post = time.perf_counter()
-        n_gen = (state.tokens != self.cfg.pad_id).sum(dim=1)
-        tokens = state.tokens.to(torch.int32).cpu().numpy()
-        logprobs = state.logprobs.cpu().numpy()
+        n_gen = (tokens != self.cfg.pad_id).sum(dim=1)
+        tokens = tokens.to(torch.int32).cpu().numpy()
+        logprobs = logprobs.cpu().numpy()
         n_gen = n_gen.cpu().numpy()
         if timings is not None:
             timings["postprocess"] = time.perf_counter() - t_post

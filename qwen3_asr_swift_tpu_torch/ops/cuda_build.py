@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-All sources compile with ``nvcc`` into ONE shared library with a plain C
-interface, loaded with ``ctypes`` — seconds per build, against minutes
-for a source that includes PyTorch's headers. The build happens at first
+Each source compiles with its own ``nvcc`` process, all started together,
+and the objects link into ONE shared library with a plain C interface,
+loaded with ``ctypes`` — seconds per build, against minutes for a source
+that includes PyTorch's headers. The build happens at first
 use, into ``qwen3_asr_swift_tpu_torch/build/`` (listed in .gitignore),
 under a name keyed by the sources' and flags' hash, so an edited source
 never loads a stale library. Nothing here runs at import time.
@@ -28,7 +29,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +37,9 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, codes, scales, biases, y, B, K, N, bits, group_size, stream
     "qs_quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, codes, scales, biases, y, xb (scratch), xsum (scratch), B, K, N, bits,
+    # group_size, stream
+    "qs_quant_matmul_plane": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k, k_scale, v, v_scale, valid, out, B, Hkv, G, L, D, scale, stream
     "qs_decode_attn_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             ctypes.c_float, _P],
@@ -102,15 +106,29 @@ def build() -> Path:
         build_info.update(seconds=0.0, path=str(out), log="", cached=True)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}\n{proc.stdout}")
-    os.replace(tmp, out)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]   # every compile runs to its end
+    try:
+        for s, p, text in zip(srcs, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s.name} ({p.returncode}):\n{text}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_info.update(seconds=time.perf_counter() - t0, path=str(out),
-                      log=proc.stderr + proc.stdout, cached=False)
+                      log="".join(logs), cached=False)
     return out
 
 

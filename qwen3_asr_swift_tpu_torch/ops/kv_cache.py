@@ -14,6 +14,10 @@ are given and return it, and ``after_prefill``/``after_token`` mutate
 
 ``dtype=torch.int8`` builds a quantized cache with per-slot symmetric
 fp32 scales.
+
+Beam search folds its hypotheses into the batch axis: :func:`repeat_cache`
+tiles every per-row buffer (scales included) and :func:`gather_cache`
+reorders rows into new buffers.
 """
 
 from __future__ import annotations
@@ -126,3 +130,23 @@ def after_token(cache: KVCache) -> KVCache:
     cache.positions += 1
     cache.cursor += 1
     return cache
+
+
+def _map_rows(cache: KVCache, fn) -> KVCache:
+    def opt(t):
+        return None if t is None else fn(t)
+
+    return KVCache(
+        layers=[LayerKV(fn(l.k), fn(l.v), opt(l.k_scale), opt(l.v_scale)) for l in cache.layers],
+        valid=fn(cache.valid), positions=fn(cache.positions), cursor=cache.cursor)
+
+
+def repeat_cache(cache: KVCache, k: int) -> KVCache:
+    """Tile every row K× along the batch axis ([B] → [B·K], beam-major
+    within each request); the cursor is shared."""
+    return _map_rows(cache, lambda t: torch.repeat_interleave(t, k, dim=0))
+
+
+def gather_cache(cache: KVCache, rows: torch.Tensor) -> KVCache:
+    """Row i of the new cache is row ``rows[i]`` of the old one."""
+    return _map_rows(cache, lambda t: t.index_select(0, rows))

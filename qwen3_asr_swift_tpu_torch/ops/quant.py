@@ -7,31 +7,46 @@ Param convention (as in the reference): a quantized linear is a dict
 LSB-first; the codes are the reference's uint32 words viewed as int32
 (core/params.py), so every unpack masks after shifting.
 
-Two compute paths, as in the reference:
+Three compute paths, as in the reference:
 
 - :func:`quant_matmul` — the plain group decomposition (the
   counterpart of ``quant_matmul_xla``). Prefill-shaped calls take it on
   every device, as the reference leaves them outside Pallas.
 - :func:`quant_matmul_cuda` — the wrapper of kernel K1
-  (``csrc/quant_matmul.cu``). For a CUDA tensor it launches the kernel or
-  raises; only for a CPU tensor does it take :func:`quant_matmul`.
+  (``csrc/quant_matmul.cu``, fp32 throughout). For a CUDA tensor it
+  launches the kernel or raises; only for a CPU tensor does it take
+  :func:`quant_matmul`.
+- :func:`quant_matmul_plane_cuda` — the wrapper of kernel K2
+  (``csrc/quant_matmul_plane.cu``), the reference's per-bit-plane Pallas
+  body with its bf16 roundings; its plain version is
+  :func:`quant_matmul_plane`, and the same CPU/CUDA rule holds.
 
 :func:`quant_linear` and :func:`quant_tied_lm_head` route decode-shaped
-calls (at most :data:`KERNEL_MAX_ROWS` activation rows) to the wrapper,
-the same row rule as the reference.
+calls (at most :data:`KERNEL_MAX_ROWS` activation rows) to the wrapper
+that :data:`KERNEL` names, the same row rule and the same
+``QUANT_KERNEL`` selection as the reference.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from . import cuda_build
 
-#: decode-shaped calls (≤ this many activation rows) go to kernel K1
+#: decode-shaped calls (≤ this many activation rows) go to kernel K1 or K2
 KERNEL_MAX_ROWS = 256
+
+#: which kernel takes decode-shaped calls: "fused" (K1, the default) or
+#: "plane" (K2), read from QUANT_KERNEL at import as the reference reads
+#: it; ``_matmul`` reads this constant at call time, so tests may set it
+KERNEL = os.environ.get("QUANT_KERNEL", "fused")
 
 #: launches of kernel K1
 K1_LAUNCHES = cuda_build.LaunchCounter("quant_matmul_cuda")
+#: launches of kernel K2
+K2_LAUNCHES = cuda_build.LaunchCounter("quant_matmul_plane_cuda")
 
 
 def infer_quant_dims(in_dim: int, codes_shape, scales_shape):
@@ -81,6 +96,28 @@ def quant_matmul(x: torch.Tensor, p) -> torch.Tensor:
     return y.reshape(*lead, -1)
 
 
+def quant_matmul_plane(x: torch.Tensor, p) -> torch.Tensor:
+    """x [..., in] @ dequant(W)^T → fp32 [..., out], the function of the
+    reference's per-bit-plane Pallas body (``_quant_matmul_kernel``) with
+    its roundings: x and the expanded group scale are cast to bf16, each
+    ``bf16(code) · bf16(scale)`` product is rounded to bf16, and the bias
+    term ``Σ_g β[o,g]·Σx_g`` comes from the unrounded x (fp32 group sums).
+    The products (exact in fp32: bf16 × bf16) are summed in float64 and
+    rounded once to fp32, so, like the kernel's fixed per-output order, the
+    result depends neither on a GEMM's summation order nor on how many rows
+    share the call; the pool and the solo path see the same row."""
+    in_dim = x.shape[-1]
+    bits, gs = infer_quant_dims(in_dim, p["codes"].shape, p["scales"].shape)
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, in_dim).to(torch.float32)
+    s_exp = torch.repeat_interleave(p["scales"].float(), gs, dim=-1).to(torch.bfloat16)
+    w = unpack_codes(p["codes"], bits, in_dim).to(torch.bfloat16) * s_exp   # bf16 rounding
+    xsum = xf.reshape(xf.shape[0], in_dim // gs, gs).sum(dim=-1)            # [B, G] fp32
+    y = torch.addmm(xsum.double() @ p["biases"].double().T,
+                    xf.to(torch.bfloat16).double(), w.double().T)
+    return y.float().reshape(*lead, -1)
+
+
 def _check_kernel_args(x, p):
     codes, scales, biases = p["codes"], p["scales"], p["biases"]
     for name, t in (("codes", codes), ("scales", scales), ("biases", biases)):
@@ -97,6 +134,16 @@ def _check_kernel_args(x, p):
                          f"{tuple(scales.shape)} biases {tuple(biases.shape)}")
 
 
+def _kernel_operands(x, p, what: str):
+    """What both kernels' wrappers check on a CUDA tensor. Returns (x as
+    contiguous fp32 [rows, in], bits, group size)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    bits, gs = infer_quant_dims(x.shape[-1], p["codes"].shape, p["scales"].shape)
+    _check_kernel_args(x, p)
+    return x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous(), bits, gs
+
+
 def quant_matmul_cuda(x: torch.Tensor, p) -> torch.Tensor:
     """Kernel K1: x [..., in] @ dequant(W)^T → fp32 [..., out].
 
@@ -104,23 +151,45 @@ def quant_matmul_cuda(x: torch.Tensor, p) -> torch.Tensor:
     launches ``qs_quant_matmul`` (csrc/quant_matmul.cu) or raises."""
     if x.device.type == "cpu":
         return quant_matmul(x, p)
-    if x.device.type != "cuda":
-        raise ValueError(f"quant_matmul_cuda: unsupported device {x.device}")
-    in_dim = x.shape[-1]
-    bits, gs = infer_quant_dims(in_dim, p["codes"].shape, p["scales"].shape)
-    _check_kernel_args(x, p)
-    lead = x.shape[:-1]
-    xf = x.reshape(-1, in_dim).to(torch.float32).contiguous()
-    n_out = p["codes"].shape[0]
-    y = torch.empty((xf.shape[0], n_out), dtype=torch.float32, device=x.device)
-    lib = cuda_build.library()
-    err = lib.qs_quant_matmul(
+    xf, bits, gs = _kernel_operands(x, p, "quant_matmul_cuda")
+    (rows, in_dim), n_out = xf.shape, p["codes"].shape[0]
+    y = torch.empty((rows, n_out), dtype=torch.float32, device=x.device)
+    err = cuda_build.library().qs_quant_matmul(
         xf.data_ptr(), p["codes"].data_ptr(), p["scales"].data_ptr(),
-        p["biases"].data_ptr(), y.data_ptr(), xf.shape[0], in_dim, n_out, bits, gs,
+        p["biases"].data_ptr(), y.data_ptr(), rows, in_dim, n_out, bits, gs,
         cuda_build.stream_handle(x.device))
     cuda_build.check(err, "qs_quant_matmul")
     K1_LAUNCHES.add()
-    return y.reshape(*lead, n_out)
+    return y.reshape(*x.shape[:-1], n_out)
+
+
+def quant_matmul_plane_cuda(x: torch.Tensor, p) -> torch.Tensor:
+    """Kernel K2: :func:`quant_matmul_plane` of x [..., in] → fp32 [..., out].
+
+    A CPU tensor takes the plain :func:`quant_matmul_plane`; a CUDA tensor
+    launches ``qs_quant_matmul_plane`` (csrc/quant_matmul_plane.cu) or
+    raises. x arrives in fp32 in its natural layout; the kernel rounds it
+    to bf16 and sums its groups into two scratch buffers allocated here,
+    and forms each plane itself."""
+    if x.device.type == "cpu":
+        return quant_matmul_plane(x, p)
+    xf, bits, gs = _kernel_operands(x, p, "quant_matmul_plane_cuda")
+    (rows, in_dim), n_out = xf.shape, p["codes"].shape[0]
+    if in_dim % 32 or gs % 8:
+        raise ValueError(f"K2 takes in % 32 == 0 and a group size that is a multiple of 8 "
+                         f"(in {in_dim}, group {gs})")
+    if p["codes"].data_ptr() % 8:   # 8-bit codes are read as uint2
+        raise ValueError("codes must be 8-byte aligned")
+    y = torch.empty((rows, n_out), dtype=torch.float32, device=x.device)
+    xb = torch.empty((rows, in_dim), dtype=torch.bfloat16, device=x.device)   # scratch
+    xsum = torch.empty((rows, in_dim // gs), dtype=torch.float32, device=x.device)
+    err = cuda_build.library().qs_quant_matmul_plane(
+        xf.data_ptr(), p["codes"].data_ptr(), p["scales"].data_ptr(),
+        p["biases"].data_ptr(), y.data_ptr(), xb.data_ptr(), xsum.data_ptr(), rows, in_dim,
+        n_out, bits, gs, cuda_build.stream_handle(x.device))
+    cuda_build.check(err, "qs_quant_matmul_plane")
+    K2_LAUNCHES.add()
+    return y.reshape(*x.shape[:-1], n_out)
 
 
 def _rows(x) -> int:
@@ -131,9 +200,13 @@ def _rows(x) -> int:
 
 
 def _matmul(x, p):
-    if _rows(x) <= KERNEL_MAX_ROWS:
-        return quant_matmul_cuda(x, p)
-    return quant_matmul(x, p)
+    if KERNEL not in ("fused", "plane"):
+        raise ValueError(f"QUANT_KERNEL must be 'fused' or 'plane', got {KERNEL!r}")
+    if _rows(x) > KERNEL_MAX_ROWS:
+        return quant_matmul(x, p)
+    if KERNEL == "plane":
+        return quant_matmul_plane_cuda(x, p)
+    return quant_matmul_cuda(x, p)
 
 
 def quant_linear(x: torch.Tensor, p) -> torch.Tensor:

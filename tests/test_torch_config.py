@@ -72,18 +72,43 @@ def test_model_refuses_cuda_without_card(monkeypatch):
 
 def test_port_runs_without_importing_jax():
     code = textwrap.dedent("""
-        import sys
+        import asyncio, http.client, json, sys
         import numpy as np, torch
         from qwen3_asr_swift_tpu_torch.models.qwen3_asr import Qwen3ASR, config_tiny
         from qwen3_asr_swift_tpu_torch.audio import wav_bytes
-        from qwen3_asr_swift_tpu_torch.serving import SpeechServer, build_registry
+        from qwen3_asr_swift_tpu_torch.ops.sampling import SamplingOptions
+        from qwen3_asr_swift_tpu_torch.serving import SlotPoolASR, SpeechServer, build_registry
         m = Qwen3ASR.init_random(config_tiny(), 0, device="cpu", dtype=torch.float32,
                                  audio_buckets_s=(8,), wire_dtype="dpcm4")
-        r = m.transcribe_batch([np.zeros(8000, np.float32), np.ones(12000, np.float32) * 0.1],
-                               max_tokens=3)
-        SpeechServer(build_registry(m), port=0)
-        wav_bytes(np.zeros(160, np.float32), 16000)
+        clips = [np.zeros(8000, np.float32), np.ones(12000, np.float32) * 0.1]
+        r = m.transcribe_batch(clips, max_tokens=3)
         assert len(r) == 2 and all(x.text for x in r), r
+        r = m.transcribe_batch(clips, options=SamplingOptions(max_tokens=3, beam=2))
+        assert len(r) == 2 and all(x.text for x in r), r
+        r = m.transcribe_batch(clips, options=SamplingOptions(
+            max_tokens=3, temperature=0.8, top_k=5, repetition_penalty=1.1), seed=3)
+        assert len(r) == 2 and all(x.text for x in r), r
+        srv = SpeechServer(build_registry(m), port=0, scheduler="slotpool", max_batch=2)
+        srv._batchers[id(m)] = SlotPoolASR(m, slots=2, max_new=3, max_len=256)
+
+        async def serve():
+            await srv.start()
+            port = srv._server.sockets[0].getsockname()[1]
+
+            def post():
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+                conn.request("POST", "/transcribe", wav_bytes(clips[1], 16000),
+                             {"Content-Type": "audio/wav"})
+                resp = conn.getresponse()
+                return resp.status, json.loads(resp.read())
+
+            try:
+                return await asyncio.get_running_loop().run_in_executor(None, post)
+            finally:
+                await srv.stop()
+
+        status, body = asyncio.run(serve())
+        assert status == 200 and body["text"], (status, body)
         assert "jax" not in sys.modules, [k for k in sys.modules if k.startswith("jax")]
         print("OK")
     """)
@@ -94,10 +119,11 @@ def test_port_runs_without_importing_jax():
     assert out.stdout.strip().endswith("OK")
 
 
-def test_cpu_call_leaves_launch_counters_at_zero():
+def test_cpu_call_leaves_launch_counters_at_zero(monkeypatch):
     from qwen3_asr_swift_tpu_torch.models.qwen3_asr import Qwen3ASR, config_tiny
+    from qwen3_asr_swift_tpu_torch.ops import quant
     from qwen3_asr_swift_tpu_torch.ops.attention_int8 import K3_LAUNCHES
-    from qwen3_asr_swift_tpu_torch.ops.quant import K1_LAUNCHES
+    from qwen3_asr_swift_tpu_torch.ops.quant import K1_LAUNCHES, K2_LAUNCHES
 
     cfg = config_tiny()
     cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
@@ -105,6 +131,8 @@ def test_cpu_call_leaves_launch_counters_at_zero():
         head_dim=32), encoder=dataclasses.replace(cfg.encoder, output_dim=128))
     m = Qwen3ASR.init_random(cfg, 0, device="cpu", dtype=torch.float32, quant_bits=4,
                              kv_dtype=torch.int8, audio_buckets_s=(8,))
-    before = (K1_LAUNCHES.value, K3_LAUNCHES.value)
+    before = (K1_LAUNCHES.value, K2_LAUNCHES.value, K3_LAUNCHES.value)
     m.transcribe_batch([np.zeros(16000, np.float32)], max_tokens=3)
-    assert (K1_LAUNCHES.value, K3_LAUNCHES.value) == before
+    monkeypatch.setattr(quant, "KERNEL", "plane")
+    m.transcribe_batch([np.zeros(16000, np.float32)], max_tokens=3)
+    assert (K1_LAUNCHES.value, K2_LAUNCHES.value, K3_LAUNCHES.value) == before

@@ -7,7 +7,8 @@ where torch sees no CUDA device. On the card:
 
 Tolerances: 1e-5 relative to max |plain| for K1 and K3 (both fp32; they
 differ from the plain versions in summation order and fused multiply-adds,
-~1e-7 measured at full width); 2e-2 relative L2 for the tiny decoder's
+~1e-7 measured at full width) and for K2 (its bf16 roundings are the plain
+version's, bit for bit; only the fp32 sum order differs); 2e-2 relative L2 for the tiny decoder's
 logits, whose activations are bf16 (packed embedding), so a bf16 rounding
 may land the other way between the card and the host.
 """
@@ -82,6 +83,55 @@ def test_k1_rejects_bad_inputs(card):
         k1.quant_matmul_cuda(x, dict(p, codes=p["codes"].cpu()))
     with pytest.raises(ValueError):
         k1.quant_matmul_cuda(x, dict(p, scales=p["scales"].t().contiguous().t()))
+
+
+@pytest.mark.parametrize("rows,in_dim,out_dim,bits", [
+    (16, 1024, 4096, 4), (16, 2048, 1024, 4), (16, 1024, 6144, 4), (16, 3072, 1024, 4),
+    (32, 1024, 4096, 4), (1, 1024, 4096, 4), (256, 1024, 4096, 4), (32, 1024, 4096, 2),
+    (32, 1024, 4096, 8), (33, 2048, 100, 2), (5, 128, 31, 8), (9, 64, 12, 4),
+    (70, 1024, 9000, 4), (256, 1024, 151936, 4)])
+def test_k2_matches_plain(card, rows, in_dim, out_dim, bits):
+    p = packed(out_dim, in_dim, bits, card, seed=rows)
+    x = torch.randn((rows, in_dim), device=card)
+    before = k1.K2_LAUNCHES.value
+    got = k1.quant_matmul_plane_cuda(x, p)
+    torch.cuda.synchronize()
+    assert k1.K2_LAUNCHES.value == before + 1
+    assert got.shape == (rows, out_dim) and got.dtype == torch.float32
+    assert rel(got, k1.quant_matmul_plane(x, p)) <= TOL
+
+
+def test_k2_rows_do_not_depend_on_the_batch(card):
+    """An output row is the same whether 1, 7 or 40 rows share the call."""
+    for out_dim in (300, 9000):   # one and two m-tiles per block
+        p = packed(out_dim, 1024, 4, card, seed=3)
+        x = torch.randn((40, 1024), device=card)
+        full = k1.quant_matmul_plane_cuda(x, p)
+        for n in (1, 7, 33):
+            assert torch.equal(k1.quant_matmul_plane_cuda(x[:n], p), full[:n])
+
+
+def test_k2_lm_head_and_bf16_input(card):
+    p = packed(151936, 1024, 4, card, seed=4)
+    x = torch.randn((2, 8, 1024), device=card).to(torch.bfloat16)
+    got = k1.quant_matmul_plane_cuda(x, p)
+    assert got.shape == (2, 8, 151936)
+    assert rel(got, k1.quant_matmul_plane(x, p)) <= TOL
+
+
+def test_k2_rejects_bad_inputs(card):
+    p = packed(64, 256, 4, card)
+    x = torch.randn((2, 256), device=card)
+    with pytest.raises(TypeError):
+        k1.quant_matmul_plane_cuda(x, dict(p, scales=p["scales"].half()))
+    with pytest.raises(ValueError):
+        k1.quant_matmul_plane_cuda(x, dict(p, codes=p["codes"].cpu()))
+    with pytest.raises(ValueError):
+        k1.quant_matmul_plane_cuda(x, dict(p, biases=p["biases"].t().contiguous().t()))
+    q = {"codes": torch.zeros((64, 6), dtype=torch.int32, device=card),  # in 48, group 16
+         "scales": torch.ones((64, 3), device=card), "biases": torch.zeros((64, 3), device=card)}
+    with pytest.raises(ValueError, match="multiple of 32|% 32"):
+        k1.quant_matmul_plane_cuda(torch.randn((2, 48), device=card), q)
 
 
 @pytest.mark.parametrize("b,hq,hkv,length,d", [

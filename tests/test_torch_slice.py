@@ -163,7 +163,8 @@ def test_timings_and_memory_stats(weights, clips):
     assert model.memory_stats().parameter_bytes > 0
     model.warm_up(max_tokens=2)
     assert model.is_loaded
-    with pytest.raises(NotImplementedError):
-        model.transcribe_batch(clips, options=SamplingOptions(max_tokens=3, temperature=0.7))
+    with pytest.raises(ValueError, match="requires greedy scoring"):
+        model.transcribe_batch(clips, options=SamplingOptions(max_tokens=3, temperature=0.7,
+                                                              beam=2))
     with pytest.raises(NotImplementedError):
         port_model(weights, "groupdot", None, np.float32)
