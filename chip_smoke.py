@@ -9,12 +9,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 2. build   — compile ``qwen3_asr_swift_tpu_torch/csrc/*.cu`` with nvcc,
              one process per source, all started together;
 3. k1      — kernel K1 (packed 2/4/8-bit group-quant matmul, fp32) against
-             its plain version at the decoder's full-width shapes;
+             its plain version at the decoder's full-width shapes, rows 32
+             (bf16 x, as the slice gives it, and fp32 x), 1, 33 and 256;
 4. k2      — kernel K2 (the bit-plane variant with bf16 planes on the
              tensor cores) against its plain version at the same shapes,
-             rows 16 and 32, 1 and 256, 2-, 4- and 8-bit;
+             rows 16 (bf16 x, as the pool gives it, and fp32 x), 32, 1, 33
+             and 256, 2-, 4- and 8-bit;
 5. k3      — kernel K3 (int8-KV decode attention) against its plain version
-             at B=32, Hq 16, Hkv 8, D 128, L 580 with holes in ``valid``;
+             at B=32, Hq 16, Hkv 8, D 128, L 580 with holes in ``valid``.
+   Each case of k1-k3 also prints its bound (the larger of its bytes over
+   3.35 TB/s and its FLOPs over the card's peak for its operand types, and
+   which binds) and the device time of one PyTorch call computing the same
+   product (K1: fp32 ``torch.mm`` on the dequantized weight, TF32 off; K2:
+   bf16 ``torch.mm`` on its bf16 code*scale products, bias left out; K3:
+   ``scaled_dot_product_attention`` on the cache dequantized to fp32),
+   with operands cold in L2; each sums over one decode step;
 6. step    — full-width prefill + first decode step for 2 clips of 8 s,
              fp32 on the card (kernels) and on the host CPU (plain
              versions), logits compared;
@@ -34,8 +43,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              scheduler, and again through the port's slot pool.
 
 Weights are random (numpy, seed 0) at the full width of the 0.6B
-configuration. The line before the last is ``{"kernels": [...]}``; the
-last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+configuration. The line before the last is ``{"kernels": [...]}`` (each
+entry with its launches in the main path's run, its bound and its library
+time); the last line is ``{"ok": true, "device": {...}}``. Imports nothing
+of JAX nor of the JAX package, and checks so before the last lines.
 """
 
 from __future__ import annotations
@@ -58,6 +69,15 @@ K3_TOL = 1e-4   # max|err| / max|ref|: fp32 sum order over 580 keys, online soft
 # lookup returns bf16 rows (as the reference's does); fp32 sums taken in
 # another order flip single bf16 roundings, which compound over 28 layers.
 STEP_TOL = 5e-2
+# the published peaks of one H100 SXM (dense), for the bounds: a product's
+# operations are priced at the card's peak for its operand types, whatever
+# pipe the kernel runs on today
+HBM_BYTES_S = 3.35e12
+PEAK_BF16_TC = 989e12       # bf16 tensor cores
+# peak per x dtype of K1, whose codes are exact in bf16: bf16 x enters the
+# bf16 tensor cores as it is; fp32 x exactly only as hi + lo bf16, two passes
+K1_PEAK = {"bfloat16": PEAK_BF16_TC, "float32": PEAK_BF16_TC / 2}
+K2_PEAK = {"bfloat16": PEAK_BF16_TC, "float32": PEAK_BF16_TC}  # K2 rounds x to bf16
 SLICE_CLIPS, SLICE_CLIP_S, SLICE_TOKENS = 32, 30, 100
 POOL_SLOTS, POOL_TICK, POOL_MAX_NEW = 16, 8, 64
 POOL_SECONDS, POOL_BURSTS = (3, 8, 15, 30), (16, 8)
@@ -82,43 +102,88 @@ def input_sets(make, bytes_per_set: int, cold_bytes: int = 192 << 20):
     return [make() for _ in range(max(2, -(-cold_bytes // bytes_per_set)))]
 
 
-def time_pair(fn_kernel, fn_plain, sets, iters: int = 24, warmup: int = 3):
-    """Per-call times of a kernel and its plain version, cycling through
-    ``sets`` of arguments, in turns: plain, kernel, kernel, plain. Returns
-    ((kernel_ms, plain_ms) from CUDA events around the loop, launch gaps
-    included; (kernel_ms, plain_ms) of device time from the profiler)."""
+def time_turns(calls, iters: int = 24, warmup: int = 3):
+    """Per-call times of several functions, each cycling through its own
+    ``sets`` of arguments, in turns: a, b, ..., ..., b, a. ``calls`` is a
+    list of (fn, sets). Returns one (wall_ms, device_ms, device_source)
+    triple per call: wall from CUDA events around the loop, launch gaps
+    included; device time from the profiler (every kernel the call
+    launched), or from CUDA events around each call where the profiler kept
+    dropping events (``device_source`` says which)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def loop(fn):
-        for i in range(iters):
+    def loop(fn, sets, n):
+        for i in range(n):
             fn(*sets[i % len(sets)])
 
-    def wall(fn):
+    def wall(fn, sets):
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         ev0.record()
-        loop(fn)
+        loop(fn, sets, iters)
         ev1.record()
         torch.cuda.synchronize()
         return ev0.elapsed_time(ev1) / iters
 
-    def device(fn):
+    def kernels_in(fn, sets, n):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            loop(fn)
+            loop(fn, sets, n)
             torch.cuda.synchronize()
-        return sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA) / 1e3 / iters
+        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    def device(fn, sets):
+        # the profiler now and then drops a window's device events. A timed
+        # window counts only if its kernels per call are the most that any
+        # window showed (two windows of ``warmup`` calls, then each timed
+        # one) and at least one other window showed as many; after five
+        # that do not, the time is CUDA events around each call (launch
+        # gaps included), and the source says so
+        per_call = [len(kernels_in(fn, sets, warmup)) / warmup for _ in range(2)]
+        for _ in range(5):
+            kernels = kernels_in(fn, sets, iters)
+            per_call.append(len(kernels) / iters)
+            top = max(per_call)
+            if top and per_call[-1] == top and per_call.count(top) >= 2:
+                return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters, "profiler"
+        log(f"  (the profiler's kernels per call in seven windows: {per_call}: device time "
+            f"from CUDA events around each call)")
+        evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+               for _ in range(iters)]
+        for i, (ev0, ev1) in enumerate(evs):
+            ev0.record()
+            fn(*sets[i % len(sets)])
+            ev1.record()
+        torch.cuda.synchronize()
+        return sum(ev0.elapsed_time(ev1) for ev0, ev1 in evs) / iters, "cuda_events"
 
     for i in range(warmup):
-        fn_plain(*sets[i % len(sets)])
-        fn_kernel(*sets[i % len(sets)])
+        for fn, sets in calls:
+            fn(*sets[i % len(sets)])
     torch.cuda.synchronize()
-    out = []
-    for measure in (wall, device):
-        p1, k1, k2, p2 = measure(fn_plain), measure(fn_kernel), measure(fn_kernel), measure(fn_plain)
-        out.append(((k1 + k2) / 2, (p1 + p2) / 2))
-    return out
+    order = list(range(len(calls))) + list(reversed(range(len(calls))))
+    out = [[0.0, 0.0, "profiler"] for _ in calls]
+    for j in order:
+        out[j][0] += wall(*calls[j]) / 2
+    for j in order:
+        ms, source = device(*calls[j])
+        out[j][1] += ms / 2
+        if source != "profiler":
+            out[j][2] = source
+    return [tuple(t) for t in out]
+
+
+def bound(n_bytes: float, flops: float, peak_flops: float):
+    """(ms, what binds): the least time the card could take, the larger of
+    the bytes over the memory rate and the operations over the peak of the
+    pipe the kernel uses."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_source(from_events) -> str:
+    """Where a kernel's device times came from, for its ``kernels`` entry."""
+    return "profiler" + (f"; CUDA events for {', '.join(from_events)}" if from_events else "")
 
 
 def rel_err(got, ref) -> tuple:
@@ -131,92 +196,177 @@ def rel_err(got, ref) -> tuple:
 HIDDEN, INTER, VOCAB, NQ, NKV = 1024, 3072, 151936, 16 * 128, 2 * 8 * 128
 
 
-def step_cases(rows: int, per_step: int):
-    """(name, rows, in, out, bits, calls per decode step) of one decode step."""
-    return [("qkv", rows, HIDDEN, NQ + NKV, 4, 28 * per_step),
-            ("o", rows, NQ, HIDDEN, 4, 28 * per_step),
-            ("gate_up", rows, HIDDEN, 2 * INTER, 4, 28 * per_step),
-            ("down", rows, INTER, HIDDEN, 4, 28 * per_step),
-            ("lm_head", rows, HIDDEN, VOCAB, 4, per_step)]
+def step_cases(rows: int, per_step: int, xdt="float32"):
+    """(name, rows, in, out, bits, calls per decode step, x dtype) of one
+    decode step."""
+    return [("qkv", rows, HIDDEN, NQ + NKV, 4, 28 * per_step, xdt),
+            ("o", rows, NQ, HIDDEN, 4, 28 * per_step, xdt),
+            ("gate_up", rows, HIDDEN, 2 * INTER, 4, 28 * per_step, xdt),
+            ("down", rows, INTER, HIDDEN, 4, 28 * per_step, xdt),
+            ("lm_head", rows, HIDDEN, VOCAB, 4, per_step, xdt)]
 
 
-def packed_pair(dev, label, kernel, plain, cases, tol, seed):
-    """A packed-matmul kernel against its plain version at each case's shape;
-    returns (worst max-abs error, [kernel, plain] CUDA-event ms and
-    [kernel, plain] device ms summed over one decode step's calls)."""
+def packed_pair(dev, label, kernel, plain, library, cases, tol, seed, peak):
+    """A packed-matmul kernel against its plain version at each case's
+    shape, timed beside its library yardstick. ``library(x, p)`` returns
+    (fn, args) with the yardstick's operands materialised (not timed);
+    ``peak`` maps the x dtype to the FLOP/s of the bound. Returns (worst
+    max-abs error, sums over one decode step's calls of: kernel and plain
+    CUDA-event ms, kernel and plain device ms, bound ms, library device ms;
+    the bound's binding term of the largest call; and the cases whose
+    device times are CUDA events, not the profiler's)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    worst, step, step_dev = 0.0, [0.0, 0.0], [0.0, 0.0]
-    for name, rows, d_in, d_out, bits, per_step in cases:
+    worst = 0.0
+    step = dict(ms=0.0, plain_ms=0.0, device_ms=0.0, plain_device_ms=0.0, bound_ms=0.0,
+                library_ms=0.0)
+    bound_by, top = None, 0.0
+    from_events = []   # cases whose device times are CUDA events, not the profiler
+    for name, rows, d_in, d_out, bits, per_step, xdt in cases:
         def make():
             p = {"codes": torch.randint(-2**31, 2**31 - 1, (d_out, d_in * bits // 32),
                                         generator=g, device=dev, dtype=torch.int32),
                  "scales": torch.rand((d_out, d_in // 64), generator=g, device=dev) * 0.02,
                  "biases": (torch.rand((d_out, d_in // 64), generator=g, device=dev) - 0.5) * 0.2}
-            return torch.randn((rows, d_in), generator=g, device=dev), p
+            x = torch.randn((rows, d_in), generator=g, device=dev).to(getattr(torch, xdt))
+            return x, p
 
-        sets = input_sets(make, d_out * (d_in * bits // 8 + 2 * 4 * d_in // 64))
+        w_bytes = d_out * (d_in * bits // 8 + 2 * 4 * d_in // 64)
+        sets = input_sets(make, w_bytes)
         got = kernel(*sets[0])
         ref = plain(*sets[0])
         torch.cuda.synchronize()
         err, rel = rel_err(got, ref)
         del got, ref
-        (ms, plain_ms), (dev_ms, plain_dev_ms) = time_pair(kernel, plain, sets)
-        log(f"{label} {name:12s} rows={rows:3d} in={d_in:4d} out={d_out:6d} bits={bits} "
+        lib_fn, lib0 = library(*sets[0])
+        lib_sets = input_sets(lambda: library(*make())[1], sum(
+            t.numel() * t.element_size() for t in lib0))
+        timed = time_turns([(kernel, sets), (plain, sets), (lib_fn, lib_sets)])
+        (ms, dev_ms, _), (plain_ms, plain_dev_ms, _), (_, lib_dev_ms, _) = timed
+        from_events += [f"{name} x={xdt} {what}"
+                        for what, t in zip(("kernel", "plain", "library"), timed)
+                        if t[2] != "profiler"]
+        x_bytes = rows * d_in * sets[0][0].element_size()
+        b_ms, b_by = bound(w_bytes + x_bytes + rows * d_out * 4, 2 * rows * d_out * d_in,
+                           peak[xdt])
+        log(f"{label} {name:12s} rows={rows:3d} in={d_in:4d} out={d_out:6d} bits={bits} x={xdt} "
             f"max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:g}) kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} device: kernel_ms={dev_ms:.4f} plain_ms={plain_dev_ms:.4f}")
+            f"plain_ms={plain_ms:.4f} device: kernel_ms={dev_ms:.4f} plain_ms={plain_dev_ms:.4f} "
+            f"library_ms={lib_dev_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"bound/kernel={b_ms / dev_ms:.3f} kernel/library={dev_ms / lib_dev_ms:.2f}")
         if not rel <= tol:
             raise AssertionError(f"{label} {name}: rel error {rel} > {tol}")
         worst = max(worst, err)
-        step = [step[0] + per_step * ms, step[1] + per_step * plain_ms]
-        step_dev = [step_dev[0] + per_step * dev_ms, step_dev[1] + per_step * plain_dev_ms]
-        del sets
-    return worst, step, step_dev
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("device_ms", dev_ms),
+                     ("plain_device_ms", plain_dev_ms), ("bound_ms", b_ms),
+                     ("library_ms", lib_dev_ms)):
+            step[k] += per_step * v
+        if per_step and per_step * b_ms > top:
+            top, bound_by = per_step * b_ms, b_by
+        del sets, lib_sets, lib0
+    return worst, step, bound_by, from_events
+
+
+def log_step(label, what, step):
+    log(f"{label} per decode step ({what}): kernel_ms={step['ms']:.4f} "
+        f"plain_ms={step['plain_ms']:.4f} device: kernel_ms={step['device_ms']:.4f} "
+        f"plain_ms={step['plain_device_ms']:.4f} library_ms={step['library_ms']:.4f} "
+        f"bound_ms={step['bound_ms']:.4f} bound/kernel={step['bound_ms'] / step['device_ms']:.3f}")
+
+
+def k1_library(x, p):
+    """K1's yardstick: one fp32 GEMM on the dequantized weight (the bias
+    term folded into W), TF32 off."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.ops import quant
+
+    return torch.mm, (x.float(), quant.dequantize(p, x.shape[-1]).t())
+
+
+def k2_library(x, p):
+    """K2's time yardstick: one bf16 GEMM on the bf16 ``code·scale``
+    products K2 forms (its bias term left out)."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.ops import quant
+
+    d_in = x.shape[-1]
+    bits, gs = quant.infer_quant_dims(d_in, p["codes"].shape, p["scales"].shape)
+    s_exp = torch.repeat_interleave(p["scales"], gs, dim=-1).to(torch.bfloat16)
+    w = quant.unpack_codes(p["codes"], bits, d_in).to(torch.bfloat16) * s_exp
+    return torch.mm, (x.to(torch.bfloat16), w.t())
 
 
 def phase_k1(dev):
+    import torch
+
     from qwen3_asr_swift_tpu_torch.ops import quant
 
-    cases = step_cases(32, 1) + [
-        ("qkv_rows1", 1, HIDDEN, NQ + NKV, 4, 0), ("qkv_rows256", 256, HIDDEN, NQ + NKV, 4, 0),
-        ("qkv_bits8", 32, HIDDEN, NQ + NKV, 8, 0)]
-    worst, step, step_dev = packed_pair(dev, "K1", quant.quant_matmul_cuda, quant.quant_matmul,
-                                        cases, K1_TOL, seed=0)
-    log(f"K1 per decode step (28 layers x 4 + LM head, rows 32): kernel_ms={step[0]:.4f} "
-        f"plain_ms={step[1]:.4f} device: kernel_ms={step_dev[0]:.4f} plain_ms={step_dev[1]:.4f}")
-    return {"name": "quant_matmul_cuda", "route": "cuda",
-            "source": "qwen3_asr_swift_tpu_torch/csrc/quant_matmul.cu",
-            "replaces": "qwen3_asr_swift_tpu/ops/quant.py:252",
-            "max_abs_err": worst, "ms": step[0], "plain_ms": step[1],
-            "device_ms": step_dev[0], "plain_device_ms": step_dev[1],
-            "ms_per": "one decode step at batch 32 (28x qkv, o, gate_up, down + LM head), "
-                      "operands cold in L2"}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the main path hands K1 bf16 activations (a packed embedding returns
+    # bf16 rows); rows 32 carry the per-step sum
+    cases = step_cases(32, 1, "bfloat16") + [
+        ("qkv_rows1", 1, HIDDEN, NQ + NKV, 4, 0, "bfloat16"),
+        ("qkv_rows33", 33, HIDDEN, NQ + NKV, 4, 0, "bfloat16"),
+        ("qkv_rows256", 256, HIDDEN, NQ + NKV, 4, 0, "bfloat16"),
+        ("qkv_bits2", 32, HIDDEN, NQ + NKV, 2, 0, "bfloat16"),
+        ("qkv_bits8", 32, HIDDEN, NQ + NKV, 8, 0, "bfloat16")]
+    worst, step, bound_by, from_events = packed_pair(
+        dev, "K1", quant.quant_matmul_cuda, quant.quant_matmul, k1_library, cases, K1_TOL,
+        seed=0, peak=K1_PEAK)
+    log_step("K1", "28 layers x 4 + LM head, rows 32, bf16 x", step)
+    worst32, step32, _, from_events32 = packed_pair(
+        dev, "K1", quant.quant_matmul_cuda, quant.quant_matmul, k1_library,
+        step_cases(32, 1, "float32"), K1_TOL, seed=3, peak=K1_PEAK)
+    log_step("K1", "28 layers x 4 + LM head, rows 32, fp32 x", step32)
+    return dict({"name": "quant_matmul_cuda", "route": "cuda",
+                 "source": "qwen3_asr_swift_tpu_torch/csrc/quant_matmul.cu",
+                 "replaces": "qwen3_asr_swift_tpu/ops/quant.py:252",
+                 "max_abs_err": max(worst, worst32)}, **step, bound_by=bound_by,
+                device_source=device_source(from_events + from_events32),
+                fp32_x_device_ms=step32["device_ms"],
+                library_call="torch.mm(x_f32, dequantize(p).t()), allow_tf32=False",
+                ms_per="one decode step at batch 32, bf16 x (28x qkv, o, gate_up, down + LM "
+                       "head), operands cold in L2")
 
 
 def phase_k2(dev):
     from qwen3_asr_swift_tpu_torch.ops import quant
 
-    # rows 16 (the pool's slots) carry the per-step sum; rows 32, 1, 256
-    # and the 2- and 8-bit packings are checked and timed beside them
-    cases = step_cases(16, 1) + step_cases(32, 0) + [
-        ("qkv_rows1", 1, HIDDEN, NQ + NKV, 4, 0), ("qkv_rows256", 256, HIDDEN, NQ + NKV, 4, 0),
-        ("qkv_bits2", 32, HIDDEN, NQ + NKV, 2, 0), ("qkv_bits8", 32, HIDDEN, NQ + NKV, 8, 0)]
-    worst, step, step_dev = packed_pair(dev, "K2", quant.quant_matmul_plane_cuda,
-                                        quant.quant_matmul_plane, cases, K2_TOL, seed=4)
-    log(f"K2 per decode step (28 layers x 4 + LM head, rows 16): kernel_ms={step[0]:.4f} "
-        f"plain_ms={step[1]:.4f} device: kernel_ms={step_dev[0]:.4f} plain_ms={step_dev[1]:.4f}")
-    return {"name": "quant_matmul_plane_cuda", "route": "cuda",
-            "source": "qwen3_asr_swift_tpu_torch/csrc/quant_matmul_plane.cu",
-            "replaces": "qwen3_asr_swift_tpu/ops/quant.py:208",
-            "max_abs_err": worst, "ms": step[0], "plain_ms": step[1],
-            "device_ms": step_dev[0], "plain_device_ms": step_dev[1],
-            "ms_per": "one decode step at 16 rows (28x qkv, o, gate_up, down + LM head), "
-                      "operands cold in L2"}
+    # the pool hands K2 bf16 activations; rows 16 (its slots) carry the
+    # per-step sum; rows 32, 1, 33, 256 and the 2- and 8-bit packings are
+    # checked and timed beside them, then one step again with fp32 x
+    cases = step_cases(16, 1, "bfloat16") + step_cases(32, 0, "bfloat16") + [
+        ("qkv_rows1", 1, HIDDEN, NQ + NKV, 4, 0, "bfloat16"),
+        ("qkv_rows33", 33, HIDDEN, NQ + NKV, 4, 0, "bfloat16"),
+        ("qkv_rows256", 256, HIDDEN, NQ + NKV, 4, 0, "bfloat16"),
+        ("qkv_bits2", 32, HIDDEN, NQ + NKV, 2, 0, "bfloat16"),
+        ("qkv_bits8", 32, HIDDEN, NQ + NKV, 8, 0, "bfloat16")]
+    worst, step, bound_by, from_events = packed_pair(
+        dev, "K2", quant.quant_matmul_plane_cuda, quant.quant_matmul_plane, k2_library, cases,
+        K2_TOL, seed=4, peak=K2_PEAK)
+    log_step("K2", "28 layers x 4 + LM head, rows 16, bf16 x", step)
+    worst32, step32, _, from_events32 = packed_pair(
+        dev, "K2", quant.quant_matmul_plane_cuda, quant.quant_matmul_plane, k2_library,
+        step_cases(16, 1, "float32"), K2_TOL, seed=5, peak=K2_PEAK)
+    log_step("K2", "28 layers x 4 + LM head, rows 16, fp32 x", step32)
+    return dict({"name": "quant_matmul_plane_cuda", "route": "cuda",
+                 "source": "qwen3_asr_swift_tpu_torch/csrc/quant_matmul_plane.cu",
+                 "replaces": "qwen3_asr_swift_tpu/ops/quant.py:208",
+                 "max_abs_err": max(worst, worst32)}, **step, bound_by=bound_by,
+                device_source=device_source(from_events + from_events32),
+                fp32_x_device_ms=step32["device_ms"],
+                library_call="torch.mm(x_bf16, W_bf16.t()) on the bf16 code*scale products, "
+                             "bias term left out: a time yardstick only",
+                ms_per="one decode step at 16 rows, bf16 x (28x qkv, o, gate_up, down + LM "
+                       "head), operands cold in L2")
 
 
 def phase_k3(dev):
     import torch
+    import torch.nn.functional as F
 
     from qwen3_asr_swift_tpu_torch.ops import attention_int8
     from qwen3_asr_swift_tpu_torch.ops.kv_cache import quantize_kv
@@ -233,16 +383,48 @@ def phase_k3(dev):
         valid[:, 40] = True
         return q, kq, ks, vq, vs, valid
 
+    try:   # grouped heads in the library call where this PyTorch has them
+        F.scaled_dot_product_attention(torch.zeros(1, 2, 1, 8, device=dev),
+                                       torch.zeros(1, 1, 4, 8, device=dev),
+                                       torch.zeros(1, 1, 4, 8, device=dev), enable_gqa=True)
+        gqa = True
+    except TypeError:
+        gqa = False
+
+    def sdpa(q, k, v, mask):
+        if gqa:
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    def library_args(q, kq, ks, vq, vs, valid):
+        """fp32 q and the cache dequantized to fp32, the boolean mask."""
+        k, v = kq.float() * ks[..., None], vq.float() * vs[..., None]
+        if not gqa:
+            k, v = k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)
+        return q.float(), k, v, valid[:, None, None, :]
+
     sets = input_sets(make, 2 * b * hkv * length * (d + 4))
     got = attention_int8.decode_attention_int8(*sets[0])
     ref = attention_int8.decode_attention_int8_ref(*sets[0])
+    lib = sdpa(*library_args(*sets[0]))
     torch.cuda.synchronize()
     err, rel = rel_err(got, ref)
-    (ms, plain_ms), (dev_ms, plain_dev_ms) = time_pair(
-        attention_int8.decode_attention_int8, attention_int8.decode_attention_int8_ref, sets)
+    lib_err, lib_rel = rel_err(lib, ref)
+    lib_sets = [library_args(*st) for st in sets]
+    timed = time_turns([(attention_int8.decode_attention_int8, sets),
+                        (attention_int8.decode_attention_int8_ref, sets), (sdpa, lib_sets)])
+    (ms, dev_ms, _), (plain_ms, plain_dev_ms, _), (_, lib_dev_ms, _) = timed
+    from_events = [what for what, t in zip(("kernel", "plain", "library"), timed)
+                   if t[2] != "profiler"]
+    q_bytes = b * hq * d * sets[0][0].element_size()
+    n_bytes = 2 * b * hkv * length * (d + 4) + q_bytes + b * length + b * hq * d * 4
+    # bf16 q against an int8 cache, exact in bf16: priced at the bf16 tensor cores
+    b_ms, b_by = bound(n_bytes, 4 * b * hq * length * d, PEAK_BF16_TC)
     log(f"K3 B={b} Hq={hq} Hkv={hkv} L={length} D={d} max_abs_err={err:.3e} rel={rel:.3e} "
         f"(tol {K3_TOL:g}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"device: kernel_ms={dev_ms:.4f} plain_ms={plain_dev_ms:.4f}")
+        f"device: kernel_ms={dev_ms:.4f} plain_ms={plain_dev_ms:.4f} library_ms={lib_dev_ms:.4f} "
+        f"(sdpa fp32, enable_gqa={gqa}, rel {lib_rel:.1e}) bound_ms={b_ms:.4f} ({b_by}) "
+        f"bound/kernel={b_ms / dev_ms:.3f} kernel/library={dev_ms / lib_dev_ms:.2f}")
     if not rel <= K3_TOL:
         raise AssertionError(f"K3: rel error {rel} > {K3_TOL}")
     return {"name": "decode_attention_int8", "route": "cuda",
@@ -250,6 +432,10 @@ def phase_k3(dev):
             "replaces": "qwen3_asr_swift_tpu/ops/attention_pallas.py:33",
             "max_abs_err": err, "ms": 28 * ms, "plain_ms": 28 * plain_ms,
             "device_ms": 28 * dev_ms, "plain_device_ms": 28 * plain_dev_ms,
+            "bound_ms": 28 * b_ms, "bound_by": b_by, "library_ms": 28 * lib_dev_ms,
+            "device_source": device_source(from_events),
+            "library_call": "scaled_dot_product_attention on fp32 q and the cache "
+                            f"dequantized to fp32, boolean mask, enable_gqa={gqa}",
             "ms_per": "one decode step at batch 32 (28 layers), operands cold in L2"}
 
 
@@ -631,6 +817,9 @@ def main() -> int:
     phase_serve(model)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    ref = [m for m in sys.modules if m == "qwen3_asr_swift_tpu" or m.startswith("qwen3_asr_swift_tpu.")]
+    if ref:
+        raise AssertionError(f"the JAX package was imported: {ref}")
 
     log(json.dumps({"kernels": [k1, k2, k3]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

@@ -1,9 +1,7 @@
-"""On-device audio wire decoders, and the host WAV helpers.
+"""Host audio I/O (WAV, resampling) and the wire formats' encoders and
+on-device decoders."""
 
-``wav_bytes`` and ``load_audio`` are re-exported from the JAX package's
-jax-free ``audio.io``.
-"""
+from .io import WAVError, load_audio, read_wav, wav_bytes, write_wav
+from .resample import resample
 
-from qwen3_asr_swift_tpu.audio.io import load_audio, wav_bytes
-
-__all__ = ["load_audio", "wav_bytes"]
+__all__ = ["WAVError", "load_audio", "read_wav", "resample", "wav_bytes", "write_wav"]

@@ -1,20 +1,77 @@
-"""Device decoders of the audio wire formats — port of the device half of
-``qwen3_asr_swift_tpu/audio/companding.py``.
+"""The audio wire formats — port of ``qwen3_asr_swift_tpu/audio/companding.py``.
 
 The host encoders (``mulaw_encode_np``, ``pcm4_encode_np``,
-``dpcm4_encode_np``) are the reference's jax-free numpy functions, reused
-as they are; only the payload crosses to the device, and these decode it
-there.
+``dpcm4_encode_np``) are copies of the reference's numpy encoders (its
+native C++ fast path is not ported: numpy at every size); only the payload
+crosses to the device, and the decoders below decode it there.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from qwen3_asr_swift_tpu.audio.companding import MU, PCM4_BLOCK
-
+MU = 255.0
+#: int8 quantization range — symmetric so decode is sign-exact
 _QMAX = 127.0
+#: pcm4/dpcm4 samples per block (one scale each)
+PCM4_BLOCK = 128
 _Q4MAX = 7.0
+
+
+def mulaw_encode_np(x: np.ndarray, mu: float = MU) -> np.ndarray:
+    """float32 PCM in [-1, 1] → µ-law int8 in [-127, 127] (host side)."""
+    x = np.clip(x, -1.0, 1.0)
+    y = np.sign(x) * np.log1p(mu * np.abs(x)) / np.log1p(mu)
+    return np.round(y * _QMAX).astype(np.int8)
+
+
+def pcm4_encode_np(x: np.ndarray):
+    """float32 PCM [..., N] (N a multiple of 2*PCM4_BLOCK) → (packed
+    uint8 [..., N//2], scales float16 [..., N//PCM4_BLOCK])."""
+    n = x.shape[-1]
+    if n % (2 * PCM4_BLOCK):
+        raise ValueError(f"pcm4 length {n} not a multiple of {2 * PCM4_BLOCK}")
+    blocks = x.reshape(*x.shape[:-1], n // PCM4_BLOCK, PCM4_BLOCK)
+    scale = np.maximum(np.abs(blocks).max(axis=-1), 1e-5).astype(np.float16)
+    # quantize against the float16-rounded scale the decoder will see, so
+    # |q| <= 7 exactly and the roundtrip is centered
+    y = blocks / scale[..., None].astype(np.float32)
+    q = np.clip(np.round(y * _Q4MAX), -7, 7).astype(np.int8).reshape(*x.shape[:-1], n)
+    packed = (q[..., 0::2] & 0xF) | ((q[..., 1::2] & 0xF) << 4)
+    return packed.astype(np.uint8), scale
+
+
+def dpcm4_encode_np(x: np.ndarray):
+    """float32 PCM [..., N] (N a multiple of 2*PCM4_BLOCK) → (packed
+    uint8 [..., N//2], scales2 float16 [..., 2*N//PCM4_BLOCK]).
+
+    scales2 interleaves (delta_scale, first_sample) per block. The
+    encoder quantizes each delta against the RECONSTRUCTED previous
+    sample (closed loop), so quantization error never accumulates
+    through the block's cumsum — the open-loop variant loses ~12 dB to
+    exactly that accumulation."""
+    n = x.shape[-1]
+    if n % (2 * PCM4_BLOCK):
+        raise ValueError(f"dpcm4 length {n} not a multiple of {2 * PCM4_BLOCK}")
+    lead = x.shape[:-1]
+    nb = n // PCM4_BLOCK
+    blocks = x.reshape(*lead, nb, PCM4_BLOCK).astype(np.float32)
+    d = np.diff(blocks, axis=-1)
+    scale = np.maximum(np.abs(d).max(axis=-1) / _Q4MAX, 1e-6).astype(np.float16)
+    x0 = blocks[..., 0].astype(np.float16)
+    s = scale.astype(np.float32)
+    r = x0.astype(np.float32)
+    q = np.zeros(blocks.shape, np.int8)
+    for i in range(1, PCM4_BLOCK):
+        e = blocks[..., i] - r
+        qi = np.clip(np.round(e / s), -7, 7)
+        r = r + qi * s
+        q[..., i] = qi
+    qf = q.reshape(*lead, n)
+    packed = (qf[..., 0::2] & 0xF) | ((qf[..., 1::2] & 0xF) << 4)
+    scales2 = np.stack([scale, x0], axis=-1).reshape(*lead, 2 * nb)
+    return packed.astype(np.uint8), scales2
 
 
 def mulaw_decode(y: torch.Tensor, mu: float = MU) -> torch.Tensor:

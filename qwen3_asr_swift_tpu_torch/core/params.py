@@ -17,7 +17,7 @@ Leaf rules (mirroring ``qwen3_asr_swift_tpu/ops/quant.py::cast_tree``):
 - integer leaves are never cast.
 
 The random initialisers draw with numpy from a seed and pack with the
-reference's jax-free ``core.weights.quantize_mlx``.
+port's copy of the reference's ``core.weights.quantize_mlx``.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from qwen3_asr_swift_tpu.core.weights import quantize_mlx
+from .weights import quantize_mlx
 
 
 def _to_numpy(x) -> np.ndarray:

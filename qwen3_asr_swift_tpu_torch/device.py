@@ -1,6 +1,7 @@
 """Explicit device resolution.
 
-Every entry point of the port takes a ``device``; nothing picks the CPU
+Every entry point of the port runs on the card unless the caller asks for
+the CPU: ``device`` defaults to ``"cuda"``, and nothing picks the CPU
 behind the caller's back. Asking for a CUDA device on a machine without
 one raises instead of falling back.
 """
@@ -10,13 +11,12 @@ from __future__ import annotations
 import torch
 
 
-def resolve_device(device) -> torch.device:
-    """``"cpu"``, ``"cuda"``, ``"cuda:N"`` or a ``torch.device`` → a
-    ``torch.device``. Raises ``RuntimeError`` for a CUDA device that this
-    machine does not have, and ``ValueError`` for any other type."""
-    if device is None:
-        raise ValueError("device is required: pass 'cpu' or 'cuda'")
-    dev = torch.device(device)
+def resolve_device(device="cuda") -> torch.device:
+    """``"cpu"``, ``"cuda"``, ``"cuda:N"``, a ``torch.device`` or ``None``
+    (the first card) → a ``torch.device``. Raises ``RuntimeError`` for a
+    CUDA device that this machine does not have, and ``ValueError`` for any
+    other type."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but torch sees no CUDA device")

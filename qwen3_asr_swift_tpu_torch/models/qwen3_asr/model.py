@@ -40,24 +40,21 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from qwen3_asr_swift_tpu.audio.companding import (dpcm4_encode_np, mulaw_encode_np,
-                                                  pcm4_encode_np)
-from qwen3_asr_swift_tpu.audio.resample import resample
-from qwen3_asr_swift_tpu.core.protocols import SpeechRecognitionModel
-from qwen3_asr_swift_tpu.core.types import ModelMemoryStats, TranscriptionResult
-from qwen3_asr_swift_tpu.ops.mel import MelConfig, num_frames, reflect_pad_np
-from qwen3_asr_swift_tpu.serving.dispatch import BULK, LATENCY, gate_slot
-from qwen3_asr_swift_tpu.tokenizers.bpe import BPETokenizer
-
-from ...audio.companding import dpcm4_decode, mulaw_decode, pcm4_decode
+from ...audio.companding import (dpcm4_decode, dpcm4_encode_np, mulaw_decode, mulaw_encode_np,
+                                 pcm4_decode, pcm4_encode_np)
+from ...audio.resample import resample
+from ...core.protocols import SpeechRecognitionModel
+from ...core.types import ModelMemoryStats, TranscriptionResult
 from ...core.params import init_random_params, param_bytes, params_from_jax
 from ...device import resolve_device
 from ...ops.kv_cache import KVCache
-from ...ops.mel import log_mel_kernel
+from ...ops.mel import MelConfig, log_mel_kernel, num_frames, reflect_pad_np
 from ...ops.nn import embedding_lookup, tied_lm_head
 from ...ops.quant import dequantize_tree
 from ...ops.sampling import (SamplingOptions, check_supported, force_eos_after,
                              log_softmax_confidence, sample_token)
+from ...serving.dispatch import BULK, LATENCY, gate_slot
+from ...tokenizers.bpe import BPETokenizer
 from .beam import beam_search
 from .config import CONFIG_SMALL, Qwen3ASRConfig
 from .decoder import decode_step, fuse_for_inference, make_cache, prefill
@@ -127,7 +124,7 @@ class Qwen3ASR(SpeechRecognitionModel):
         encoder_params,
         decoder_params,
         *,
-        device,
+        device="cuda",
         tokenizer: Optional[BPETokenizer] = None,
         dtype: torch.dtype = torch.bfloat16,
         mel_cfg: MelConfig = MelConfig(),
@@ -186,7 +183,7 @@ class Qwen3ASR(SpeechRecognitionModel):
 
     @classmethod
     def init_random(cls, cfg: Qwen3ASRConfig = CONFIG_SMALL, seed: int = 0, *,
-                    device, dtype: torch.dtype = torch.bfloat16,
+                    device="cuda", dtype: torch.dtype = torch.bfloat16,
                     quant_bits: Optional[int] = None, **kw) -> "Qwen3ASR":
         """Random weights drawn with numpy from ``seed``; ``quant_bits``
         packs the decoder linears and embedding (MLX group 64)."""

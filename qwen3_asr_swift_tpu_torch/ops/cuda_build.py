@@ -33,17 +33,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C signatures: name → argtypes (every function returns cudaError_t as int)
+#: C signatures: name → argtypes (every function returns cudaError_t as int,
+#: except those in RESTYPES)
 SIGNATURES = {
     # x, codes, scales, biases, y, B, K, N, bits, group_size, stream
     "qs_quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, codes, scales, biases, y, xb (scratch), xsum (scratch), B, K, N, bits,
-    # group_size, stream
-    "qs_quant_matmul_plane": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, codes, scales, biases, y, workspace, B, K, N, bits, group_size,
+    # x is bf16, stream
+    "qs_quant_matmul_plane": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # B, K, N, bits, group_size, x is bf16 → fp32 floats of K2's workspace
+    "qs_quant_matmul_plane_workspace": [_I, _I, _I, _I, _I, _I],
     # q, k, k_scale, v, v_scale, valid, out, B, Hkv, G, L, D, scale, stream
     "qs_decode_attn_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             ctypes.c_float, _P],
 }
+
+RESTYPES = {"qs_quant_matmul_plane_workspace": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib = None
@@ -141,7 +146,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             lib.qs_error_string.argtypes = [ctypes.c_int]
             lib.qs_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -18,7 +18,7 @@ Three compute paths, as in the reference:
   :func:`quant_matmul`.
 - :func:`quant_matmul_plane_cuda` — the wrapper of kernel K2
   (``csrc/quant_matmul_plane.cu``), the reference's per-bit-plane Pallas
-  body with its bf16 roundings; its plain version is
+  body with its bf16 roundings, on the tensor cores; its plain version is
   :func:`quant_matmul_plane`, and the same CPU/CUDA rule holds.
 
 :func:`quant_linear` and :func:`quant_tied_lm_head` route decode-shaped
@@ -135,13 +135,13 @@ def _check_kernel_args(x, p):
 
 
 def _kernel_operands(x, p, what: str):
-    """What both kernels' wrappers check on a CUDA tensor. Returns (x as
-    contiguous fp32 [rows, in], bits, group size)."""
+    """What both kernels' wrappers check on a CUDA tensor. Returns (bits,
+    group size)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     bits, gs = infer_quant_dims(x.shape[-1], p["codes"].shape, p["scales"].shape)
     _check_kernel_args(x, p)
-    return x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous(), bits, gs
+    return bits, gs
 
 
 def quant_matmul_cuda(x: torch.Tensor, p) -> torch.Tensor:
@@ -151,7 +151,8 @@ def quant_matmul_cuda(x: torch.Tensor, p) -> torch.Tensor:
     launches ``qs_quant_matmul`` (csrc/quant_matmul.cu) or raises."""
     if x.device.type == "cpu":
         return quant_matmul(x, p)
-    xf, bits, gs = _kernel_operands(x, p, "quant_matmul_cuda")
+    bits, gs = _kernel_operands(x, p, "quant_matmul_cuda")
+    xf = x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous()
     (rows, in_dim), n_out = xf.shape, p["codes"].shape[0]
     y = torch.empty((rows, n_out), dtype=torch.float32, device=x.device)
     err = cuda_build.library().qs_quant_matmul(
@@ -168,25 +169,35 @@ def quant_matmul_plane_cuda(x: torch.Tensor, p) -> torch.Tensor:
 
     A CPU tensor takes the plain :func:`quant_matmul_plane`; a CUDA tensor
     launches ``qs_quant_matmul_plane`` (csrc/quant_matmul_plane.cu) or
-    raises. x arrives in fp32 in its natural layout; the kernel rounds it
-    to bf16 and sums its groups into two scratch buffers allocated here,
-    and forms each plane itself."""
+    raises. x is bf16 or fp32 and reaches the kernel as it is (no cast
+    launch): the kernel rounds it to bf16 and sums its groups in fp32 in
+    registers. The group size must be a multiple of 32 with ``group·bits``
+    a multiple of 128, so every mma's 32 inputs lie in one group and a
+    group's codes are whole 16-byte copies."""
     if x.device.type == "cpu":
         return quant_matmul_plane(x, p)
-    xf, bits, gs = _kernel_operands(x, p, "quant_matmul_plane_cuda")
-    (rows, in_dim), n_out = xf.shape, p["codes"].shape[0]
-    if in_dim % 32 or gs % 8:
-        raise ValueError(f"K2 takes in % 32 == 0 and a group size that is a multiple of 8 "
-                         f"(in {in_dim}, group {gs})")
-    if p["codes"].data_ptr() % 8:   # 8-bit codes are read as uint2
-        raise ValueError("codes must be 8-byte aligned")
+    bits, gs = _kernel_operands(x, p, "quant_matmul_plane_cuda")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"quant_matmul_plane_cuda takes bf16 or fp32 x, got {x.dtype}")
+    if gs % 32 or (gs * bits) % 128:
+        raise ValueError(f"K2 takes a group size that is a multiple of 32 with group*bits a "
+                         f"multiple of 128 (group {gs}, bits {bits})")
+    if p["codes"].data_ptr() % 16:
+        raise ValueError("codes must be 16-byte aligned")
+    in_dim, n_out = x.shape[-1], p["codes"].shape[0]
+    xk = x.reshape(-1, in_dim).contiguous()
+    if xk.data_ptr() % 16:
+        xk = xk.clone()
+    rows = xk.shape[0]
+    lib = cuda_build.library()
     y = torch.empty((rows, n_out), dtype=torch.float32, device=x.device)
-    xb = torch.empty((rows, in_dim), dtype=torch.bfloat16, device=x.device)   # scratch
-    xsum = torch.empty((rows, in_dim // gs), dtype=torch.float32, device=x.device)
-    err = cuda_build.library().qs_quant_matmul_plane(
-        xf.data_ptr(), p["codes"].data_ptr(), p["scales"].data_ptr(),
-        p["biases"].data_ptr(), y.data_ptr(), xb.data_ptr(), xsum.data_ptr(), rows, in_dim,
-        n_out, bits, gs, cuda_build.stream_handle(x.device))
+    x_bf16 = int(xk.dtype == torch.bfloat16)
+    n_ws = lib.qs_quant_matmul_plane_workspace(rows, in_dim, n_out, bits, gs, x_bf16)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=x.device) if n_ws else None   # scratch
+    err = lib.qs_quant_matmul_plane(
+        xk.data_ptr(), p["codes"].data_ptr(), p["scales"].data_ptr(), p["biases"].data_ptr(),
+        y.data_ptr(), ws.data_ptr() if ws is not None else None, rows, in_dim, n_out, bits, gs,
+        x_bf16, cuda_build.stream_handle(x.device))
     cuda_build.check(err, "qs_quant_matmul_plane")
     K2_LAUNCHES.add()
     return y.reshape(*x.shape[:-1], n_out)

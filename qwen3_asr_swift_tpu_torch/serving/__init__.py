@@ -1,13 +1,12 @@
-"""Serving glue: the port behind the JAX package's jax-free server.
+"""Serving: the port's own HTTP server (``/health``, ``/transcribe``) over
+its group batcher (``ContinuousBatcher`` + ``DispatchGate``) or its slot
+pool (``SlotPoolASR``)."""
 
-``SpeechServer`` subclasses ``qwen3_asr_swift_tpu.serving.server``'s, which
-imports no jax, so that ``scheduler="slotpool"`` builds the port's
-:class:`SlotPoolASR`; callers of the port need no import from the JAX
-package.
-"""
-
+from .batching import ContinuousBatcher
+from .dispatch import DispatchGate
 from .registry import build_registry
-from .server import SpeechServer
+from .server import ModelRegistry, SpeechServer
 from .slotpool import SlotPoolASR
 
-__all__ = ["SpeechServer", "SlotPoolASR", "build_registry"]
+__all__ = ["ContinuousBatcher", "DispatchGate", "ModelRegistry", "SlotPoolASR", "SpeechServer",
+           "build_registry"]

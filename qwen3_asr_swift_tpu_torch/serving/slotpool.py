@@ -44,16 +44,14 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from qwen3_asr_swift_tpu.core.types import TranscriptionResult
-from qwen3_asr_swift_tpu.ops.mel import num_frames
-from qwen3_asr_swift_tpu.serving.dispatch import BULK, LATENCY, gate_slot
-
+from ..core.types import TranscriptionResult
 from ..models.qwen3_asr.decoder import _qkv
-from ..models.qwen3_asr.model import _round_block
 from ..ops.attention import NEG_INF, sdpa
 from ..ops.kv_cache import LayerKV
+from ..ops.mel import num_frames
 from ..ops.nn import embedding_lookup, linear, rms_norm, swiglu_mlp, tied_lm_head
 from ..ops.sampling import SamplingOptions, log_softmax_confidence, sample_token
+from .dispatch import BULK, LATENCY, gate_slot
 
 
 @dataclasses.dataclass
@@ -236,6 +234,10 @@ class SlotPoolASR:
                         language: Optional[str], context: Optional[str]):
         """Host-only exact prompt length and group key of one request:
         (bucket_frames, t_prompt, pb, sb)."""
+        # imported here: the model imports ``serving.dispatch``, whose
+        # package imports this module
+        from ..models.qwen3_asr.model import _round_block
+
         model = self.model
         n = len(audio)
         if sample_rate != model.mel_cfg.sample_rate:

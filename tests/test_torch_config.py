@@ -2,8 +2,10 @@
 
 - the port's copied config dataclasses equal the JAX package's, field by
   field, for every preset;
-- asking for a CUDA device without a card raises (no silent CPU);
-- importing and running the port never imports jax;
+- entry points default to the first card, and asking for a CUDA device
+  without one raises (no silent CPU);
+- importing and running the port never imports jax nor any module of the
+  JAX package;
 - a CPU call leaves the kernels' launch counters at 0.
 """
 
@@ -57,9 +59,17 @@ def test_cuda_device_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
-    with pytest.raises(ValueError):
+    with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(ValueError):
+        resolve_device("mps")
     assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert resolve_device(None) == torch.device("cuda", 0)
+    assert resolve_device() == torch.device("cuda", 0)
 
 
 def test_model_refuses_cuda_without_card(monkeypatch):
@@ -68,14 +78,16 @@ def test_model_refuses_cuda_without_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Qwen3ASR.init_random(config_tiny(), 0, device="cuda", dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):   # the default device is the card
+        Qwen3ASR.init_random(config_tiny(), 0, dtype=torch.float32)
 
 
 def test_port_runs_without_importing_jax():
     code = textwrap.dedent("""
-        import asyncio, http.client, json, sys
+        import asyncio, http.client, json, os, sys, tempfile
         import numpy as np, torch
         from qwen3_asr_swift_tpu_torch.models.qwen3_asr import Qwen3ASR, config_tiny
-        from qwen3_asr_swift_tpu_torch.audio import wav_bytes
+        from qwen3_asr_swift_tpu_torch.audio import load_audio, wav_bytes, write_wav
         from qwen3_asr_swift_tpu_torch.ops.sampling import SamplingOptions
         from qwen3_asr_swift_tpu_torch.serving import SlotPoolASR, SpeechServer, build_registry
         m = Qwen3ASR.init_random(config_tiny(), 0, device="cpu", dtype=torch.float32,
@@ -88,10 +100,16 @@ def test_port_runs_without_importing_jax():
         r = m.transcribe_batch(clips, options=SamplingOptions(
             max_tokens=3, temperature=0.8, top_k=5, repetition_penalty=1.1), seed=3)
         assert len(r) == 2 and all(x.text for x in r), r
-        srv = SpeechServer(build_registry(m), port=0, scheduler="slotpool", max_batch=2)
-        srv._batchers[id(m)] = SlotPoolASR(m, slots=2, max_new=3, max_len=256)
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "clip.wav")
+            write_wav(path, clips[1][::2].copy(), 8000)
+            audio, rate = load_audio(path, target_rate=16000)
+        assert rate == 16000 and audio.shape == (12000,), (rate, audio.shape)
+        group = SpeechServer(build_registry(m), port=0)
+        slot = SpeechServer(build_registry(m), port=0, scheduler="slotpool", max_batch=2)
+        slot._batchers[id(m)] = SlotPoolASR(m, slots=2, max_new=3, max_len=256)
 
-        async def serve():
+        async def serve(srv):
             await srv.start()
             port = srv._server.sockets[0].getsockname()[1]
 
@@ -107,9 +125,13 @@ def test_port_runs_without_importing_jax():
             finally:
                 await srv.stop()
 
-        status, body = asyncio.run(serve())
-        assert status == 200 and body["text"], (status, body)
+        for srv in (group, slot):
+            status, body = asyncio.run(serve(srv))
+            assert status == 200 and body["text"], (status, body)
         assert "jax" not in sys.modules, [k for k in sys.modules if k.startswith("jax")]
+        ref = [k for k in sys.modules
+               if k == "qwen3_asr_swift_tpu" or k.startswith("qwen3_asr_swift_tpu.")]
+        assert not ref, ref
         print("OK")
     """)
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))

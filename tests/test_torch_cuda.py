@@ -8,7 +8,8 @@ where torch sees no CUDA device. On the card:
 Tolerances: 1e-5 relative to max |plain| for K1 and K3 (both fp32; they
 differ from the plain versions in summation order and fused multiply-adds,
 ~1e-7 measured at full width) and for K2 (its bf16 roundings are the plain
-version's, bit for bit; only the fp32 sum order differs); 2e-2 relative L2 for the tiny decoder's
+version's, bit for bit; only the fp32 sum order differs, against the plain
+version's float64 sums); 2e-2 relative L2 for the tiny decoder's
 logits, whose activations are bf16 (packed embedding), so a bf16 rounding
 may land the other way between the card and the host.
 """
@@ -101,14 +102,34 @@ def test_k2_matches_plain(card, rows, in_dim, out_dim, bits):
     assert rel(got, k1.quant_matmul_plane(x, p)) <= TOL
 
 
+@pytest.mark.parametrize("xdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows", [1, 8, 32, 33, 256])
+@pytest.mark.parametrize("in_dim,out_dim,bits", [
+    (1024, 4096, 4), (2048, 1024, 4), (3072, 1024, 2), (1024, 6144, 8)])
+def test_k2_decode_shapes_bf16_and_fp32_x(card, xdt, rows, in_dim, out_dim, bits):
+    """The decoder's products (qkv, o, down with K split over blocks,
+    gate_up) at the rows the slice, the pool and beam search give K2, with
+    the activations in either dtype the wrapper takes as they are."""
+    p = packed(out_dim, in_dim, bits, card, seed=rows + bits)
+    x = torch.randn((rows, in_dim), device=card).to(getattr(torch, xdt))
+    got = k1.quant_matmul_plane_cuda(x, p)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, out_dim) and got.dtype == torch.float32
+    assert rel(got, k1.quant_matmul_plane(x, p)) <= TOL
+
+
 def test_k2_rows_do_not_depend_on_the_batch(card):
-    """An output row is the same whether 1, 7 or 40 rows share the call."""
-    for out_dim in (300, 9000):   # one and two m-tiles per block
-        p = packed(out_dim, 1024, 4, card, seed=3)
-        x = torch.randn((40, 1024), device=card)
-        full = k1.quant_matmul_plane_cuda(x, p)
-        for n in (1, 7, 33):
-            assert torch.equal(k1.quant_matmul_plane_cuda(x[:n], p), full[:n])
+    """An output row is bit-identical whether 1, 7, 33, 40 or 256 rows
+    share the call, for one and two m-tiles per block, with and without the
+    K split, in both activation dtypes."""
+    for out_dim, in_dim in ((300, 1024), (9000, 1024), (1024, 3072)):
+        p = packed(out_dim, in_dim, 4, card, seed=3)
+        for xdt in (torch.float32, torch.bfloat16):
+            x = torch.randn((256, in_dim), device=card).to(xdt)
+            full = k1.quant_matmul_plane_cuda(x, p)
+            for n in (1, 7, 33, 40):
+                assert torch.equal(k1.quant_matmul_plane_cuda(x[:n], p), full[:n])
+                assert torch.equal(k1.quant_matmul_plane_cuda(x[256 - n:], p), full[256 - n:])
 
 
 def test_k2_lm_head_and_bf16_input(card):
@@ -132,6 +153,13 @@ def test_k2_rejects_bad_inputs(card):
          "scales": torch.ones((64, 3), device=card), "biases": torch.zeros((64, 3), device=card)}
     with pytest.raises(ValueError, match="multiple of 32|% 32"):
         k1.quant_matmul_plane_cuda(torch.randn((2, 48), device=card), q)
+    q = {"codes": torch.zeros((64, 4), dtype=torch.int32, device=card),   # in 64, 2-bit, group 32
+         "scales": torch.ones((64, 2), device=card), "biases": torch.zeros((64, 2), device=card)}
+    with pytest.raises(ValueError, match="multiple of 128"):
+        k1.quant_matmul_plane_cuda(torch.randn((2, 64), device=card), q)
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="bf16 or fp32"):
+            k1.quant_matmul_plane_cuda(x.to(dt), p)
 
 
 @pytest.mark.parametrize("b,hq,hkv,length,d", [

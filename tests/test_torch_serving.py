@@ -1,5 +1,6 @@
-"""The port behind the JAX package's jax-free ``SpeechServer``, and the
-thread safety the two batcher workers need."""
+"""The port's own ``SpeechServer`` (``/health``, ``/transcribe``; the
+unported routes answer 404), and the thread safety the two batcher workers
+need."""
 
 import asyncio
 import http.client
@@ -61,6 +62,36 @@ def test_server_answers_transcribe_and_health(model):
         thread.join(timeout=30)
         loop.close()
     assert not thread.is_alive()
+
+
+@pytest.mark.parametrize("method,path", [("POST", "/speak"), ("POST", "/respond"),
+                                         ("POST", "/enhance"), ("GET", "/v1/realtime"),
+                                         ("GET", "/nowhere")])
+def test_unported_routes_answer_like_unknown_ones(model, method, path):
+    server = SpeechServer(build_registry(model), port=0)
+
+    async def ask():
+        await server.start()
+        port = server._server.sockets[0].getsockname()[1]
+
+        def request():
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            try:
+                conn.request(method, path, body=b"{}" if method == "POST" else None,
+                             headers={"Upgrade": "websocket", "Connection": "Upgrade",
+                                      "Sec-WebSocket-Key": "dGhlIHNhbXBsZSBub25jZQ=="})
+                resp = conn.getresponse()
+                return resp.status, json.loads(resp.read())
+            finally:
+                conn.close()
+
+        try:
+            return await asyncio.get_running_loop().run_in_executor(None, request)
+        finally:
+            await server.stop()
+
+    status, payload = asyncio.run(ask())
+    assert status == 404 and payload == {"error": f"no route {method} {path}"}
 
 
 def test_concurrent_transcribes_match_sequential(model):

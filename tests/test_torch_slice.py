@@ -26,10 +26,10 @@ import qwen3_asr_swift_tpu.ops.attention_pallas as jap
 from qwen3_asr_swift_tpu.models.qwen3_asr import Qwen3ASR as JaxQwen3ASR
 from qwen3_asr_swift_tpu.models.qwen3_asr import config_tiny as jax_tiny
 from qwen3_asr_swift_tpu.ops.sampling import SamplingOptions as JaxOptions
-from qwen3_asr_swift_tpu.serving.dispatch import DispatchGate
 from qwen3_asr_swift_tpu_torch.core.params import init_random_params
 from qwen3_asr_swift_tpu_torch.models.qwen3_asr import Qwen3ASR, config_tiny
 from qwen3_asr_swift_tpu_torch.ops.sampling import SamplingOptions
+from qwen3_asr_swift_tpu_torch.serving.dispatch import DispatchGate
 
 MAX_TOKENS = 10
 
