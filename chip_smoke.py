@@ -8,9 +8,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 1. device  — the card's name and power limit (nvidia-smi);
 2. build   — compile ``qwen3_asr_swift_tpu_torch/csrc/*.cu`` with nvcc,
              one process per source, all started together;
-3. k1      — kernel K1 (packed 2/4/8-bit group-quant matmul, fp32) against
-             its plain version at the decoder's full-width shapes, rows 32
-             (bf16 x, as the slice gives it, and fp32 x), 1, 33 and 256;
+3. k1      — kernel K1 (packed 2/4/8-bit group-quant matmul: exact bf16
+             products on the tensor cores, group scales in fp32) against its
+             plain version at the decoder's full-width shapes, rows 32 (bf16
+             x, as the slice gives it, and fp32 x), 16 (beam's rows), 1, 33
+             and 256, 2-, 4- and 8-bit, groups of 32, 64 and 128; it prints
+             the profiler's kernels per call (1, or 2 with a K split: no
+             cast kernel at bf16 x) and fails on any other count;
 4. k2      — kernel K2 (the bit-plane variant with bf16 planes on the
              tensor cores) against its plain version at the same shapes,
              rows 16 (bf16 x, as the pool gives it, and fp32 x), 32, 1, 33
@@ -75,8 +79,9 @@ STEP_TOL = 5e-2
 HBM_BYTES_S = 3.35e12
 PEAK_BF16_TC = 989e12       # bf16 tensor cores
 # peak per x dtype of K1, whose codes are exact in bf16: bf16 x enters the
-# bf16 tensor cores as it is; fp32 x exactly only as hi + lo bf16, two passes
-K1_PEAK = {"bfloat16": PEAK_BF16_TC, "float32": PEAK_BF16_TC / 2}
+# bf16 tensor cores as it is; fp32 x exactly only as three bf16 terms, three
+# passes
+K1_PEAK = {"bfloat16": PEAK_BF16_TC, "float32": PEAK_BF16_TC / 3}
 K2_PEAK = {"bfloat16": PEAK_BF16_TC, "float32": PEAK_BF16_TC}  # K2 rounds x to bf16
 SLICE_CLIPS, SLICE_CLIP_S, SLICE_TOKENS = 32, 30, 100
 POOL_SLOTS, POOL_TICK, POOL_MAX_NEW = 16, 8, 64
@@ -105,11 +110,12 @@ def input_sets(make, bytes_per_set: int, cold_bytes: int = 192 << 20):
 def time_turns(calls, iters: int = 24, warmup: int = 3):
     """Per-call times of several functions, each cycling through its own
     ``sets`` of arguments, in turns: a, b, ..., ..., b, a. ``calls`` is a
-    list of (fn, sets). Returns one (wall_ms, device_ms, device_source)
-    triple per call: wall from CUDA events around the loop, launch gaps
-    included; device time from the profiler (every kernel the call
-    launched), or from CUDA events around each call where the profiler kept
-    dropping events (``device_source`` says which)."""
+    list of (fn, sets). Returns one (wall_ms, device_ms, device_source,
+    kernels_per_call) tuple per call: wall from CUDA events around the loop,
+    launch gaps included; device time from the profiler (every kernel the
+    call launched), or from CUDA events around each call where the profiler
+    kept dropping events (``device_source`` says which); the most kernels
+    per call that a profiler window showed."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -145,7 +151,8 @@ def time_turns(calls, iters: int = 24, warmup: int = 3):
             per_call.append(len(kernels) / iters)
             top = max(per_call)
             if top and per_call[-1] == top and per_call.count(top) >= 2:
-                return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters, "profiler"
+                return (sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters, "profiler",
+                        top)
         log(f"  (the profiler's kernels per call in seven windows: {per_call}: device time "
             f"from CUDA events around each call)")
         evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -155,19 +162,21 @@ def time_turns(calls, iters: int = 24, warmup: int = 3):
             fn(*sets[i % len(sets)])
             ev1.record()
         torch.cuda.synchronize()
-        return sum(ev0.elapsed_time(ev1) for ev0, ev1 in evs) / iters, "cuda_events"
+        return (sum(ev0.elapsed_time(ev1) for ev0, ev1 in evs) / iters, "cuda_events",
+                max(per_call))
 
     for i in range(warmup):
         for fn, sets in calls:
             fn(*sets[i % len(sets)])
     torch.cuda.synchronize()
     order = list(range(len(calls))) + list(reversed(range(len(calls))))
-    out = [[0.0, 0.0, "profiler"] for _ in calls]
+    out = [[0.0, 0.0, "profiler", 0.0] for _ in calls]
     for j in order:
         out[j][0] += wall(*calls[j]) / 2
     for j in order:
-        ms, source = device(*calls[j])
+        ms, source, per_call = device(*calls[j])
         out[j][1] += ms / 2
+        out[j][3] = max(out[j][3], per_call)
         if source != "profiler":
             out[j][2] = source
     return [tuple(t) for t in out]
@@ -197,13 +206,13 @@ HIDDEN, INTER, VOCAB, NQ, NKV = 1024, 3072, 151936, 16 * 128, 2 * 8 * 128
 
 
 def step_cases(rows: int, per_step: int, xdt="float32"):
-    """(name, rows, in, out, bits, calls per decode step, x dtype) of one
-    decode step."""
-    return [("qkv", rows, HIDDEN, NQ + NKV, 4, 28 * per_step, xdt),
-            ("o", rows, NQ, HIDDEN, 4, 28 * per_step, xdt),
-            ("gate_up", rows, HIDDEN, 2 * INTER, 4, 28 * per_step, xdt),
-            ("down", rows, INTER, HIDDEN, 4, 28 * per_step, xdt),
-            ("lm_head", rows, HIDDEN, VOCAB, 4, per_step, xdt)]
+    """(name, rows, in, out, bits, calls per decode step, x dtype, group
+    size) of one decode step."""
+    return [("qkv", rows, HIDDEN, NQ + NKV, 4, 28 * per_step, xdt, 64),
+            ("o", rows, NQ, HIDDEN, 4, 28 * per_step, xdt, 64),
+            ("gate_up", rows, HIDDEN, 2 * INTER, 4, 28 * per_step, xdt, 64),
+            ("down", rows, INTER, HIDDEN, 4, 28 * per_step, xdt, 64),
+            ("lm_head", rows, HIDDEN, VOCAB, 4, per_step, xdt, 64)]
 
 
 def packed_pair(dev, label, kernel, plain, library, cases, tol, seed, peak):
@@ -213,8 +222,9 @@ def packed_pair(dev, label, kernel, plain, library, cases, tol, seed, peak):
     ``peak`` maps the x dtype to the FLOP/s of the bound. Returns (worst
     max-abs error, sums over one decode step's calls of: kernel and plain
     CUDA-event ms, kernel and plain device ms, bound ms, library device ms;
-    the bound's binding term of the largest call; and the cases whose
-    device times are CUDA events, not the profiler's)."""
+    the bound's binding term of the largest call; the cases whose device
+    times are CUDA events, not the profiler's; and per case, the kernel's
+    most kernels per call in a profiler window, with its device source)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -223,16 +233,17 @@ def packed_pair(dev, label, kernel, plain, library, cases, tol, seed, peak):
                 library_ms=0.0)
     bound_by, top = None, 0.0
     from_events = []   # cases whose device times are CUDA events, not the profiler
-    for name, rows, d_in, d_out, bits, per_step, xdt in cases:
+    launches = []      # per case: (kernels per call, device source)
+    for name, rows, d_in, d_out, bits, per_step, xdt, gs in cases:
         def make():
             p = {"codes": torch.randint(-2**31, 2**31 - 1, (d_out, d_in * bits // 32),
                                         generator=g, device=dev, dtype=torch.int32),
-                 "scales": torch.rand((d_out, d_in // 64), generator=g, device=dev) * 0.02,
-                 "biases": (torch.rand((d_out, d_in // 64), generator=g, device=dev) - 0.5) * 0.2}
+                 "scales": torch.rand((d_out, d_in // gs), generator=g, device=dev) * 0.02,
+                 "biases": (torch.rand((d_out, d_in // gs), generator=g, device=dev) - 0.5) * 0.2}
             x = torch.randn((rows, d_in), generator=g, device=dev).to(getattr(torch, xdt))
             return x, p
 
-        w_bytes = d_out * (d_in * bits // 8 + 2 * 4 * d_in // 64)
+        w_bytes = d_out * (d_in * bits // 8 + 2 * 4 * d_in // gs)
         sets = input_sets(make, w_bytes)
         got = kernel(*sets[0])
         ref = plain(*sets[0])
@@ -243,18 +254,20 @@ def packed_pair(dev, label, kernel, plain, library, cases, tol, seed, peak):
         lib_sets = input_sets(lambda: library(*make())[1], sum(
             t.numel() * t.element_size() for t in lib0))
         timed = time_turns([(kernel, sets), (plain, sets), (lib_fn, lib_sets)])
-        (ms, dev_ms, _), (plain_ms, plain_dev_ms, _), (_, lib_dev_ms, _) = timed
+        (ms, dev_ms, source, per_call), (plain_ms, plain_dev_ms, _, _), (_, lib_dev_ms, _, _) = timed
+        launches.append((per_call, source))
         from_events += [f"{name} x={xdt} {what}"
                         for what, t in zip(("kernel", "plain", "library"), timed)
                         if t[2] != "profiler"]
         x_bytes = rows * d_in * sets[0][0].element_size()
         b_ms, b_by = bound(w_bytes + x_bytes + rows * d_out * 4, 2 * rows * d_out * d_in,
                            peak[xdt])
-        log(f"{label} {name:12s} rows={rows:3d} in={d_in:4d} out={d_out:6d} bits={bits} x={xdt} "
-            f"max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:g}) kernel_ms={ms:.4f} "
+        log(f"{label} {name:12s} rows={rows:3d} in={d_in:4d} out={d_out:6d} bits={bits} gs={gs} "
+            f"x={xdt} max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:g}) kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} device: kernel_ms={dev_ms:.4f} plain_ms={plain_dev_ms:.4f} "
             f"library_ms={lib_dev_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-            f"bound/kernel={b_ms / dev_ms:.3f} kernel/library={dev_ms / lib_dev_ms:.2f}")
+            f"bound/kernel={b_ms / dev_ms:.3f} kernel/library={dev_ms / lib_dev_ms:.2f} "
+            f"kernels/call={per_call:g} ({source})")
         if not rel <= tol:
             raise AssertionError(f"{label} {name}: rel error {rel} > {tol}")
         worst = max(worst, err)
@@ -265,7 +278,7 @@ def packed_pair(dev, label, kernel, plain, library, cases, tol, seed, peak):
         if per_step and per_step * b_ms > top:
             top, bound_by = per_step * b_ms, b_by
         del sets, lib_sets, lib0
-    return worst, step, bound_by, from_events
+    return worst, step, bound_by, from_events, launches
 
 
 def log_step(label, what, step):
@@ -277,7 +290,7 @@ def log_step(label, what, step):
 
 def k1_library(x, p):
     """K1's yardstick: one fp32 GEMM on the dequantized weight (the bias
-    term folded into W), TF32 off."""
+    term folded into W), TF32 off: K1's fp32 function in one library call."""
     import torch
 
     from qwen3_asr_swift_tpu_torch.ops import quant
@@ -302,22 +315,35 @@ def k2_library(x, p):
 def phase_k1(dev):
     import torch
 
-    from qwen3_asr_swift_tpu_torch.ops import quant
+    from qwen3_asr_swift_tpu_torch.ops import cuda_build, quant
 
     torch.backends.cuda.matmul.allow_tf32 = False
     # the main path hands K1 bf16 activations (a packed embedding returns
-    # bf16 rows); rows 32 carry the per-step sum
-    cases = step_cases(32, 1, "bfloat16") + [
-        ("qkv_rows1", 1, HIDDEN, NQ + NKV, 4, 0, "bfloat16"),
-        ("qkv_rows33", 33, HIDDEN, NQ + NKV, 4, 0, "bfloat16"),
-        ("qkv_rows256", 256, HIDDEN, NQ + NKV, 4, 0, "bfloat16"),
-        ("qkv_bits2", 32, HIDDEN, NQ + NKV, 2, 0, "bfloat16"),
-        ("qkv_bits8", 32, HIDDEN, NQ + NKV, 8, 0, "bfloat16")]
-    worst, step, bound_by, from_events = packed_pair(
+    # bf16 rows); rows 32 carry the per-step sum; rows 16 are beam search's
+    qkv = (HIDDEN, NQ + NKV)
+    cases = step_cases(32, 1, "bfloat16") + step_cases(16, 0, "bfloat16") + [
+        ("qkv_rows1", 1, *qkv, 4, 0, "bfloat16", 64),
+        ("qkv_rows33", 33, *qkv, 4, 0, "bfloat16", 64),
+        ("qkv_rows256", 256, *qkv, 4, 0, "bfloat16", 64),
+        ("qkv_bits2", 32, *qkv, 2, 0, "bfloat16", 64),
+        ("qkv_bits8", 32, *qkv, 8, 0, "bfloat16", 64),
+        ("qkv_gs32", 32, *qkv, 4, 0, "bfloat16", 32),
+        ("qkv_gs128", 32, *qkv, 4, 0, "bfloat16", 128),
+        ("down_bits2_gs32", 32, INTER, HIDDEN, 2, 0, "bfloat16", 32)]
+    worst, step, bound_by, from_events, per_call = packed_pair(
         dev, "K1", quant.quant_matmul_cuda, quant.quant_matmul, k1_library, cases, K1_TOL,
         seed=0, peak=K1_PEAK)
     log_step("K1", "28 layers x 4 + LM head, rows 32, bf16 x", step)
-    worst32, step32, _, from_events32 = packed_pair(
+    # kernels per call at bf16 x: the kernel, and the split sum where K is
+    # split; a cast of x would show as one more
+    lib = cuda_build.library()
+    for (name, rows, d_in, d_out, bits, _, _, gs), (n, source) in zip(cases, per_call):
+        want = 1 + (lib.qs_quant_matmul_workspace(rows, d_in, d_out, bits, gs, 1) > 0)
+        if source == "profiler" and n != want:
+            raise AssertionError(f"K1 {name}: {n:g} kernels per call at bf16 x, not {want}")
+    log("K1 kernels per call at bf16 x (profiler): " + ", ".join(
+        f"{c[0]} {n:g}" for c, (n, _) in zip(cases, per_call)))
+    worst32, step32, _, from_events32, _ = packed_pair(
         dev, "K1", quant.quant_matmul_cuda, quant.quant_matmul, k1_library,
         step_cases(32, 1, "float32"), K1_TOL, seed=3, peak=K1_PEAK)
     log_step("K1", "28 layers x 4 + LM head, rows 32, fp32 x", step32)
@@ -327,6 +353,9 @@ def phase_k1(dev):
                  "max_abs_err": max(worst, worst32)}, **step, bound_by=bound_by,
                 device_source=device_source(from_events + from_events32),
                 fp32_x_device_ms=step32["device_ms"],
+                design="bf16 mma.sync on exact codes and x (fp32 x as three bf16 terms), "
+                       "each group's sum scaled in fp32; cp.async-staged codes, scales and x "
+                       "tile; K split at out 1024",
                 library_call="torch.mm(x_f32, dequantize(p).t()), allow_tf32=False",
                 ms_per="one decode step at batch 32, bf16 x (28x qkv, o, gate_up, down + LM "
                        "head), operands cold in L2")
@@ -339,16 +368,16 @@ def phase_k2(dev):
     # per-step sum; rows 32, 1, 33, 256 and the 2- and 8-bit packings are
     # checked and timed beside them, then one step again with fp32 x
     cases = step_cases(16, 1, "bfloat16") + step_cases(32, 0, "bfloat16") + [
-        ("qkv_rows1", 1, HIDDEN, NQ + NKV, 4, 0, "bfloat16"),
-        ("qkv_rows33", 33, HIDDEN, NQ + NKV, 4, 0, "bfloat16"),
-        ("qkv_rows256", 256, HIDDEN, NQ + NKV, 4, 0, "bfloat16"),
-        ("qkv_bits2", 32, HIDDEN, NQ + NKV, 2, 0, "bfloat16"),
-        ("qkv_bits8", 32, HIDDEN, NQ + NKV, 8, 0, "bfloat16")]
-    worst, step, bound_by, from_events = packed_pair(
+        ("qkv_rows1", 1, HIDDEN, NQ + NKV, 4, 0, "bfloat16", 64),
+        ("qkv_rows33", 33, HIDDEN, NQ + NKV, 4, 0, "bfloat16", 64),
+        ("qkv_rows256", 256, HIDDEN, NQ + NKV, 4, 0, "bfloat16", 64),
+        ("qkv_bits2", 32, HIDDEN, NQ + NKV, 2, 0, "bfloat16", 64),
+        ("qkv_bits8", 32, HIDDEN, NQ + NKV, 8, 0, "bfloat16", 64)]
+    worst, step, bound_by, from_events, _ = packed_pair(
         dev, "K2", quant.quant_matmul_plane_cuda, quant.quant_matmul_plane, k2_library, cases,
         K2_TOL, seed=4, peak=K2_PEAK)
     log_step("K2", "28 layers x 4 + LM head, rows 16, bf16 x", step)
-    worst32, step32, _, from_events32 = packed_pair(
+    worst32, step32, _, from_events32, _ = packed_pair(
         dev, "K2", quant.quant_matmul_plane_cuda, quant.quant_matmul_plane, k2_library,
         step_cases(16, 1, "float32"), K2_TOL, seed=5, peak=K2_PEAK)
     log_step("K2", "28 layers x 4 + LM head, rows 16, fp32 x", step32)
@@ -413,7 +442,7 @@ def phase_k3(dev):
     lib_sets = [library_args(*st) for st in sets]
     timed = time_turns([(attention_int8.decode_attention_int8, sets),
                         (attention_int8.decode_attention_int8_ref, sets), (sdpa, lib_sets)])
-    (ms, dev_ms, _), (plain_ms, plain_dev_ms, _), (_, lib_dev_ms, _) = timed
+    (ms, dev_ms, _, _), (plain_ms, plain_dev_ms, _, _), (_, lib_dev_ms, _, _) = timed
     from_events = [what for what, t in zip(("kernel", "plain", "library"), timed)
                    if t[2] != "profiler"]
     q_bytes = b * hq * d * sets[0][0].element_size()
@@ -576,6 +605,12 @@ def phase_slice(model, counters, dev_name, power):
         f"({100 * busy / prof_wall:.1f} %), idle {100 * (1 - busy / prof_wall):.1f} %")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  device {us / 1e3:9.2f} ms  {name[:100]}")
+    # per hand-written kernel, all its instances (K1's split sum with K1:
+    # K2, which shares it, does not run here)
+    for label, marks in (("K1", ("::quant_matmul_kernel<", "::split_sum(")),
+                         ("K3", ("::decode_attn_int8_kernel<",))):
+        us = sum(v for k, v in by_name.items() if any(m in k for m in marks))
+        log(f"slice under the profiler: {label} device {us / 1e3:.2f} ms")
     return launches, wall
 
 

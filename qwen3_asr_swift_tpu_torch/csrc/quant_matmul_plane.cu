@@ -56,6 +56,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_async.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;            // warps per block; one group each per stage
@@ -70,45 +72,6 @@ constexpr size_t kMaxSmem = 200 * 1024;   // bytes of shared memory a block may 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = ok ? 16 : 0;   // 0: fill with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = ok ? 4 : 0;   // 0: fill with zeros
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-// wait until at most `pending` (clamped to 7) copy groups are in flight
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  switch (pending < 7 ? pending : 7) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
-    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
-    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
-  }
 }
 
 // The weights of this lane's inputs k..k+7 (k % 8 == 0, relative to the
@@ -378,17 +341,6 @@ quant_matmul_plane_kernel(const void* __restrict__ x, const uint32_t* __restrict
   }
 }
 
-// y[i] = sum over splits s = 0, 1, ... of ws[s][i], in split order
-__global__ void quant_matmul_plane_split_sum(const float* __restrict__ ws, float* __restrict__ y,
-                                       size_t n, int ksplit) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float t = ws[i];
-    for (int s = 1; s < ksplit; ++s) t += ws[(size_t)s * n + i];
-    y[i] = t;
-  }
-}
-
 // Output rows (16 * mt) and activation rows (8 * nt) of a block's tile:
 // wide outputs (the LM head) take 2 m-tiles, or 4 when the call has at
 // most 16 rows, so fewer blocks re-read x; at most 16 rows need 2 n-tiles.
@@ -503,11 +455,7 @@ int qs_quant_matmul_plane(const void* x, const void* codes, const void* scales,
     default: err = launch_bits<8>(x, cw, sc, bz, out, sh, t, x_bf16 != 0, smem, s); break;
   }
   if (err != cudaSuccess || ks == 1) return (int)err;
-  const size_t n = (size_t)B * N;
-  const int threads = 256;
-  const int blocks = (int)((n + threads - 1) / threads < 1024 ? (n + threads - 1) / threads : 1024);
-  quant_matmul_plane_split_sum<<<blocks, threads, 0, s>>>((const float*)ws, (float*)y, n, ks);
-  return (int)cudaGetLastError();
+  return (int)launch_split_sum((const float*)ws, (float*)y, (size_t)B * N, ks, s);
 }
 
 }  // extern "C"

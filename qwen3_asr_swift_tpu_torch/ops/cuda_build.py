@@ -36,8 +36,11 @@ _I = ctypes.c_int
 #: C signatures: name → argtypes (every function returns cudaError_t as int,
 #: except those in RESTYPES)
 SIGNATURES = {
-    # x, codes, scales, biases, y, B, K, N, bits, group_size, stream
-    "qs_quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, codes, scales, biases, y, workspace, B, K, N, bits, group_size,
+    # x is bf16, stream
+    "qs_quant_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # B, K, N, bits, group_size, x is bf16 → fp32 floats of K1's workspace
+    "qs_quant_matmul_workspace": [_I, _I, _I, _I, _I, _I],
     # x, codes, scales, biases, y, workspace, B, K, N, bits, group_size,
     # x is bf16, stream
     "qs_quant_matmul_plane": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -48,7 +51,8 @@ SIGNATURES = {
                             ctypes.c_float, _P],
 }
 
-RESTYPES = {"qs_quant_matmul_plane_workspace": ctypes.c_longlong}
+RESTYPES = {"qs_quant_matmul_workspace": ctypes.c_longlong,
+            "qs_quant_matmul_plane_workspace": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib = None

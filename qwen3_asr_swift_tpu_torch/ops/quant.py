@@ -13,9 +13,10 @@ Three compute paths, as in the reference:
   counterpart of ``quant_matmul_xla``). Prefill-shaped calls take it on
   every device, as the reference leaves them outside Pallas.
 - :func:`quant_matmul_cuda` — the wrapper of kernel K1
-  (``csrc/quant_matmul.cu``, fp32 throughout). For a CUDA tensor it
-  launches the kernel or raises; only for a CPU tensor does it take
-  :func:`quant_matmul`.
+  (``csrc/quant_matmul.cu``: exact bf16 products on the tensor cores, each
+  group's sum scaled in fp32, so the plain version's fp32 function). For a
+  CUDA tensor it launches the kernel or raises; only for a CPU tensor does
+  it take :func:`quant_matmul`.
 - :func:`quant_matmul_plane_cuda` — the wrapper of kernel K2
   (``csrc/quant_matmul_plane.cu``), the reference's per-bit-plane Pallas
   body with its bf16 roundings, on the tensor cores; its plain version is
@@ -42,6 +43,9 @@ KERNEL_MAX_ROWS = 256
 #: "plane" (K2), read from QUANT_KERNEL at import as the reference reads
 #: it; ``_matmul`` reads this constant at call time, so tests may set it
 KERNEL = os.environ.get("QUANT_KERNEL", "fused")
+
+#: group sizes kernel K1 takes, with 2-, 4- or 8-bit codes (the MLX packings)
+K1_GROUP_SIZES = (32, 64, 128)
 
 #: launches of kernel K1
 K1_LAUNCHES = cuda_build.LaunchCounter("quant_matmul_cuda")
@@ -144,24 +148,48 @@ def _kernel_operands(x, p, what: str):
     return bits, gs
 
 
+def _launch_packed(x, p, bits: int, gs: int, what: str, fn: str, counter) -> torch.Tensor:
+    """Launch a packed-matmul kernel (C entry point ``fn``, its workspace
+    size ``fn + "_workspace"``) on a CUDA x [..., in] of bf16 or fp32, which
+    it takes as it is (no cast launch); fp32 [..., out] out."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what} takes bf16 or fp32 x, got {x.dtype}")
+    if p["codes"].data_ptr() % 16:
+        raise ValueError("codes must be 16-byte aligned")
+    in_dim, n_out = x.shape[-1], p["codes"].shape[0]
+    xk = x.reshape(-1, in_dim).contiguous()
+    if xk.data_ptr() % 16:
+        xk = xk.clone()
+    rows = xk.shape[0]
+    lib = cuda_build.library()
+    y = torch.empty((rows, n_out), dtype=torch.float32, device=x.device)
+    x_bf16 = int(xk.dtype == torch.bfloat16)
+    n_ws = getattr(lib, fn + "_workspace")(rows, in_dim, n_out, bits, gs, x_bf16)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=x.device) if n_ws else None   # scratch
+    err = getattr(lib, fn)(
+        xk.data_ptr(), p["codes"].data_ptr(), p["scales"].data_ptr(), p["biases"].data_ptr(),
+        y.data_ptr(), ws.data_ptr() if ws is not None else None, rows, in_dim, n_out, bits, gs,
+        x_bf16, cuda_build.stream_handle(x.device))
+    cuda_build.check(err, fn)
+    counter.add()
+    return y.reshape(*x.shape[:-1], n_out)
+
+
 def quant_matmul_cuda(x: torch.Tensor, p) -> torch.Tensor:
-    """Kernel K1: x [..., in] @ dequant(W)^T → fp32 [..., out].
+    """Kernel K1: :func:`quant_matmul` of x [..., in] → fp32 [..., out].
 
     A CPU tensor takes the plain :func:`quant_matmul`; a CUDA tensor
-    launches ``qs_quant_matmul`` (csrc/quant_matmul.cu) or raises."""
+    launches ``qs_quant_matmul`` (csrc/quant_matmul.cu) or raises. x is
+    bf16 or fp32 and reaches the kernel as it is (no cast launch): its
+    products with the codes are exact on the tensor cores (fp32 x as three
+    bf16 terms) and each group's sum takes its scale in fp32. The codes are
+    2, 4 or 8 bits in groups of :data:`K1_GROUP_SIZES`."""
     if x.device.type == "cpu":
         return quant_matmul(x, p)
     bits, gs = _kernel_operands(x, p, "quant_matmul_cuda")
-    xf = x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous()
-    (rows, in_dim), n_out = xf.shape, p["codes"].shape[0]
-    y = torch.empty((rows, n_out), dtype=torch.float32, device=x.device)
-    err = cuda_build.library().qs_quant_matmul(
-        xf.data_ptr(), p["codes"].data_ptr(), p["scales"].data_ptr(),
-        p["biases"].data_ptr(), y.data_ptr(), rows, in_dim, n_out, bits, gs,
-        cuda_build.stream_handle(x.device))
-    cuda_build.check(err, "qs_quant_matmul")
-    K1_LAUNCHES.add()
-    return y.reshape(*x.shape[:-1], n_out)
+    if gs not in K1_GROUP_SIZES:
+        raise ValueError(f"K1 takes group sizes {K1_GROUP_SIZES}, got {gs}")
+    return _launch_packed(x, p, bits, gs, "quant_matmul_cuda", "qs_quant_matmul", K1_LAUNCHES)
 
 
 def quant_matmul_plane_cuda(x: torch.Tensor, p) -> torch.Tensor:
@@ -177,30 +205,11 @@ def quant_matmul_plane_cuda(x: torch.Tensor, p) -> torch.Tensor:
     if x.device.type == "cpu":
         return quant_matmul_plane(x, p)
     bits, gs = _kernel_operands(x, p, "quant_matmul_plane_cuda")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"quant_matmul_plane_cuda takes bf16 or fp32 x, got {x.dtype}")
     if gs % 32 or (gs * bits) % 128:
         raise ValueError(f"K2 takes a group size that is a multiple of 32 with group*bits a "
                          f"multiple of 128 (group {gs}, bits {bits})")
-    if p["codes"].data_ptr() % 16:
-        raise ValueError("codes must be 16-byte aligned")
-    in_dim, n_out = x.shape[-1], p["codes"].shape[0]
-    xk = x.reshape(-1, in_dim).contiguous()
-    if xk.data_ptr() % 16:
-        xk = xk.clone()
-    rows = xk.shape[0]
-    lib = cuda_build.library()
-    y = torch.empty((rows, n_out), dtype=torch.float32, device=x.device)
-    x_bf16 = int(xk.dtype == torch.bfloat16)
-    n_ws = lib.qs_quant_matmul_plane_workspace(rows, in_dim, n_out, bits, gs, x_bf16)
-    ws = torch.empty(n_ws, dtype=torch.float32, device=x.device) if n_ws else None   # scratch
-    err = lib.qs_quant_matmul_plane(
-        xk.data_ptr(), p["codes"].data_ptr(), p["scales"].data_ptr(), p["biases"].data_ptr(),
-        y.data_ptr(), ws.data_ptr() if ws is not None else None, rows, in_dim, n_out, bits, gs,
-        x_bf16, cuda_build.stream_handle(x.device))
-    cuda_build.check(err, "qs_quant_matmul_plane")
-    K2_LAUNCHES.add()
-    return y.reshape(*x.shape[:-1], n_out)
+    return _launch_packed(x, p, bits, gs, "quant_matmul_plane_cuda", "qs_quant_matmul_plane",
+                          K2_LAUNCHES)
 
 
 def _rows(x) -> int:

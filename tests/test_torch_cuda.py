@@ -7,7 +7,8 @@ where torch sees no CUDA device. On the card:
 
 Tolerances: 1e-5 relative to max |plain| for K1 and K3 (both fp32; they
 differ from the plain versions in summation order and fused multiply-adds,
-~1e-7 measured at full width) and for K2 (its bf16 roundings are the plain
+~1e-7 measured at full width; K1's products of codes and x, fp32 x as
+three bf16 terms, are exact on the tensor cores) and for K2 (its bf16 roundings are the plain
 version's, bit for bit; only the fp32 sum order differs, against the plain
 version's float64 sums); 2e-2 relative L2 for the tiny decoder's
 logits, whose activations are bf16 (packed embedding), so a bf16 rounding
@@ -45,12 +46,12 @@ def rel(got, ref):
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
-def packed(out_dim, in_dim, bits, dev, seed=0):
+def packed(out_dim, in_dim, bits, dev, seed=0, gs=64):
     g = torch.Generator(device=dev).manual_seed(seed)
     return {"codes": torch.randint(-2**31, 2**31 - 1, (out_dim, in_dim * bits // 32),
                                    generator=g, device=dev, dtype=torch.int32),
-            "scales": torch.rand((out_dim, in_dim // 64), generator=g, device=dev) * 0.02,
-            "biases": (torch.rand((out_dim, in_dim // 64), generator=g, device=dev) - 0.5) * 0.2}
+            "scales": torch.rand((out_dim, in_dim // gs), generator=g, device=dev) * 0.02,
+            "biases": (torch.rand((out_dim, in_dim // gs), generator=g, device=dev) - 0.5) * 0.2}
 
 
 @pytest.mark.parametrize("rows,in_dim,out_dim,bits", [
@@ -84,6 +85,65 @@ def test_k1_rejects_bad_inputs(card):
         k1.quant_matmul_cuda(x, dict(p, codes=p["codes"].cpu()))
     with pytest.raises(ValueError):
         k1.quant_matmul_cuda(x, dict(p, scales=p["scales"].t().contiguous().t()))
+
+
+@pytest.mark.parametrize("xdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows", [1, 8, 16, 32, 33, 256])
+@pytest.mark.parametrize("in_dim,out_dim", [
+    (1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024), (1024, 151936)])
+def test_k1_decode_shapes_bf16_and_fp32_x(card, xdt, rows, in_dim, out_dim):
+    """The decoder's products (qkv, o and down with K split over blocks,
+    gate_up, the LM head) at the rows the slice, beam search and larger
+    batches give K1, with the activations in either dtype the wrapper takes
+    as they are."""
+    p = packed(out_dim, in_dim, 4, card, seed=rows)
+    x = torch.randn((rows, in_dim), device=card).to(getattr(torch, xdt))
+    before = k1.K1_LAUNCHES.value
+    got = k1.quant_matmul_cuda(x, p)
+    torch.cuda.synchronize()
+    assert k1.K1_LAUNCHES.value == before + 1
+    assert got.shape == (rows, out_dim) and got.dtype == torch.float32
+    assert rel(got, k1.quant_matmul(x, p)) <= TOL
+
+
+@pytest.mark.parametrize("gs", [32, 64, 128])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_k1_every_packing(card, bits, gs):
+    """Every MLX packing K1 takes, 2-bit group 32 (an 8-byte group) among
+    them, with and without the K split, in both activation dtypes."""
+    for in_dim, out_dim in ((1024, 4096), (3072, 1024)):
+        p = packed(out_dim, in_dim, bits, card, seed=bits + gs, gs=gs)
+        for xdt in (torch.bfloat16, torch.float32):
+            x = torch.randn((33, in_dim), device=card).to(xdt)
+            assert rel(k1.quant_matmul_cuda(x, p), k1.quant_matmul(x, p)) <= TOL
+
+
+def test_k1_rows_do_not_depend_on_the_batch(card):
+    """An output row is bit-identical whether 1, 7, 33, 40 or 256 rows
+    share the call, for one, two and four m-tiles per block, with and
+    without the K split, in both activation dtypes."""
+    for out_dim, in_dim in ((300, 1024), (9000, 1024), (1024, 3072)):
+        p = packed(out_dim, in_dim, 4, card, seed=3)
+        for xdt in (torch.float32, torch.bfloat16):
+            x = torch.randn((256, in_dim), device=card).to(xdt)
+            full = k1.quant_matmul_cuda(x, p)
+            for n in (1, 7, 33, 40):
+                assert torch.equal(k1.quant_matmul_cuda(x[:n], p), full[:n])
+                assert torch.equal(k1.quant_matmul_cuda(x[256 - n:], p), full[256 - n:])
+
+
+def test_k1_rejects_bad_dtype_group_and_device(card):
+    p = packed(64, 256, 4, card)
+    x = torch.randn((2, 256), device=card)
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="bf16 or fp32"):
+            k1.quant_matmul_cuda(x.to(dt), p)
+    for gs in (16, 256):   # packings outside the published group sizes
+        with pytest.raises(ValueError, match="group sizes"):
+            k1.quant_matmul_cuda(torch.randn((2, 512), device=card),
+                                 packed(64, 512, 4, card, gs=gs))
+    with pytest.raises(ValueError, match="on cuda"):
+        k1.quant_matmul_cuda(x, {k: v.cpu() for k, v in p.items()})
 
 
 @pytest.mark.parametrize("rows,in_dim,out_dim,bits", [

@@ -3,6 +3,8 @@
 Tolerances (relative to max |reference|):
 - 1e-5 against ``quant_matmul_xla``: both are fp32 group decompositions,
   differing in summation order and in where the group scale multiplies;
+  kernel K1's arithmetic (emulated here in torch, since its CUDA source
+  runs only on the card) is held to the same;
 - 2e-2 against the Pallas kernel in interpret mode, which rounds its
   dequantized planes and x to bf16 (as tests/test_quant.py states).
 """
@@ -22,10 +24,10 @@ XLA_TOL = 1e-5
 PALLAS_TOL = 2e-2
 
 
-def make_q(out_dim, in_dim, bits, seed=0, bias=False):
+def make_q(out_dim, in_dim, bits, seed=0, bias=False, gs=64):
     rng = np.random.default_rng(seed)
     w = rng.standard_normal((out_dim, in_dim)).astype(np.float32) * 0.1
-    codes, scales, biases = quantize_mlx(w, bits, 64)
+    codes, scales, biases = quantize_mlx(w, bits, gs)
     p = {"codes": codes, "scales": scales, "biases": biases}
     if bias:
         p["bias"] = rng.standard_normal(out_dim).astype(np.float32)
@@ -164,3 +166,76 @@ def test_dequantize_tree_and_quantize_tree_match_reference():
 def test_infer_quant_dims_rejects_bad_shapes():
     with pytest.raises(ValueError):
         pq.infer_quant_dims(100, (4, 10), (4, 2))
+
+
+# --------------------------------------------------------------------------- #
+# Kernel K1's arithmetic (csrc/quant_matmul.cu), emulated in torch
+
+#: bf16 terms K1 cuts fp32 x into. Two terms (hi + lo) leave up to 2^-16 of
+#: each activation, and the code·x group sums are several times larger than
+#: y (the bias term cancels their offset): up to 2.9e-5 of max |y| over the
+#: cases below, above the 1e-5 tolerance. Three terms hold every normal
+#: fp32 value exactly (1.95e-6 over the same cases: fp32 sum order alone).
+K1_TERMS = 3
+
+
+def k1_terms(x32: torch.Tensor, n: int):
+    """fp32 x as n bf16 terms, as K1 cuts them: each term is the top half
+    of the bits of what the terms before it left."""
+    terms, rest = [], x32.clone()
+    for _ in range(n):
+        t = (rest.view(torch.int32) & -65536).view(torch.float32)
+        terms.append(t)
+        rest = rest - t
+    return terms
+
+
+def k1_emulate(x: torch.Tensor, p, n_terms: int) -> torch.Tensor:
+    """K1's decomposition of x [B, in] (fp32, or bf16 as one term): each
+    group's sum of code·x over the terms (exact products, summed in
+    float64 and rounded once to fp32, as the tensor cores' fp32 sums
+    approximate), times the group's fp32 scale, plus its bias times the
+    fp32 sum of the group's x, taken in group order in fp32."""
+    in_dim = x.shape[-1]
+    bits, gs = pq.infer_quant_dims(in_dim, p["codes"].shape, p["scales"].shape)
+    xf = x.float()
+    rows, groups = xf.shape[0], in_dim // gs
+    codes = pq.unpack_codes(p["codes"], bits, in_dim).view(-1, groups, gs).double()
+    partial = sum(torch.einsum("bgi,ogi->bgo", t.view(rows, groups, gs).double(), codes)
+                  for t in k1_terms(xf, n_terms)).float()                   # [B, G, out]
+    xsum = xf.view(rows, groups, gs).sum(-1)                                 # [B, G]
+    y = torch.zeros(rows, codes.shape[0])
+    for g in range(groups):
+        y = y + p["scales"][:, g] * partial[:, g]
+        y = y + p["biases"][:, g] * xsum[:, g, None]
+    return y
+
+
+def test_k1_three_bf16_terms_hold_fp32_exactly():
+    """Three terms, each exact in bf16, sum back to any normal fp32 value;
+    two leave a remainder."""
+    rng = np.random.default_rng(30)
+    x = rng.standard_normal(20000).astype(np.float32) * np.exp2(
+        rng.integers(-60, 60, 20000)).astype(np.float32)
+    terms = k1_terms(torch.from_numpy(x), K1_TERMS)
+    for t in terms:
+        assert torch.equal(t, t.to(torch.bfloat16).float())
+    assert torch.equal(terms[0] + terms[1] + terms[2], torch.from_numpy(x))
+    assert not torch.equal(terms[0] + terms[1], torch.from_numpy(x))
+
+
+@pytest.mark.parametrize("rows", [1, 7, 33])
+@pytest.mark.parametrize("gs", [32, 64, 128])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_k1_decomposition_matches_plain_and_xla(bits, gs, rows):
+    """K1's arithmetic against the plain version and the reference's
+    ``quant_matmul_xla``, for every packing K1 takes, with fp32 x in
+    K1_TERMS bf16 terms and with bf16 x as it is."""
+    p = make_q(40, 256, bits, seed=bits * 1000 + gs + rows, gs=gs)
+    x = np.random.default_rng(rows + gs).standard_normal((rows, 256)).astype(np.float32)
+    for xt, n_terms in ((torch.from_numpy(x), K1_TERMS),
+                        (torch.from_numpy(x).to(torch.bfloat16), 1)):
+        xs = xt.float().numpy()
+        got = k1_emulate(xt, to_port(p), n_terms).numpy()
+        assert rel(got, pq.quant_matmul(torch.from_numpy(xs), to_port(p)).numpy()) <= XLA_TOL
+        assert rel(got, np.asarray(jq.quant_matmul_xla(jnp.asarray(xs), to_jax(p)))) <= XLA_TOL
