@@ -19,8 +19,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              tensor cores) against its plain version at the same shapes,
              rows 16 (bf16 x, as the pool gives it, and fp32 x), 32, 1, 33
              and 256, 2-, 4- and 8-bit;
-5. k3      — kernel K3 (int8-KV decode attention) against its plain version
-             at B=32, Hq 16, Hkv 8, D 128, L 580 with holes in ``valid``.
+5. k3      — kernel K3 (int8-KV decode attention, split over L) against
+             its plain version at B=32 (the slice's rows) and B=16 (beam's),
+             Hq 16, Hkv 8, D 128, L 580 with holes in ``valid``, called
+             as the decoder calls it (bf16 q, bf16 out) and timed so; its
+             fp32 output is checked too, and the bf16 output must be that
+             rounded. It prints the profiler's kernels per call (1, or 2
+             with the merge of the splits: no cast kernel) and fails on any
+             other count.
    Each case of k1-k3 also prints its bound (the larger of its bytes over
    3.35 TB/s and its FLOPs over the card's peak for its operand types, and
    which binds) and the device time of one PyTorch call computing the same
@@ -67,7 +73,11 @@ K1_TOL = 1e-4   # max|err| / max|ref|: fp32 sum order + fused multiply-adds
 # scales and code*scale products); only its fp32 tensor-core sums differ
 # from the plain version's float64 ones
 K2_TOL = 1e-4
-K3_TOL = 1e-4   # max|err| / max|ref|: fp32 sum order over 580 keys, online softmax
+K3_TOL = 1e-4   # max|err| / max|ref|: fp32 sum order over 580 keys, split softmax
+# K3's bf16 output (the decoder's) is its fp32 result rounded once: two fp32
+# values within K3_TOL of each other round at most one bf16 ulp apart, and
+# an ulp is at most 2^-7 of the largest |ref|
+K3_BF16_TOL = 2.0 ** -7
 # relative L2 of the first decode step's logits, card vs host CPU. The
 # decoder runs in bf16 even in an fp32 model, because the packed embedding
 # lookup returns bf16 rows (as the reference's does); fp32 sums taken in
@@ -111,11 +121,13 @@ def time_turns(calls, iters: int = 24, warmup: int = 3):
     """Per-call times of several functions, each cycling through its own
     ``sets`` of arguments, in turns: a, b, ..., ..., b, a. ``calls`` is a
     list of (fn, sets). Returns one (wall_ms, device_ms, device_source,
-    kernels_per_call) tuple per call: wall from CUDA events around the loop,
-    launch gaps included; device time from the profiler (every kernel the
-    call launched), or from CUDA events around each call where the profiler
-    kept dropping events (``device_source`` says which); the most kernels
-    per call that a profiler window showed."""
+    kernels_per_call, by_kernel) tuple per call: wall from CUDA events
+    around the loop, launch gaps included; device time from the profiler
+    (every kernel the call launched), or from CUDA events around each call
+    where the profiler kept dropping events (``device_source`` says which);
+    the most kernels per call that a profiler window showed; and the device
+    ms per call of each kernel, by its function name, from the windows the
+    device time was taken from (empty where that was CUDA events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -138,6 +150,15 @@ def time_turns(calls, iters: int = 24, warmup: int = 3):
             torch.cuda.synchronize()
         return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
+    def by_name(kernels):
+        """device ms per call of each kernel, by its function name alone"""
+        out = {}
+        for e in kernels:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].split("::")[-1].split()[-1]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+        return out
+
     def device(fn, sets):
         # the profiler now and then drops a window's device events. A timed
         # window counts only if its kernels per call are the most that any
@@ -152,7 +173,7 @@ def time_turns(calls, iters: int = 24, warmup: int = 3):
             top = max(per_call)
             if top and per_call[-1] == top and per_call.count(top) >= 2:
                 return (sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters, "profiler",
-                        top)
+                        top, by_name(kernels))
         log(f"  (the profiler's kernels per call in seven windows: {per_call}: device time "
             f"from CUDA events around each call)")
         evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -163,22 +184,27 @@ def time_turns(calls, iters: int = 24, warmup: int = 3):
             ev1.record()
         torch.cuda.synchronize()
         return (sum(ev0.elapsed_time(ev1) for ev0, ev1 in evs) / iters, "cuda_events",
-                max(per_call))
+                max(per_call), {})
 
     for i in range(warmup):
         for fn, sets in calls:
             fn(*sets[i % len(sets)])
     torch.cuda.synchronize()
     order = list(range(len(calls))) + list(reversed(range(len(calls))))
-    out = [[0.0, 0.0, "profiler", 0.0] for _ in calls]
+    out = [[0.0, 0.0, "profiler", 0.0, {}] for _ in calls]
     for j in order:
         out[j][0] += wall(*calls[j]) / 2
     for j in order:
-        ms, source, per_call = device(*calls[j])
+        ms, source, per_call, kernels = device(*calls[j])
         out[j][1] += ms / 2
         out[j][3] = max(out[j][3], per_call)
         if source != "profiler":
             out[j][2] = source
+        for name, k_ms in kernels.items():
+            out[j][4][name] = out[j][4].get(name, 0.0) + k_ms / 2
+    for t in out:
+        if t[2] != "profiler":
+            t[4] = {}   # one window's kernels are not the whole call's
     return [tuple(t) for t in out]
 
 
@@ -254,7 +280,7 @@ def packed_pair(dev, label, kernel, plain, library, cases, tol, seed, peak):
         lib_sets = input_sets(lambda: library(*make())[1], sum(
             t.numel() * t.element_size() for t in lib0))
         timed = time_turns([(kernel, sets), (plain, sets), (lib_fn, lib_sets)])
-        (ms, dev_ms, source, per_call), (plain_ms, plain_dev_ms, _, _), (_, lib_dev_ms, _, _) = timed
+        (ms, dev_ms, source, per_call, _), (plain_ms, plain_dev_ms, *_), (_, lib_dev_ms, *_) = timed
         launches.append((per_call, source))
         from_events += [f"{name} x={xdt} {what}"
                         for what, t in zip(("kernel", "plain", "library"), timed)
@@ -393,15 +419,16 @@ def phase_k2(dev):
                        "head), operands cold in L2")
 
 
-def phase_k3(dev):
+def k3_inputs(dev, b, seed):
+    """Operand sets of K3 at ``b`` rows of the slice's shape (Hq 16, Hkv 8,
+    D 128, L 580, bf16 q, holes in ``valid``, the unwritten decode rows
+    masked), enough of them to meet their operands cold in L2."""
     import torch
-    import torch.nn.functional as F
 
-    from qwen3_asr_swift_tpu_torch.ops import attention_int8
     from qwen3_asr_swift_tpu_torch.ops.kv_cache import quantize_kv
 
-    g = torch.Generator(device=dev).manual_seed(1)
-    b, hq, hkv, length, d = 32, 16, 8, 580, 128
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hq, hkv, length, d = 16, 8, 580, 128
 
     def make():
         q = torch.randn((b, hq, 1, d), generator=g, device=dev).to(torch.bfloat16)
@@ -411,6 +438,35 @@ def phase_k3(dev):
         valid[:, 448:] = False   # the unwritten decode rows
         valid[:, 40] = True
         return q, kq, ks, vq, vs, valid
+
+    return input_sets(make, 2 * b * hkv * length * (d + 4))
+
+
+def k3_case(dev, b, seed, call=None, yardsticks=True):
+    """K3 at ``b`` rows on ``k3_inputs``, called as the decoder calls it:
+    ``call``, by default the wrapper with ``out_dtype=torch.bfloat16``. Its
+    fp32 output is held against the plain version, and its bf16 output
+    against the plain version's rounded to bf16 and, bit for bit, against
+    its own fp32 output rounded. Timed (operands cold in L2) beside the
+    plain version with the same rounding and one
+    ``scaled_dot_product_attention`` call, or alone without ``yardsticks``.
+    Returns the case's numbers per call."""
+    import torch
+    import torch.nn.functional as F
+
+    from qwen3_asr_swift_tpu_torch.ops import attention_int8
+
+    k3, bf16 = attention_int8.decode_attention_int8, torch.bfloat16
+    if call is None:
+        def call(*args):
+            return k3(*args, out_dtype=bf16)
+
+    def plain(*args):
+        return attention_int8.decode_attention_int8_ref(*args).to(bf16)
+
+    sets = k3_inputs(dev, b, seed)
+    _, hq, _, d = sets[0][0].shape
+    hkv, length = sets[0][1].shape[1:3]
 
     try:   # grouped heads in the library call where this PyTorch has them
         F.scaled_dot_product_attention(torch.zeros(1, 2, 1, 8, device=dev),
@@ -432,40 +488,85 @@ def phase_k3(dev):
             k, v = k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)
         return q.float(), k, v, valid[:, None, None, :]
 
-    sets = input_sets(make, 2 * b * hkv * length * (d + 4))
-    got = attention_int8.decode_attention_int8(*sets[0])
+    got32, got = k3(*sets[0]), call(*sets[0])
     ref = attention_int8.decode_attention_int8_ref(*sets[0])
-    lib = sdpa(*library_args(*sets[0]))
     torch.cuda.synchronize()
-    err, rel = rel_err(got, ref)
-    lib_err, lib_rel = rel_err(lib, ref)
-    lib_sets = [library_args(*st) for st in sets]
-    timed = time_turns([(attention_int8.decode_attention_int8, sets),
-                        (attention_int8.decode_attention_int8_ref, sets), (sdpa, lib_sets)])
-    (ms, dev_ms, _, _), (plain_ms, plain_dev_ms, _, _), (_, lib_dev_ms, _, _) = timed
-    from_events = [what for what, t in zip(("kernel", "plain", "library"), timed)
+    err, rel = rel_err(got32, ref)
+    err16, rel16 = rel_err(got, ref.to(bf16))
+    rounded = got.dtype == bf16 and torch.equal(got, got32.to(bf16))
+    calls = [(call, sets)]
+    lib_rel = float("nan")
+    if yardsticks:
+        _, lib_rel = rel_err(sdpa(*library_args(*sets[0])), ref)
+        calls += [(plain, sets), (sdpa, [library_args(*st) for st in sets])]
+    timed = time_turns(calls)
+    ms, dev_ms, _, per_call, by_kernel = timed[0]
+    plain_ms = plain_dev_ms = lib_dev_ms = float("nan")
+    if yardsticks:
+        (plain_ms, plain_dev_ms, *_), (_, lib_dev_ms, *_) = timed[1:]
+    from_events = [f"B={b} {what}" for what, t in zip(("kernel", "plain", "library"), timed)
                    if t[2] != "profiler"]
     q_bytes = b * hq * d * sets[0][0].element_size()
-    n_bytes = 2 * b * hkv * length * (d + 4) + q_bytes + b * length + b * hq * d * 4
+    out_bytes = b * hq * d * got.element_size()
+    n_bytes = 2 * b * hkv * length * (d + 4) + q_bytes + b * length + out_bytes
     # bf16 q against an int8 cache, exact in bf16: priced at the bf16 tensor cores
     b_ms, b_by = bound(n_bytes, 4 * b * hq * length * d, PEAK_BF16_TC)
-    log(f"K3 B={b} Hq={hq} Hkv={hkv} L={length} D={d} max_abs_err={err:.3e} rel={rel:.3e} "
-        f"(tol {K3_TOL:g}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+    log(f"K3 B={b} Hq={hq} Hkv={hkv} L={length} D={d} fp32 out: max_abs_err={err:.3e} "
+        f"rel={rel:.3e} (tol {K3_TOL:g}); bf16 out: max_abs_err={err16:.3e} rel={rel16:.3e} "
+        f"(tol {K3_BF16_TOL:g}), = fp32 out rounded: {rounded}; timed with bf16 out: "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"device: kernel_ms={dev_ms:.4f} plain_ms={plain_dev_ms:.4f} library_ms={lib_dev_ms:.4f} "
         f"(sdpa fp32, enable_gqa={gqa}, rel {lib_rel:.1e}) bound_ms={b_ms:.4f} ({b_by}) "
-        f"bound/kernel={b_ms / dev_ms:.3f} kernel/library={dev_ms / lib_dev_ms:.2f}")
+        f"bound/kernel={b_ms / dev_ms:.3f} kernel/library={dev_ms / lib_dev_ms:.2f} "
+        f"kernels/call={per_call:g} ({'profiler' if not from_events else 'CUDA events'}); "
+        f"by kernel: " + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items()))
     if not rel <= K3_TOL:
-        raise AssertionError(f"K3: rel error {rel} > {K3_TOL}")
+        raise AssertionError(f"K3 B={b}: rel error {rel} > {K3_TOL} (fp32 out)")
+    if not rel16 <= K3_BF16_TOL:
+        raise AssertionError(f"K3 B={b}: rel error {rel16} > {K3_BF16_TOL} (bf16 out)")
+    if not rounded:
+        raise AssertionError(f"K3 B={b}: the bf16 output is not the fp32 output rounded")
+    return {"b": b, "length": length, "d": d, "max_abs_err": max(err, err16), "ms": ms,
+            "plain_ms": plain_ms, "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_dev_ms,
+            "kernels_per_call": per_call, "from_events": from_events, "by_kernel": by_kernel,
+            "library_call": "scaled_dot_product_attention on fp32 q and the cache "
+                            f"dequantized to fp32, boolean mask, enable_gqa={gqa}"}
+
+
+def phase_k3(dev):
+    from qwen3_asr_swift_tpu_torch.ops import attention_int8
+
+    # B 32 is the slice's rows, B 16 beam's (4 clips x beam 4)
+    b32, b16 = k3_case(dev, 32, seed=1), k3_case(dev, 16, seed=2)
+    # kernels per call: the split kernel, and the merge where L takes more
+    # than one split; a cast of q or of the output would show as one more
+    split = attention_int8.split_keys(b32["length"], b32["d"])
+    want = 1 + (split < b32["length"])
+    for case in (b32, b16):
+        if not case["from_events"] and case["kernels_per_call"] != want:
+            raise AssertionError(f"K3 B={case['b']}: {case['kernels_per_call']:g} kernels per "
+                                 f"call, not {want}")
+    log(f"K3 kernels per call (profiler): B=32 {b32['kernels_per_call']:g}, "
+        f"B=16 {b16['kernels_per_call']:g}; split {split} keys, "
+        f"{-(-b32['length'] // split)} splits")
     return {"name": "decode_attention_int8", "route": "cuda",
             "source": "qwen3_asr_swift_tpu_torch/csrc/decode_attn_int8.cu",
             "replaces": "qwen3_asr_swift_tpu/ops/attention_pallas.py:33",
-            "max_abs_err": err, "ms": 28 * ms, "plain_ms": 28 * plain_ms,
-            "device_ms": 28 * dev_ms, "plain_device_ms": 28 * plain_dev_ms,
-            "bound_ms": 28 * b_ms, "bound_by": b_by, "library_ms": 28 * lib_dev_ms,
-            "device_source": device_source(from_events),
-            "library_call": "scaled_dot_product_attention on fp32 q and the cache "
-                            f"dequantized to fp32, boolean mask, enable_gqa={gqa}",
-            "ms_per": "one decode step at batch 32 (28 layers), operands cold in L2"}
+            "max_abs_err": max(b32["max_abs_err"], b16["max_abs_err"]),
+            "ms": 28 * b32["ms"], "plain_ms": 28 * b32["plain_ms"],
+            "device_ms": 28 * b32["device_ms"], "plain_device_ms": 28 * b32["plain_device_ms"],
+            "bound_ms": 28 * b32["bound_ms"], "bound_by": b32["bound_by"],
+            "library_ms": 28 * b32["library_ms"],
+            "device_source": device_source(b32["from_events"] + b16["from_events"]),
+            "b16_device_ms": 28 * b16["device_ms"], "b16_bound_ms": 28 * b16["bound_ms"],
+            "b16_library_ms": 28 * b16["library_ms"],
+            "design": f"split-L ({split} keys a block at L {b32['length']}), K/V tiles "
+                      "cp.async-staged through a two-tile ring, splits merged in order by "
+                      "a second kernel; bf16 q in, bf16 out",
+            "library_call": b32["library_call"],
+            "ms_per": "one decode step at batch 32 (28 layers), bf16 q and bf16 out as the "
+                      "decoder calls it, operands cold in L2; b16_*: at batch 16 (beam's rows)"}
 
 
 def make_weights():
@@ -608,7 +709,7 @@ def phase_slice(model, counters, dev_name, power):
     # per hand-written kernel, all its instances (K1's split sum with K1:
     # K2, which shares it, does not run here)
     for label, marks in (("K1", ("::quant_matmul_kernel<", "::split_sum(")),
-                         ("K3", ("::decode_attn_int8_kernel<",))):
+                         ("K3", ("::decode_attn_int8_split<", "::decode_attn_int8_merge("))):
         us = sum(v for k, v in by_name.items() if any(m in k for m in marks))
         log(f"slice under the profiler: {label} device {us / 1e3:.2f} ms")
     return launches, wall

@@ -98,7 +98,7 @@ def decode_step(params, cfg: TextDecoderConfig, token_ids, cache: KVCache) -> Tu
         layer = write_token(cache.layers[i], k, v, cache.cursor)
         if cache.quantized:
             attn = decode_attention_int8(q, layer.k, layer.k_scale, layer.v, layer.v_scale,
-                                         key_ok).to(x.dtype)
+                                         key_ok, out_dtype=x.dtype)
         else:
             k_all, v_all = cache_kv(layer, k.dtype)
             attn = sdpa(q, k_all, v_all, 1.0 / np.sqrt(cfg.head_dim), mask)

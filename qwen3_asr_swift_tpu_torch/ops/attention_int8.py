@@ -7,7 +7,14 @@ or raises; only for a CPU tensor does it take the plain
 :func:`decode_attention_int8_ref`. Both compute the reference kernel's
 function: single-token GQA attention with the per-slot scales folded into
 the scores (``q·k_j·s_j``) and the probabilities (``(p·s_v)@V``), an exact
-softmax over all of L, and masked rows at NEG_INF = -1e30.
+softmax over all of L, and masked rows at NEG_INF = -1e30, in fp32. q may
+be bf16 (widened exactly) or fp32; ``out_dtype`` bf16 rounds the fp32
+result once, as ``.to(torch.bfloat16)`` does.
+
+The kernel splits L over blocks (:func:`split_keys`), each block's keys
+streamed through a two-tile ring in shared memory; the splits' partial
+softmaxes go to a workspace and merge in split order, in a second kernel
+of the same launch.
 """
 
 from __future__ import annotations
@@ -22,6 +29,22 @@ NEG_INF = -1e30
 
 #: launches of kernel K3
 K3_LAUNCHES = cuda_build.LaunchCounter("decode_attention_int8")
+
+#: K and V bytes a block of K3 reads at most: a split takes the fewest
+#: blocks of this size that cover L, with its keys evened out over them
+SPLIT_BYTES = 49152
+
+_OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def split_keys(length: int, d: int) -> int:
+    """Keys per block of K3 at cache length ``length`` and head dim ``d``
+    (the last split may be shorter). It depends on L and D only, never on
+    B, so a row's result does not depend on the rows beside it; one split
+    (``length`` itself) means no merge."""
+    per = max(1, SPLIT_BYTES // (2 * d))
+    n_split = -(-length // per)
+    return -(-length // n_split)
 
 
 def decode_attention_int8_ref(q, k_codes, k_scale, v_codes, v_scale, valid) -> torch.Tensor:
@@ -71,22 +94,35 @@ def _check(q, k_codes, k_scale, v_codes, v_scale, valid):
         raise ValueError("k/v codes must be 16-byte aligned")
 
 
-def decode_attention_int8(q, k_codes, k_scale, v_codes, v_scale, valid) -> torch.Tensor:
-    """Kernel K3 (see module docstring); returns fp32 [B, Hq, 1, D]."""
+def decode_attention_int8(q, k_codes, k_scale, v_codes, v_scale, valid,
+                          out_dtype=torch.float32) -> torch.Tensor:
+    """Kernel K3 (see module docstring); returns [B, Hq, 1, D] in
+    ``out_dtype`` (fp32, the reference function, or bf16)."""
     if q.device.type == "cpu":
-        return decode_attention_int8_ref(q, k_codes, k_scale, v_codes, v_scale, valid)
+        return decode_attention_int8_ref(q, k_codes, k_scale, v_codes, v_scale,
+                                         valid).to(out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_int8: unsupported device {q.device}")
     _check(q, k_codes, k_scale, v_codes, v_scale, valid)
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"q must be bf16 or fp32, got {q.dtype}")
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"out_dtype must be fp32 or bf16, got {out_dtype}")
     b, hq, _, d = q.shape
     hkv, l = k_codes.shape[1], k_codes.shape[2]
     group = hq // hkv
-    qf = q.float().contiguous()  # [B, Hq, 1, D] ≡ [B, Hkv, G, D]
-    out = torch.empty((b, hq, 1, d), dtype=torch.float32, device=q.device)
+    q = q.contiguous()   # [B, Hq, 1, D] ≡ [B, Hkv, G, D]; a view for the decoder's q
+    split = split_keys(l, d)
+    n_split = -(-l // split)
+    out = torch.empty((b, hq, 1, d), dtype=out_dtype, device=q.device)
+    ws = (torch.empty(b * hkv * n_split * group * (d + 2), dtype=torch.float32, device=q.device)
+          if n_split > 1 else None)
     lib = cuda_build.library()
     err = lib.qs_decode_attn_int8(
-        qf.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
-        v_scale.data_ptr(), valid.data_ptr(), out.data_ptr(), b, hkv, group, l, d,
+        q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
+        v_scale.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), b, hkv, group, l, d, split,
+        int(q.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
         1.0 / math.sqrt(d), cuda_build.stream_handle(q.device))
     cuda_build.check(err, "qs_decode_attn_int8")
     K3_LAUNCHES.add()

@@ -46,9 +46,10 @@ SIGNATURES = {
     "qs_quant_matmul_plane": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # B, K, N, bits, group_size, x is bf16 → fp32 floats of K2's workspace
     "qs_quant_matmul_plane_workspace": [_I, _I, _I, _I, _I, _I],
-    # q, k, k_scale, v, v_scale, valid, out, B, Hkv, G, L, D, scale, stream
-    "qs_decode_attn_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            ctypes.c_float, _P],
+    # q, k, k_scale, v, v_scale, valid, out, workspace, B, Hkv, G, L, D, split,
+    # q is bf16, out is bf16, scale, stream
+    "qs_decode_attn_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, ctypes.c_float, _P],
 }
 
 RESTYPES = {"qs_quant_matmul_workspace": ctypes.c_longlong,

@@ -1,10 +1,12 @@
 """K3's plain version, ``sdpa`` and the static KV cache against the JAX package.
 
 K3 tolerance: 1e-5 relative to max |reference| — the plain version, the
-Pallas kernel in interpret mode and ``sdpa`` over the dequantized cache
-are all fp32 and differ only in summation order and where the scales
-multiply in.
+Pallas kernel in interpret mode, ``sdpa`` over the dequantized cache and
+``k3_emulate`` (the CUDA kernel's split-and-merge arithmetic) are all fp32
+and differ only in summation order and where the scales multiply in.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -65,6 +67,98 @@ def test_k3_plain_bf16_query():
     ref = pk3.decode_attention_int8_ref(q16.float(), t(kq), t(ks), t(vq), t(vs), t(valid))
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def k3_emulate(q, kq, ks, vq, vs, valid, split):
+    """K3's arithmetic on the CPU (``csrc/decode_attn_int8.cu``): L cut
+    into splits of ``split`` keys (the last ragged); each split's exact
+    softmax gives (m, l, acc) in fp32, acc = Σ_j p_j·vs_j·v_j; the splits
+    merge in split order, acc_s·e^(m_s-M) over l_s·e^(m_s-M), M = max m_s;
+    one split writes acc / l."""
+    b, hq, _, d = q.shape
+    hkv, length = kq.shape[1], kq.shape[2]
+    qg = q[:, :, 0].float().reshape(b, hkv, hq // hkv, d)
+    parts = []
+    for j0 in range(0, length, split):
+        j = slice(j0, min(length, j0 + split))
+        s = torch.matmul(qg, kq[:, :, j].float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
+        s = s * ks[:, :, None, j]
+        s = torch.where(valid[:, None, None, j], s, torch.full_like(s, pk3.NEG_INF))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        acc = torch.matmul(p * vs[:, :, None, j], vq[:, :, j].float())
+        parts.append((m, p.sum(dim=-1, keepdim=True), acc))
+    if len(parts) == 1:
+        _, l, acc = parts[0]
+        return (acc / l).reshape(b, hq, 1, d)
+    mx = parts[0][0]
+    for m, _, _ in parts[1:]:
+        mx = torch.maximum(mx, m)
+    num = torch.zeros_like(parts[0][2])
+    den = torch.zeros_like(parts[0][1])
+    for m, l, acc in parts:
+        c = torch.exp(m - mx)
+        num = num + acc * c
+        den = den + l * c
+    return (num / den).reshape(b, hq, 1, d)
+
+
+def _masked(valid, case):
+    valid = valid.copy()
+    if case == "split_masked":      # keys 8..15 masked in row 0, valid keys elsewhere
+        valid[0, 8:16] = False
+    elif case == "row_masked":      # row 1 has no valid key: the uniform average
+        valid[1, :] = False
+    return valid
+
+
+@pytest.mark.parametrize("case,length,split", [
+    ("ragged", 37, 8),              # 5 splits, the last of 5 keys
+    ("split_masked", 40, 8),
+    ("row_masked", 128, 48),        # L a multiple of 128: the Pallas kernel pads no key
+    ("short", 5, 16),               # L below one split: no merge
+    ("one_key", 1, 16),
+    ("default", 580, None),         # the slice's L under the kernel's own split
+])
+def test_k3_split_merge_matches_plain_and_pallas_interpret(case, length, split):
+    q, kq, ks, vq, vs, valid = k3_inputs(7, length=length, d=32 if split else 128)
+    valid = _masked(valid, case)
+    if split is None:
+        split = pk3.split_keys(length, q.shape[-1])
+        assert 1 < split < length
+    t = torch.from_numpy
+    got = k3_emulate(t(q), t(kq), t(ks), t(vq), t(vs), t(valid), split)
+    plain = pk3.decode_attention_int8_ref(t(q), t(kq), t(ks), t(vq), t(vs), t(valid))
+    interp = np.asarray(jax_k3(jnp.asarray(q), jnp.asarray(kq), jnp.asarray(ks), jnp.asarray(vq),
+                               jnp.asarray(vs), jnp.asarray(valid), interpret=True))
+    assert torch.isfinite(got).all()
+    assert rel(got.numpy(), plain.numpy()) <= K3_TOL
+    assert rel(got.numpy(), interp) <= K3_TOL
+    if case == "row_masked":
+        d = q.shape[-1]
+        uniform = (vq[1].astype(np.float32) * vs[1][..., None]).mean(axis=1)   # [Hkv, D]
+        want = np.repeat(uniform, q.shape[1] // kq.shape[1], axis=0)[:, None]   # [Hq, 1, D]
+        assert rel(got[1].numpy(), want) <= K3_TOL and want.shape == (q.shape[1], 1, d)
+
+
+@pytest.mark.parametrize("length,d", [(1, 128), (64, 128), (65, 128), (580, 128), (580, 64),
+                                      (4096, 256), (37, 32)])
+def test_k3_split_keys_cover_l_evenly(length, d):
+    split = pk3.split_keys(length, d)
+    n_split = -(-length // split)
+    assert 1 <= split <= length and (n_split - 1) * split < length <= n_split * split
+    assert 2 * d * split <= max(pk3.SPLIT_BYTES, 2 * d)          # a block reads at most this
+    assert n_split == -(-length // max(1, pk3.SPLIT_BYTES // (2 * d)))   # the fewest splits
+
+
+def test_k3_plain_bf16_output_is_the_rounded_fp32_output():
+    q, kq, ks, vq, vs, valid = k3_inputs(8, length=50)
+    t = torch.from_numpy
+    q16 = t(q).to(torch.bfloat16)
+    args = (q16, t(kq), t(ks), t(vq), t(vs), t(valid))
+    got = pk3.decode_attention_int8(*args, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, pk3.decode_attention_int8_ref(*args).to(torch.bfloat16))
 
 
 def test_k3_checks_reject_bad_inputs():

@@ -6,7 +6,8 @@ where torch sees no CUDA device. On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Tolerances: 1e-5 relative to max |plain| for K1 and K3 (both fp32; they
-differ from the plain versions in summation order and fused multiply-adds,
+differ from the plain versions in summation order and fused multiply-adds
+(K3 also in its split-and-merge softmax),
 ~1e-7 measured at full width; K1's products of codes and x, fp32 x as
 three bf16 terms, are exact on the tensor cores) and for K2 (its bf16 roundings are the plain
 version's, bit for bit; only the fp32 sum order differs, against the plain
@@ -222,21 +223,70 @@ def test_k2_rejects_bad_inputs(card):
             k1.quant_matmul_plane_cuda(x.to(dt), p)
 
 
+def k3_inputs(dev, b, hq, hkv, length, d, seed=None):
+    g = torch.Generator(device=dev).manual_seed(length if seed is None else seed)
+    q = torch.randn((b, hq, 1, d), generator=g, device=dev).to(torch.bfloat16)
+    kq, ks = quantize_kv(torch.randn((b, hkv, length, d), generator=g, device=dev))
+    vq, vs = quantize_kv(torch.randn((b, hkv, length, d), generator=g, device=dev))
+    valid = torch.rand((b, length), generator=g, device=dev) > 0.3
+    valid[:, 0] = True
+    return q, kq, ks, vq, vs, valid
+
+
 @pytest.mark.parametrize("b,hq,hkv,length,d", [
     (32, 16, 8, 580, 128), (2, 4, 2, 37, 32), (3, 8, 8, 130, 64), (1, 8, 1, 64, 128),
-    (1, 2, 1, 3, 256)])
+    (1, 2, 1, 3, 256),
+    # short caches, and around the split boundaries at D 128 (192 keys a split)
+    (2, 4, 2, 1, 128), (2, 4, 2, 63, 128), (2, 4, 2, 64, 128), (2, 4, 2, 65, 128),
+    (2, 4, 2, 129, 128), (2, 4, 2, 192, 128), (2, 4, 2, 193, 128), (2, 4, 2, 385, 128),
+    (16, 16, 8, 580, 128),          # beam's rows
+    (2, 16, 2, 300, 128),           # G 8 at D 128
+    (1, 4, 1, 2000, 256)])          # G 4 at D 256, many splits
 def test_k3_matches_plain(card, b, hq, hkv, length, d):
-    g = torch.Generator(device=card).manual_seed(length)
-    q = torch.randn((b, hq, 1, d), generator=g, device=card).to(torch.bfloat16)
-    kq, ks = quantize_kv(torch.randn((b, hkv, length, d), generator=g, device=card))
-    vq, vs = quantize_kv(torch.randn((b, hkv, length, d), generator=g, device=card))
-    valid = torch.rand((b, length), generator=g, device=card) > 0.3
-    valid[:, 0] = True
+    q, kq, ks, vq, vs, valid = k3_inputs(card, b, hq, hkv, length, d)
     before = k3.K3_LAUNCHES.value
     got = k3.decode_attention_int8(q, kq, ks, vq, vs, valid)
     torch.cuda.synchronize()
     assert k3.K3_LAUNCHES.value == before + 1
+    assert got.dtype == torch.float32
     assert rel(got, k3.decode_attention_int8_ref(q, kq, ks, vq, vs, valid)) <= TOL
+
+
+def test_k3_rows_do_not_depend_on_the_batch_or_the_call(card):
+    args = k3_inputs(card, 32, 16, 8, 580, 128)
+    full = k3.decode_attention_int8(*args)
+    again = k3.decode_attention_int8(*args)
+    assert torch.equal(full, again)
+    for i in (0, 13, 31):
+        alone = k3.decode_attention_int8(*(t[i:i + 1].contiguous() for t in args))
+        assert torch.equal(alone, full[i:i + 1])
+
+
+def test_k3_bf16_query_equals_its_fp32_widening(card):
+    q, *rest = k3_inputs(card, 4, 16, 8, 580, 128)
+    assert q.dtype == torch.bfloat16
+    assert torch.equal(k3.decode_attention_int8(q, *rest),
+                       k3.decode_attention_int8(q.float(), *rest))
+
+
+@pytest.mark.parametrize("length", [40, 580])
+def test_k3_bf16_output_is_the_rounded_fp32_output(card, length):
+    args = k3_inputs(card, 4, 16, 8, length, 128)
+    got = k3.decode_attention_int8(*args, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, k3.decode_attention_int8(*args).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("length", [40, 580])
+def test_k3_fully_masked_row_is_the_uniform_average(card, length):
+    q, kq, ks, vq, vs, valid = k3_inputs(card, 3, 16, 8, length, 128)
+    valid[1] = False
+    got = k3.decode_attention_int8(q, kq, ks, vq, vs, valid)
+    ref = k3.decode_attention_int8_ref(q, kq, ks, vq, vs, valid)
+    uniform = (vq[1].float() * vs[1][..., None]).mean(dim=1)        # [Hkv, D]
+    assert torch.isfinite(got).all()
+    assert rel(got, ref) <= TOL
+    assert rel(got[1, :, 0], uniform.repeat_interleave(2, dim=0)) <= TOL
 
 
 def test_k3_rejects_bad_inputs(card):
@@ -248,6 +298,10 @@ def test_k3_rejects_bad_inputs(card):
         k3.decode_attention_int8(q, kq.float(), s, kq, s, valid)
     with pytest.raises(ValueError):
         k3.decode_attention_int8(q, kq, s, kq, s, valid.to(torch.uint8))
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        k3.decode_attention_int8(q.half(), kq, s, kq, s, valid)
+    with pytest.raises(TypeError, match="out_dtype"):
+        k3.decode_attention_int8(q, kq, s, kq, s, valid, out_dtype=torch.float16)
 
 
 def test_tiny_decoder_on_card_matches_host_and_launches_kernels(card):
