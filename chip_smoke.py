@@ -52,6 +52,29 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              ``POST /transcribe`` and one ``GET /health`` with the group
              scheduler, and again through the port's slot pool.
 
+Before the slice, phase codec builds the native wire codec with g++ and
+encodes the slice's staging buffer with it and with numpy (pcm4 and dpcm4
+byte-identical, µ-law within one code on under 1 % of samples); the slice
+then fails unless the codec ran (``WIRE_NATIVE_CALLS``) and prints its
+host_prep. After serve, the rest of the Qwen3-ASR family:
+
+11. load     — a full-width checkpoint in the published MLX-4bit layout
+               (bf16 floats, packed 4-bit decoder, byte-level vocab), written
+               to a temporary directory and loaded with
+               ``Qwen3ASR.from_pretrained``: greedy tokens equal to the model
+               built in memory from the same arrays;
+12. groupdot — ``quant_compute="groupdot"``: the decode-step logits card vs
+               host (as in step), 8 × 8 s clips at 32 tokens, K1 once a step
+               (the packed LM head) and K3 every layer;
+13. vad      — Silero VAD (random, seed 0) over a 60 s stream: card vs host
+               within 1e-4, chunk-by-chunk streaming within 1e-5 of the batch;
+14. stream   — ``StreamingASR`` over the slice's model and that VAD, 20 s in
+               100 ms pushes: partials and finals, each final the stream's
+               span and equal to a direct ``transcribe`` of it; K1, K3 run;
+15. align    — ``Qwen3ForcedAligner`` at the published widths (5000 classes):
+               slot logits card vs host within 5e-2 relative L2, monotone
+               times, K1 only when the prompt has at most 256 rows.
+
 Weights are random (numpy, seed 0) at the full width of the 0.6B
 configuration. The line before the last is ``{"kernels": [...]}`` (each
 entry with its launches in the main path's run, its bound and its library
@@ -97,6 +120,12 @@ SLICE_CLIPS, SLICE_CLIP_S, SLICE_TOKENS = 32, 30, 100
 POOL_SLOTS, POOL_TICK, POOL_MAX_NEW = 16, 8, 64
 POOL_SECONDS, POOL_BURSTS = (3, 8, 15, 30), (16, 8)
 DECODE_PRODUCTS = 28 * 4 + 1     # packed products of one decode step
+SR = 16000
+VAD_PROB_TOL = 1e-4      # card vs host CPU, fp32 both (the VAD's convs are fp32 matmuls)
+VAD_STREAM_TOL = 1e-5    # process_chunk (batch 1) vs the batch pass, on the card
+ALIGN_TOL = 5e-2         # classify logits at the slots, relative L2, card vs host CPU
+ALIGN_TEXT = ("the quick brown fox jumps over the lazy dog while seven small birds sing "
+              "songs about rain and wind in the old garden")
 
 
 def log(msg: str) -> None:
@@ -580,24 +609,30 @@ def make_weights():
     return enc, dec
 
 
+def model_options(**kw):
+    """The slice's model options (packed 4-bit decoder, int8 KV, dpcm4
+    wire, chunks of 15), ``kw`` over them."""
+    import torch
+
+    opts = dict(kv_dtype=torch.int8, wire_dtype="dpcm4", decode_chunk_tokens=15,
+                quant_compute="packed", audio_buckets_s=(8, 16, 32, 64))
+    opts.update(kw)
+    return opts
+
+
 def build_model(enc, dec, device, dtype, **kw):
     import dataclasses
-
-    import torch
 
     from qwen3_asr_swift_tpu_torch.models.qwen3_asr import CONFIG_SMALL, Qwen3ASR
 
     cfg = dataclasses.replace(CONFIG_SMALL, decoder=dataclasses.replace(
         CONFIG_SMALL.decoder, bits=4, group_size=64))
-    return Qwen3ASR.from_params(cfg, enc, dec, device=device, dtype=dtype,
-                                kv_dtype=torch.int8, wire_dtype="dpcm4",
-                                decode_chunk_tokens=15, quant_compute="packed",
-                                audio_buckets_s=(8, 16, 32, 64), **kw)
+    return Qwen3ASR.from_params(cfg, enc, dec, device=device, dtype=dtype, **model_options(**kw))
 
 
-def phase_step(weights):
+def phase_step(weights, label="step", **kw):
     """Full-width prefill + first decode step, card (kernels) vs host CPU
-    (plain versions), both fp32 with TF32 off."""
+    (plain versions), both fp32 with TF32 off; ``kw`` go to the model."""
     import torch
 
     from qwen3_asr_swift_tpu_torch.models.qwen3_asr.decoder import decode_step
@@ -610,7 +645,7 @@ def phase_step(weights):
     out = {}
     tok = None
     for where in ("cpu", "cuda"):
-        model = build_model(*weights, where, torch.float32)
+        model = build_model(*weights, where, torch.float32, **kw)
         t0 = time.perf_counter()
         with torch.inference_mode():
             st = model.prestage(clips)
@@ -622,7 +657,7 @@ def phase_step(weights):
             logits, _ = decode_step(model.decoder_params, model.cfg.decoder, tok.to(model.device),
                                     state.cache)
         out[where] = (audio_tokens.float().cpu(), logits.float().cpu())
-        log(f"step on {where}: {time.perf_counter() - t0:.1f} s")
+        log(f"{label} on {where}: {time.perf_counter() - t0:.1f} s")
         del model
     torch.backends.cudnn.allow_tf32 = True
     enc_rel = (torch.linalg.vector_norm(out["cuda"][0] - out["cpu"][0])
@@ -630,10 +665,29 @@ def phase_step(weights):
     rel = (torch.linalg.vector_norm(out["cuda"][1] - out["cpu"][1])
            / torch.linalg.vector_norm(out["cpu"][1])).item()
     same = (out["cuda"][1].argmax(-1) == out["cpu"][1].argmax(-1)).tolist()
-    log(f"step: encoder rel L2 {enc_rel:.3e}; decode-step logits rel L2 {rel:.3e} "
+    log(f"{label}: encoder rel L2 {enc_rel:.3e}; decode-step logits rel L2 {rel:.3e} "
         f"(tol {STEP_TOL:g}); argmax equal per clip {same}")
     if not rel <= STEP_TOL:
         raise AssertionError(f"decode-step logits rel L2 {rel} > {STEP_TOL}")
+
+
+def device_times(run):
+    """Run ``run()`` once under the profiler: ({kernel name: device µs
+    summed over its instances}, wall s)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return by_name, wall
 
 
 def phase_slice(model, counters, dev_name, power):
@@ -682,25 +736,19 @@ def phase_slice(model, counters, dev_name, power):
             raise AssertionError(f"clip {i}: n_gen {n_gen[i]}, confidence {r.confidence}")
     if launches["quant_matmul_cuda"] < need_k1 or launches["decode_attention_int8"] < need_k3:
         raise AssertionError(f"launch counters {launches} below K1 {need_k1} / K3 {need_k3}")
+    if launches["wire_codec"] < 1:
+        raise AssertionError(f"the native wire codec did not run: {launches}")
 
     # where the time goes (information): stage times with a sync at each
     # boundary, then the device's busy share under the profiler
     timings = {}
     model.transcribe_batch(clips, options=opts, timings=timings)
     log("slice stages (synced at boundaries): "
-        + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()))
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.transcribe_batch(clips, options=opts)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+        + f"; host_prep with the native wire codec {timings['host_prep']:.3f} s on {dev_name} "
+          f"({power}); with the numpy encoder it was 0.579 s on NVIDIA H100 80GB HBM3, "
+          f"700.00 W")
+    by_name, prof_wall = device_times(lambda: model.transcribe_batch(clips, options=opts))
     busy = sum(by_name.values()) / 1e6
     log(f"slice under the profiler: wall {prof_wall:.3f} s, device busy {busy:.3f} s "
         f"({100 * busy / prof_wall:.1f} %), idle {100 * (1 - busy / prof_wall):.1f} %")
@@ -912,6 +960,414 @@ def phase_serve(model):
         raise AssertionError(f"slotpool server: batcher {type(batcher).__name__}, served {served}")
 
 
+# --------------------------------------------------------------------------- #
+# the rest of the Qwen3-ASR family: wire codec, loader, group-dot, VAD,
+# streaming ASR, forced aligner
+
+def greedy_tokens(model, clips, max_tokens):
+    """(tokens, n_gen) of one ``transcribe_batch``, read where the model
+    hands them to ``_finalize``."""
+    from qwen3_asr_swift_tpu_torch.ops.sampling import SamplingOptions
+
+    seen = []
+    finalize = model._finalize
+
+    def capture(tokens, n_gen, *rest):
+        seen.append((tokens.copy(), n_gen.copy()))
+        return finalize(tokens, n_gen, *rest)
+
+    model._finalize = capture
+    try:
+        model.transcribe_batch(clips, options=SamplingOptions(max_tokens=max_tokens))
+    finally:
+        del model._finalize
+    return seen[0]
+
+
+def byte_tokenizer():
+    from qwen3_asr_swift_tpu_torch.tokenizers.bpe import BPETokenizer, _bytes_to_unicode
+
+    enc = _bytes_to_unicode()
+    return {enc[b]: b for b in range(256)}, BPETokenizer({enc[b]: b for b in range(256)}, [])
+
+
+def phase_codec(model, dev_name, power):
+    """Build the native wire codec; encode the slice's staging buffer with
+    it and with numpy: pcm4 and dpcm4 byte-identical, µ-law within one code
+    on under 1 % of samples (the native µ-law rounds through a table)."""
+    from qwen3_asr_swift_tpu_torch.audio import companding
+    from qwen3_asr_swift_tpu_torch.runtime import native
+
+    if native.wire_codec_library() is None:
+        raise AssertionError("no g++ on this machine: the native wire codec cannot be built")
+    # built at its first use (the step phase's staging, as a user's first
+    # transcribe of over 65,536 samples would), or found built
+    log(f"codec: g++ build {native.build_info['seconds']:.2f} s "
+        f"({'found built' if native.build_info['cached'] else 'built at first use'}) → "
+        f"{native.build_info['path']}")
+    rng = np.random.default_rng(0)
+    clips = [(0.1 * rng.standard_normal(SLICE_CLIP_S * SR)).astype(np.float32)
+             for _ in range(SLICE_CLIPS)]
+    stage, _ = model.staging_buffer(clips)
+    for name in ("mulaw_encode_np", "pcm4_encode_np", "dpcm4_encode_np"):
+        fn = getattr(companding, name)
+        companding._native()
+        t0 = time.perf_counter()
+        nat = fn(stage)
+        t_nat = time.perf_counter() - t0
+        saved = companding._native_lib
+        companding._native_lib = False
+        try:
+            t0 = time.perf_counter()
+            ref = fn(stage)
+            t_np = time.perf_counter() - t0
+        finally:
+            companding._native_lib = saved
+        nat = nat if isinstance(nat, tuple) else (nat,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        if name == "mulaw_encode_np":
+            d = np.abs(nat[0].astype(np.int16) - ref[0].astype(np.int16))
+            verdict = f"max code difference {d.max()}, on {100 * (d > 0).mean():.4f} % of samples"
+            if d.max() > 1 or (d > 0).mean() >= 0.01:
+                raise AssertionError(f"codec {name}: {verdict}")
+        else:
+            same = all(a.view(np.uint8).tobytes() == b.view(np.uint8).tobytes()
+                       for a, b in zip(nat, ref))
+            verdict = f"byte-identical {same}"
+            if not same:
+                raise AssertionError(f"codec {name}: native and numpy outputs differ")
+        log(f"codec {name[:-10]}: {stage.shape[0]} x {stage.shape[1]} samples (the slice's "
+            f"staging buffer): native {1e3 * t_nat:.1f} ms, numpy {1e3 * t_np:.1f} ms on the host "
+            f"of {dev_name} ({power}); {verdict}")
+
+
+def phase_load(weights, dev_name, power):
+    """Write a full-width 0.6B checkpoint in the published MLX-4bit layout
+    (floats and the group scales and biases in bf16, packed 4-bit decoder
+    codes, a byte-level vocab.json and merges.txt), load it with
+    ``Qwen3ASR.from_pretrained`` on the card, and hold its greedy tokens
+    against a model built in memory from the same arrays."""
+    import dataclasses
+    import json
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.core.params import (checkpoint_flat, round_floats,
+                                                        save_checkpoint)
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr import CONFIG_SMALL, Qwen3ASR, detect_config
+
+    enc, dec = round_floats(weights)        # the values a bf16 checkpoint holds
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    model_dir = tmp / "Qwen3-ASR-0.6B-MLX-4bit"
+    try:
+        t0 = time.perf_counter()
+        save_checkpoint(checkpoint_flat(enc, dec), model_dir)
+        vocab, tok = byte_tokenizer()
+        (model_dir / "vocab.json").write_text(json.dumps(vocab))
+        (model_dir / "merges.txt").write_text("#version: 0.2\n")
+        write_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in model_dir.iterdir())
+        want_cfg = dataclasses.replace(CONFIG_SMALL, decoder=dataclasses.replace(
+            CONFIG_SMALL.decoder, bits=4, group_size=64))
+        if detect_config(str(model_dir)) != want_cfg:
+            raise AssertionError(f"detect_config({model_dir.name}) is not CONFIG_SMALL at 4 bits")
+        t0 = time.perf_counter()
+        loaded = Qwen3ASR.from_pretrained(str(model_dir), device="cuda", **model_options())
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    built = build_model(enc, dec, "cuda", torch.bfloat16, tokenizer=tok)
+    rng = np.random.default_rng(8)
+    clips = [(0.1 * rng.standard_normal(8 * SR)).astype(np.float32) for _ in range(2)]
+    got, want = greedy_tokens(loaded, clips, 32), greedy_tokens(built, clips, 32)
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    log(f"load: {size / 1e6:.1f} MB checkpoint written in {write_s:.1f} s, loaded to the card in "
+        f"{load_s:.1f} s on {dev_name} ({power}); tokenizer {loaded.tokenizer is not None}; "
+        f"greedy tokens of 2 x 8 s equal to the model built in memory: {same} "
+        f"(n_gen {got[1].tolist()})")
+    if not same or loaded.tokenizer is None:
+        raise AssertionError("the loaded model's tokens differ from the in-memory model's")
+
+
+def phase_groupdot(weights, counters, dev_name, power):
+    """quant_compute="groupdot" at full width: the first decode step card vs
+    host CPU, then 8 x 8 s clips, 32 tokens, int8 KV; only the LM head
+    (packed) runs K1, every decode step runs K3."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.ops.sampling import SamplingOptions
+
+    phase_step(weights, label="groupdot step", quant_compute="groupdot")
+    k1, k3 = counters
+    model = build_model(*weights, "cuda", torch.bfloat16, quant_compute="groupdot")
+    rng = np.random.default_rng(9)
+    clips = [(0.1 * rng.standard_normal(8 * SR)).astype(np.float32) for _ in range(8)]
+    model.transcribe_batch(clips[:2], options=SamplingOptions(max_tokens=2))   # warm-up
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    tokens, n_gen = greedy_tokens(model, clips, 32)
+    torch.cuda.synchronize()
+    launches = {c.name: c.value for c in counters}
+    gens = {}
+    for n in (2, 32):
+        t = {}
+        model.transcribe_batch(clips, options=SamplingOptions(max_tokens=n), timings=t)
+        gens[n] = t["generate"]
+    ms_step = 1e3 * (gens[32] - gens[2]) / 30
+    log(f"groupdot: 8 x 8 s, 32 tokens, int8 KV: n_gen {n_gen.tolist()}, launches {launches}; "
+        f"{ms_step:.2f} ms a decode step (generate at 32 tokens {gens[32]:.3f} s, at 2 "
+        f"{gens[2]:.3f} s) on {dev_name} ({power})")
+    # device time a decode step: the 32-token run less the 2-token run,
+    # kernel by kernel, over the 30 steps between them
+    prof = {n: device_times(lambda n=n: model.transcribe_batch(
+        clips, options=SamplingOptions(max_tokens=n))) for n in (2, 32)}
+    per_step = {k: (prof[32][0].get(k, 0.0) - prof[2][0].get(k, 0.0)) / 30e3
+                for k in prof[32][0]}
+    busy = sum(per_step.values())
+    log(f"groupdot under the profiler: device {busy:.3f} ms a decode step, wall "
+        f"{1e3 * (prof[32][1] - prof[2][1]) / 30:.3f} ms a step, on {dev_name} ({power})")
+    for name, ms in sorted(per_step.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  device {ms:8.3f} ms a step  {name[:100]}")
+    layers = model.cfg.decoder.num_layers
+    steps = launches["decode_attention_int8"] // layers
+    if (launches["decode_attention_int8"] <= 0 or launches["decode_attention_int8"] % layers
+            or launches["quant_matmul_cuda"] != steps + 1 or (n_gen <= 0).any()):
+        raise AssertionError(f"groupdot: K1 must run once a decode step and once in prefill (the "
+                             f"LM head), K3 once a layer a step: {launches}, n_gen {n_gen}")
+    del model
+
+
+def vad_stream(seconds, seed):
+    """Noise bursts of 1-3 s between stretches of near silence, from a seed."""
+    rng = np.random.default_rng(seed)
+    out, loud, total = [], True, 0
+    while total < seconds * SR:
+        n = int(rng.uniform(1.0, 3.0) * SR)
+        out.append((0.3 if loud else 0.003) * rng.standard_normal(n).astype(np.float32))
+        total += n
+        loud = not loud
+    return np.concatenate(out)[: seconds * SR].astype(np.float32)
+
+
+def phase_vad(dev_name, power):
+    """Silero VAD (random, seed 0) over a 60 s stream: the card's batch
+    pass against the host CPU's, and chunk-by-chunk streaming on the card
+    against its batch pass."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.silero_vad import SileroVAD
+
+    stream = vad_stream(60, seed=11)
+    vad, host = SileroVAD.init_random(0), SileroVAD.init_random(0, device="cpu")
+    vad.speech_probabilities(stream[:SR])            # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs = vad.speech_probabilities(stream)
+    batch_s = time.perf_counter() - t0
+    host_probs = host.speech_probabilities(stream)
+    err = float(np.abs(probs - host_probs).max())
+    state, got = vad.new_stream(), []
+    t0 = time.perf_counter()
+    for i in range(len(probs)):
+        state, prob = vad.process_chunk(state, stream[i * 512:(i + 1) * 512])
+        got.append(prob)
+    stream_s = time.perf_counter() - t0
+    s_err = float(np.abs(np.array(got) - probs).max())
+    n = len(probs)
+    log(f"vad: 60 s, {n} chunks of 32 ms: card vs host max abs {err:.3e} (tol {VAD_PROB_TOL:g}); "
+        f"streaming vs batch max abs {s_err:.3e} (tol {VAD_STREAM_TOL:g}); "
+        f"{1e3 * stream_s / n:.3f} ms a chunk streaming, {1e3 * batch_s / n:.4f} ms a chunk in "
+        f"the batch pass ({batch_s:.3f} s) on {dev_name} ({power}); probabilities "
+        f"{probs.min():.4f}..{probs.max():.4f}")
+    if not err <= VAD_PROB_TOL or not s_err <= VAD_STREAM_TOL:
+        raise AssertionError(f"vad: card vs host {err}, streaming vs batch {s_err}")
+    return vad, stream
+
+
+def _find_span(stream, audio, start_s):
+    """The offset of ``audio`` in ``stream`` within a sample of
+    ``start_s``, or None."""
+    s0 = int(round(start_s * SR))
+    for off in (s0, s0 - 1, s0 + 1):
+        if off >= 0 and np.array_equal(stream[off:off + len(audio)], audio):
+            return off
+    return None
+
+
+def phase_stream(model, vad, stream, counters, dev_name, power):
+    """StreamingASR over the slice's model and the VAD: a 20 s stream in
+    100 ms pushes, 32 tokens an event. Random weights give no real speech,
+    so the hysteresis thresholds are taken from the VAD's own probabilities
+    on this stream (onset at their 60th percentile, offset at their 40th);
+    the stream is the VAD phase's, not chosen to suit. Each final's audio
+    must be the stream's span from its start through its end, and its text
+    a direct ``transcribe`` of that span on the card."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr import StreamingASR, StreamingASRConfig
+    from qwen3_asr_swift_tpu_torch.models.silero_vad import VADConfig
+
+    audio = stream[: 20 * SR]
+    probs = vad.speech_probabilities(audio)
+    onset, offset = (float(np.percentile(probs, q)) for q in (60, 40))
+    cfg = StreamingASRConfig(max_tokens=32, vad=VADConfig(onset=onset, offset=offset))
+    sasr = StreamingASR(model, vad, cfg)
+    heard = []
+    transcribe = model.transcribe
+
+    def record(a, *args, **kw):
+        res = transcribe(a, *args, **kw)
+        heard.append((np.array(a, np.float32), res.text))
+        return res
+
+    model.transcribe = record
+    events, push_ms, event_ms = [], [], []
+    try:
+        for c in counters:
+            c.reset()
+        piece = SR // 10
+        for i in range(0, len(audio), piece):
+            t0 = time.perf_counter()
+            out = sasr.push(audio[i:i + piece])
+            ms = 1e3 * (time.perf_counter() - t0)
+            (event_ms if out else push_ms).append(ms)
+            events += out
+        t0 = time.perf_counter()
+        tail = sasr.finish()
+        if tail:
+            event_ms.append(1e3 * (time.perf_counter() - t0))
+        events += tail
+        torch.cuda.synchronize()
+        launches = {c.name: c.value for c in counters}
+    finally:
+        del model.transcribe
+    partials = [e for e in events if not e.is_final]
+    finals = [e for e in events if e.is_final]
+    all_ms = push_ms + event_ms
+    log(f"stream: 20 s in 100 ms pushes, onset {onset:.5f} / offset {offset:.5f}: "
+        f"{len(partials)} partials, {len(finals)} finals, launches {launches}; ms a push p50 "
+        f"{np.percentile(all_ms, 50):.2f} p90 {np.percentile(all_ms, 90):.2f}; pushes without "
+        f"an event p50 {np.percentile(push_ms, 50):.2f} ms; push to event (the push that "
+        f"emitted it, transcription included) mean {np.mean(event_ms or [0]):.1f} ms, max "
+        f"{max(event_ms or [0]):.1f} ms on {dev_name} ({power})")
+    if not partials or not finals:
+        raise AssertionError(f"stream: {len(partials)} partials and {len(finals)} finals")
+    if any(v <= 0 for v in launches.values()):
+        raise AssertionError(f"stream: a kernel did not run: {launches}")
+    # each event transcribed its audio once, in order (one under 10 ms is
+    # not transcribed and has no text)
+    heard = iter(heard)
+    for e in events:
+        if not e.text:
+            continue
+        span_audio, text = next(heard)
+        if text != e.text:
+            raise AssertionError(f"event {e}: its transcription said {text!r}")
+        if not e.is_final:
+            continue
+        # the stream from the segment's start, through its end and on to the
+        # end of the push that was held while the VAD confirmed the silence
+        off = _find_span(audio, span_audio, e.segment_start)
+        if off is None or len(span_audio) < (e.segment_end - e.segment_start) * SR - 2:
+            raise AssertionError(f"final {e}: its {len(span_audio)} samples are not the "
+                                 f"stream's span from its start through its end")
+        direct = transcribe(audio[off:off + len(span_audio)], max_tokens=32).text
+        if direct != e.text:
+            raise AssertionError(f"final {e}: a direct transcribe gives {direct!r}")
+    log(f"stream: each of {len(finals)} finals is the stream's span from its start through "
+        f"its end "
+        f"({', '.join(f'{e.segment_start:.3f}-{e.segment_end:.3f} s' for e in finals)}) and "
+        f"equals a direct transcribe of it")
+
+
+def phase_align(dev_name, power):
+    """The forced aligner at the published widths (ENCODER_ALIGNER,
+    DECODER_SMALL packed 4-bit, 5000 classes), random from seed 0, fp32 on
+    the card and on the host CPU: an 8 s clip against 23 words. The card's
+    words must equal the host aligner's, slot classes taken from the host's
+    logits except at near-ties. Random weights put the timestamps anywhere
+    in the head's 400 s range, so the times are held to that range and to
+    monotone order, not to the clip."""
+    import dataclasses
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.core.params import init_random_params
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr import CONFIG_SMALL, Qwen3ForcedAligner
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr.aligner import slot_text
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr.config import ENCODER_ALIGNER
+    from qwen3_asr_swift_tpu_torch.ops.quant import K1_LAUNCHES, KERNEL_MAX_ROWS
+
+    cfg = dataclasses.replace(CONFIG_SMALL, encoder=ENCODER_ALIGNER, decoder=dataclasses.replace(
+        CONFIG_SMALL.decoder, bits=4, group_size=64))
+    t0 = time.perf_counter()
+    enc, dec = init_random_params(cfg, 0, quant_bits=4)
+    rng = np.random.default_rng(1)
+    h = cfg.decoder.hidden_size
+    head = {"kernel": (rng.standard_normal((h, cfg.classify_num), dtype=np.float32)
+                       / np.float32(np.sqrt(h)))}
+    _, tok = byte_tokenizer()
+    card = Qwen3ForcedAligner(cfg, enc, dec, head, tok, device="cuda", dtype=torch.float32)
+    host = Qwen3ForcedAligner(cfg, enc, dec, head, tok, device="cpu", dtype=torch.float32)
+    log(f"align: weights and both aligners in {time.perf_counter() - t0:.1f} s")
+    clip = (0.1 * np.random.default_rng(12).standard_normal(8 * SR)).astype(np.float32)
+    slotted = slot_text(ALIGN_TEXT, tok, cfg.timestamp_id)
+    got = card._slot_logits(clip, slotted).cpu()
+    want = host._slot_logits(clip, slotted)
+    rel = (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
+    card.align(clip, ALIGN_TEXT)                     # warm-up
+    torch.cuda.synchronize()
+    K1_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    words = card.align(clip, ALIGN_TEXT)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    k1 = K1_LAUNCHES.value
+    a_pad = cfg.encoder.window_tokens                 # the 8 s bucket: one 800-frame window
+    text_rows = 6 + len(slotted.token_ids)
+    rows = 32 + a_pad + (-(-text_rows // 128) * 128)
+    case = "at most 256 rows: K1" if rows <= KERNEL_MAX_ROWS else "over 256 rows: plain product"
+    want_k1 = 4 * cfg.decoder.num_layers if rows <= KERNEL_MAX_ROWS else 0
+    seg = cfg.timestamp_segment_time
+    # the host aligner's words from its own logits, except at near-ties: a
+    # slot whose host top-2 margin is within twice the slot's largest
+    # card-vs-host logit gap may take either class, and takes the card's
+    top2 = want.topk(2, dim=-1).values
+    ties = (top2[:, 0] - top2[:, 1]) <= 2 * (got - want).abs().max(dim=-1).values
+    differ = got.argmax(-1) != want.argmax(-1)
+    raw = torch.where(ties, got.argmax(-1), want.argmax(-1)).tolist()
+    host._raw_indices = lambda audio, slotted: raw
+    host_words = host.align(clip, ALIGN_TEXT)
+    starts = [w.start for w in words]
+    inside = sum(w.end <= len(clip) / SR for w in words)
+    log(f"align: {len(words)} words, prompt {rows} rows ({case}), K1 launches {k1}; slot "
+        f"logits rel L2 card vs host {rel:.3e} (tol {ALIGN_TOL:g}); one align {ms:.1f} ms on "
+        f"{dev_name} ({power}); {inside} of {len(words)} words end inside the 8 s clip "
+        f"(random weights: the 5000-class head spans {cfg.classify_num * seg:.0f} s)")
+    if not rel <= ALIGN_TOL:
+        raise AssertionError(f"align: slot logits rel L2 {rel} > {ALIGN_TOL}")
+    if len(words) != len(slotted.words) or k1 != want_k1:
+        raise AssertionError(f"align: {len(words)} words, K1 launches {k1} (want {want_k1})")
+    if starts != sorted(starts) or any(not 0 <= w.start <= w.end <= cfg.classify_num * seg
+                                       for w in words):
+        raise AssertionError(f"align: times not monotone or outside the head's range: {words}")
+    log(f"align: {int(differ.sum())} of {len(raw)} slots take another class on the card than "
+        f"on the host, {int(ties.sum())} slots are near-ties (host top-2 margin within twice "
+        f"the card-vs-host gap)")
+    if bool((differ & ~ties).any()):
+        raise AssertionError(f"align: slots {torch.nonzero(differ & ~ties).flatten().tolist()} "
+                             f"take another class on the card without a near-tie")
+    if [(w.word, w.start, w.end) for w in words] != [(w.word, w.start, w.end)
+                                                      for w in host_words]:
+        raise AssertionError(f"align: the card's words differ from the host aligner's: "
+                             f"{words} vs {host_words}")
+
+
 def main() -> int:
     import torch
 
@@ -919,6 +1375,7 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
 
+    from qwen3_asr_swift_tpu_torch.audio.companding import WIRE_NATIVE_CALLS
     from qwen3_asr_swift_tpu_torch.device import resolve_device
     from qwen3_asr_swift_tpu_torch.ops import cuda_build
     from qwen3_asr_swift_tpu_torch.ops.attention_int8 import K3_LAUNCHES
@@ -944,13 +1401,20 @@ def main() -> int:
     weights = make_weights()
     phase_step(weights)
     model = build_model(*weights, "cuda", torch.bfloat16)
-    launches, _ = phase_slice(model, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
+    phase_codec(model, dev_name, power)
+    launches, _ = phase_slice(model, (K1_LAUNCHES, K3_LAUNCHES, WIRE_NATIVE_CALLS), dev_name,
+                              power)
     k1["launches"] = launches["quant_matmul_cuda"]
     k3["launches"] = launches["decode_attention_int8"]
     k2["launches"] = phase_pool(model, (K1_LAUNCHES, K2_LAUNCHES), dev_name,
                                 power)["quant_matmul_plane_cuda"]
     phase_beam_sampling(model, (K1_LAUNCHES, K3_LAUNCHES))
     phase_serve(model)
+    phase_load(weights, dev_name, power)
+    phase_groupdot(weights, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
+    vad, stream = phase_vad(dev_name, power)
+    phase_stream(model, vad, stream, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
+    phase_align(dev_name, power)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     ref = [m for m in sys.modules if m == "qwen3_asr_swift_tpu" or m.startswith("qwen3_asr_swift_tpu.")]

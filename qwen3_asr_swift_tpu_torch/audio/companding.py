@@ -1,15 +1,22 @@
 """The audio wire formats — port of ``qwen3_asr_swift_tpu/audio/companding.py``.
 
 The host encoders (``mulaw_encode_np``, ``pcm4_encode_np``,
-``dpcm4_encode_np``) are copies of the reference's numpy encoders (its
-native C++ fast path is not ported: numpy at every size); only the payload
-crosses to the device, and the decoders below decode it there.
+``dpcm4_encode_np``) are copies of the reference's: from
+``_NATIVE_MIN_SAMPLES`` float32 samples up they call the native codec
+(``runtime/wire_codec.cpp``, built with g++ at first use; ctypes releases
+the GIL for the call), below it, or where no g++ exists, numpy. pcm4 and
+dpcm4 are byte-identical on both paths; the native µ-law goes through a
+lookup table and may differ from numpy by one code on under 1 % of
+samples. Each native call counts one in :data:`WIRE_NATIVE_CALLS`. Only
+the payload crosses to the device, and the decoders below decode it there.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..ops.cuda_build import LaunchCounter
 
 MU = 255.0
 #: int8 quantization range — symmetric so decode is sign-exact
@@ -18,9 +25,55 @@ _QMAX = 127.0
 PCM4_BLOCK = 128
 _Q4MAX = 7.0
 
+# -- native fast path --------------------------------------------------- #
+# Threshold: tiny buffers stay in numpy (ctypes setup outweighs the loop).
+_NATIVE_MIN_SAMPLES = 65536
+_native_lib = None  # False = no g++ on this machine: numpy at every size
+
+#: calls of the native encoders
+WIRE_NATIVE_CALLS = LaunchCounter("wire_codec")
+
+
+class _Counted:
+    """The loaded codec; each call of one of its functions counts one in
+    :data:`WIRE_NATIVE_CALLS`."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+
+        def call(*args):
+            WIRE_NATIVE_CALLS.add()
+            return fn(*args)
+
+        return call
+
+
+def _native():
+    global _native_lib
+    if _native_lib is None:
+        from ..runtime.native import wire_codec_library
+
+        lib = wire_codec_library()   # raises if g++ exists and the build fails
+        _native_lib = _Counted(lib) if lib is not None else False
+    return _native_lib or None
+
 
 def mulaw_encode_np(x: np.ndarray, mu: float = MU) -> np.ndarray:
     """float32 PCM in [-1, 1] → µ-law int8 in [-127, 127] (host side)."""
+    lib = _native() if (mu == MU and x.dtype == np.float32
+                        and x.size >= _NATIVE_MIN_SAMPLES) else None
+    if lib is not None:
+        import ctypes
+
+        x = np.ascontiguousarray(x)
+        out = np.empty(x.shape, np.int8)
+        lib.qs_mulaw_encode(
+            x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)), x.size)
+        return out
     x = np.clip(x, -1.0, 1.0)
     y = np.sign(x) * np.log1p(mu * np.abs(x)) / np.log1p(mu)
     return np.round(y * _QMAX).astype(np.int8)
@@ -32,6 +85,22 @@ def pcm4_encode_np(x: np.ndarray):
     n = x.shape[-1]
     if n % (2 * PCM4_BLOCK):
         raise ValueError(f"pcm4 length {n} not a multiple of {2 * PCM4_BLOCK}")
+    lib = _native() if (x.dtype == np.float32
+                        and x.size >= _NATIVE_MIN_SAMPLES) else None
+    if lib is not None:
+        import ctypes
+
+        x2 = np.ascontiguousarray(x.reshape(-1, n))
+        rows = x2.shape[0]
+        packed = np.empty((rows, n // 2), np.uint8)
+        scales = np.empty((rows, n // PCM4_BLOCK), np.uint16)
+        lib.qs_pcm4_encode(
+            x2.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), rows, n,
+            PCM4_BLOCK,
+            packed.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            scales.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)))
+        return (packed.reshape(*x.shape[:-1], n // 2),
+                scales.view(np.float16).reshape(*x.shape[:-1], n // PCM4_BLOCK))
     blocks = x.reshape(*x.shape[:-1], n // PCM4_BLOCK, PCM4_BLOCK)
     scale = np.maximum(np.abs(blocks).max(axis=-1), 1e-5).astype(np.float16)
     # quantize against the float16-rounded scale the decoder will see, so
@@ -54,6 +123,25 @@ def dpcm4_encode_np(x: np.ndarray):
     n = x.shape[-1]
     if n % (2 * PCM4_BLOCK):
         raise ValueError(f"dpcm4 length {n} not a multiple of {2 * PCM4_BLOCK}")
+    lib = _native() if (x.dtype == np.float32
+                        and x.size >= _NATIVE_MIN_SAMPLES) else None
+    if lib is not None and not hasattr(lib, "qs_dpcm4_encode"):
+        lib = None  # stale pre-dpcm4 .so already loaded in this process
+    if lib is not None:
+        import ctypes
+
+        x2 = np.ascontiguousarray(x.reshape(-1, n))
+        rows = x2.shape[0]
+        packed = np.empty((rows, n // 2), np.uint8)
+        scales2 = np.empty((rows, 2 * n // PCM4_BLOCK), np.uint16)
+        lib.qs_dpcm4_encode(
+            x2.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), rows, n,
+            PCM4_BLOCK,
+            packed.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            scales2.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)))
+        return (packed.reshape(*x.shape[:-1], n // 2),
+                scales2.view(np.float16).reshape(*x.shape[:-1],
+                                                 2 * n // PCM4_BLOCK))
     lead = x.shape[:-1]
     nb = n // PCM4_BLOCK
     blocks = x.reshape(*lead, nb, PCM4_BLOCK).astype(np.float32)

@@ -14,6 +14,8 @@ Leaf rules (mirroring ``qwen3_asr_swift_tpu/ops/quant.py::cast_tree``):
   after shifting, so the sign bit never leaks into a code;
 - group ``scales`` and ``biases`` stay fp32 (they are 1/group_size the
   size of the codes, so their accuracy is free);
+- the group-dot layout keeps ``gcodes`` int8 and ``gscales``/``gbiases``
+  fp32;
 - integer leaves are never cast.
 
 The random initialisers draw with numpy from a seed and pack with the
@@ -51,6 +53,13 @@ def params_from_jax(tree, device, dtype=torch.bfloat16):
 
     def walk(node):
         if isinstance(node, dict):
+            if "gcodes" in node:
+                out = {"gcodes": _tensor(_to_numpy(node["gcodes"]).astype(np.int8)).to(device),
+                       "gscales": _float_tensor(node["gscales"], device, torch.float32),
+                       "gbiases": _float_tensor(node["gbiases"], device, torch.float32)}
+                if "bias" in node:
+                    out["bias"] = _float_tensor(node["bias"], device, dtype)
+                return out
             if "codes" in node:
                 codes = np.ascontiguousarray(_to_numpy(node["codes"]).astype(np.uint32, copy=False))
                 out = {
@@ -213,3 +222,97 @@ def init_random_params(cfg, seed: int = 0, quant_bits: Optional[int] = None):
     if quant_bits:
         dec = quantize_tree_np(dec, quant_bits)
     return enc, dec
+
+
+# ---------------------------------------------------------------------------
+# checkpoints in the published layout (tests and chip_smoke.py write their
+# own: no published weights are fetched)
+# ---------------------------------------------------------------------------
+
+def round_floats(tree):
+    """The tree with every float leaf rounded through bfloat16 and back to
+    float32 numpy (what a checkpoint stored in bf16 holds)."""
+    if isinstance(tree, dict):
+        return {k: round_floats(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [round_floats(v) for v in tree]
+    arr = _to_numpy(tree)
+    if np.issubdtype(arr.dtype, np.floating):
+        return _tensor(arr.astype(np.float32)).bfloat16().float().numpy()
+    return arr
+
+
+def _export_linear(p, name: str, out: dict) -> None:
+    if "codes" in p:
+        out[f"{name}.weight"] = _to_numpy(p["codes"]).astype(np.uint32)
+        out[f"{name}.scales"] = _to_numpy(p["scales"])
+        out[f"{name}.biases"] = _to_numpy(p["biases"])
+    else:
+        out[f"{name}.weight"] = np.ascontiguousarray(_to_numpy(p["kernel"]).T)
+    if "bias" in p:
+        out[f"{name}.bias"] = _to_numpy(p["bias"])
+
+
+def checkpoint_flat(enc, dec) -> dict:
+    """Flat ``{name: array}`` of an encoder and a decoder tree in the
+    published Qwen3-ASR names and layouts (``audio_tower.*`` with torch OIHW
+    convs, ``model.*``, linears ``[out, in]``, packed linears and tables as
+    MLX ``weight``/``scales``/``biases`` triplets): the inverse of
+    ``models/qwen3_asr/convert.py``."""
+    out: dict = {}
+    a = "audio_tower"
+    for src, dst in (("conv1", "conv2d1"), ("conv2", "conv2d2"), ("conv3", "conv2d3")):
+        out[f"{a}.{dst}.weight"] = np.ascontiguousarray(
+            _to_numpy(enc[src]["kernel"]).transpose(3, 2, 0, 1))    # HWIO → OIHW
+        if "bias" in enc[src]:
+            out[f"{a}.{dst}.bias"] = _to_numpy(enc[src]["bias"])
+    for name in ("conv_out", "proj1", "proj2"):
+        _export_linear(enc[name], f"{a}.{name}", out)
+    for k in ("weight", "bias"):
+        out[f"{a}.ln_post.{k}"] = _to_numpy(enc["ln_post"][k])
+    for i, p in enumerate(enc["layers"]):
+        pre = f"{a}.layers.{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _export_linear(p[name], f"{pre}.self_attn.{name}", out)
+        for name in ("fc1", "fc2"):
+            _export_linear(p[name], f"{pre}.{name}", out)
+        for src, dst in (("attn_ln", "self_attn_layer_norm"), ("final_ln", "final_layer_norm")):
+            for k in ("weight", "bias"):
+                out[f"{pre}.{dst}.{k}"] = _to_numpy(p[src][k])
+    emb = dec["embed_tokens"]
+    if isinstance(emb, dict):
+        _export_linear(emb, "model.embed_tokens", out)
+    else:
+        out["model.embed_tokens.weight"] = _to_numpy(emb)
+    out["model.norm.weight"] = _to_numpy(dec["norm"]["weight"])
+    for i, p in enumerate(dec["layers"]):
+        pre = f"model.layers.{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _export_linear(p[name], f"{pre}.self_attn.{name}", out)
+        for name in ("q_norm", "k_norm"):
+            out[f"{pre}.self_attn.{name}.weight"] = _to_numpy(p[name]["weight"])
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            out[f"{pre}.{name}.weight"] = _to_numpy(p[name]["weight"])
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            _export_linear(p["mlp"][name], f"{pre}.mlp.{name}", out)
+    return out
+
+
+def save_checkpoint(flat: dict, model_dir, dtype_of=None) -> None:
+    """Write ``flat`` into ``model_dir`` as two safetensors shards: the
+    integer arrays (packed codes) through safetensors' numpy writer, the
+    float arrays through its torch writer (numpy has no bfloat16), each
+    stored as ``dtype_of(name)``, bfloat16 where no rule is given."""
+    from pathlib import Path
+
+    from safetensors.numpy import save_file as save_np
+    from safetensors.torch import save_file as save_pt
+
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    ints = {k: np.ascontiguousarray(v) for k, v in flat.items()
+            if not np.issubdtype(v.dtype, np.floating)}
+    floats = {k: _tensor(v.astype(np.float32)).to(dtype_of(k) if dtype_of else torch.bfloat16)
+              for k, v in flat.items() if np.issubdtype(v.dtype, np.floating)}
+    save_np(ints, str(model_dir / "model-00001-of-00002.safetensors"))
+    save_pt(floats, str(model_dir / "model-00002-of-00002.safetensors"))

@@ -1,15 +1,17 @@
-"""The port's copy of ``SpeechRecognitionModel`` from
-``qwen3_asr_swift_tpu/core/protocols.py``.
+"""The port's copy of the capability interfaces it implements, from
+``qwen3_asr_swift_tpu/core/protocols.py``: ``SpeechRecognitionModel``,
+``VoiceActivityDetectionModel``, ``StreamingVADProvider`` and
+``ForcedAlignmentModel``.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Optional
+from typing import Any, Optional, Sequence
 
 import numpy as np
 
-from .types import ModelMemoryStats, TranscriptionResult
+from .types import AlignedWord, ModelMemoryStats, SpeechSegment, TranscriptionResult
 
 
 class SpeechModel(abc.ABC):
@@ -52,4 +54,41 @@ class SpeechRecognitionModel(SpeechModel):
         language: Optional[str] = None,
         **kwargs,
     ) -> TranscriptionResult:
+        ...
+
+
+class VoiceActivityDetectionModel(SpeechModel):
+    """Batch VAD (reference: VoiceActivityDetectionModel)."""
+
+    @abc.abstractmethod
+    def detect_speech(self, audio: np.ndarray, sample_rate: int = 16000, **kwargs) -> Sequence[SpeechSegment]:
+        ...
+
+    @abc.abstractmethod
+    def speech_probabilities(self, audio: np.ndarray, sample_rate: int = 16000) -> np.ndarray:
+        """Per-chunk speech probabilities."""
+
+
+class StreamingVADProvider(abc.ABC):
+    """Streaming VAD with carried state (reference: StreamingVADProvider)."""
+
+    @abc.abstractmethod
+    def new_stream(self) -> Any:
+        ...
+
+    @abc.abstractmethod
+    def process_chunk(self, state: Any, samples: np.ndarray) -> tuple[Any, float]:
+        """Returns (new_state, speech probability for this chunk)."""
+
+    @property
+    @abc.abstractmethod
+    def chunk_size(self) -> int:
+        """Samples per VAD step at 16 kHz."""
+
+
+class ForcedAlignmentModel(SpeechModel):
+    """Text-audio forced alignment (reference: ForcedAlignmentModel)."""
+
+    @abc.abstractmethod
+    def align(self, audio: np.ndarray, text: str, sample_rate: int = 16000, **kwargs) -> Sequence[AlignedWord]:
         ...

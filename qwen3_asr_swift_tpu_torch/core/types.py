@@ -11,6 +11,25 @@ import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
+class AudioChunk:
+    """A chunk of mono PCM audio."""
+
+    samples: np.ndarray  # float32 [-1, 1], shape [T]
+    sample_rate: int
+
+    @property
+    def duration(self) -> float:
+        return len(self.samples) / float(self.sample_rate)
+
+    def resampled(self, target_rate: int) -> "AudioChunk":
+        if target_rate == self.sample_rate:
+            return self
+        from ..audio.resample import resample
+
+        return AudioChunk(resample(self.samples, self.sample_rate, target_rate), target_rate)
+
+
+@dataclasses.dataclass(frozen=True)
 class WordConfidence:
     """Per-word confidence from decoder log-probs."""
 
@@ -36,6 +55,39 @@ class TranscriptionResult:
         if self.duration and self.processing_time:
             return self.processing_time / self.duration
         return None
+
+
+@dataclasses.dataclass(frozen=True)
+class PartialTranscription:
+    """Streaming partial / final transcript event."""
+
+    text: str
+    is_final: bool
+    segment_start: float  # seconds from stream start
+    segment_end: float
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeechSegment:
+    """A detected speech region."""
+
+    start: float  # seconds
+    end: float
+    probability: float = 1.0
+
+    @property
+    def duration(self) -> float:
+        return self.end - self.start
+
+
+@dataclasses.dataclass(frozen=True)
+class AlignedWord:
+    """Forced-alignment output word with timestamps."""
+
+    word: str
+    start: float
+    end: float
+    confidence: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)

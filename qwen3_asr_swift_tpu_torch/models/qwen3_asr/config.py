@@ -1,6 +1,7 @@
 """Qwen3-ASR configuration — the frozen dataclasses and presets of
-``qwen3_asr_swift_tpu/models/qwen3_asr/config.py``, copied because that
-package's ``models/qwen3_asr/__init__.py`` imports jax.
+``qwen3_asr_swift_tpu/models/qwen3_asr/config.py`` and its
+``detect_config``, copied because that package's
+``models/qwen3_asr/__init__.py`` imports jax.
 
 The field names, defaults and presets must stay equal to the reference's;
 ``tests/test_torch_config.py`` compares them field by field.
@@ -9,6 +10,8 @@ The field names, defaults and presets must stay equal to the reference's;
 from __future__ import annotations
 
 import dataclasses
+
+from ...core.config import detect_bits, detect_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,3 +126,11 @@ def config_tiny(vocab_size: int = 512) -> Qwen3ASRConfig:
         timestamp_id=vocab_size - 3, system_id=1, user_id=2, assistant_id=3,
         newline_id=4,
     )
+
+
+def detect_config(model_id: str) -> Qwen3ASRConfig:
+    """Sniff size and quantization bits from a HF model id
+    (reference: ASRModelSize.detect/detectBits, Qwen3ASR.swift:581-601)."""
+    cfg = detect_size(model_id, {"1.7b": CONFIG_LARGE}, CONFIG_SMALL)
+    bits = detect_bits(model_id, default=4 if cfg is CONFIG_SMALL else 8)
+    return dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, bits=bits))

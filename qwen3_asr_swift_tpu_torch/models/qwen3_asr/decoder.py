@@ -110,7 +110,7 @@ def decode_step(params, cfg: TextDecoderConfig, token_ids, cache: KVCache) -> Tu
     return logits, after_token(cache)
 
 
-def make_cache(cfg: TextDecoderConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-               device="cpu") -> KVCache:
+def make_cache(cfg: TextDecoderConfig, batch: int, max_len: int, dtype=torch.bfloat16, *,
+               device) -> KVCache:
     return init_cache(cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim,
-                      dtype, device)
+                      dtype, device=device)

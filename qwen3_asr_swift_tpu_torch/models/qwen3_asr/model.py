@@ -27,8 +27,8 @@ and decode chunk holds a gate slot and syncs before releasing it; a
 request's first chunk rides the latency lane, and a single gated clip runs
 encode, prefill and its first chunk under one latency slot.
 
-Not ported yet: the ``groupdot`` compute mode, sharding, and
-``from_pretrained``.
+:meth:`Qwen3ASR.from_pretrained` loads a checkpoint from a local directory
+(hub download is not ported). Not ported yet: sharding.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ import torch
 from ...audio.companding import (dpcm4_decode, dpcm4_encode_np, mulaw_decode, mulaw_encode_np,
                                  pcm4_decode, pcm4_encode_np)
 from ...audio.resample import resample
+from ...core.logging import inference as log
 from ...core.protocols import SpeechRecognitionModel
 from ...core.types import ModelMemoryStats, TranscriptionResult
 from ...core.params import init_random_params, param_bytes, params_from_jax
@@ -50,13 +51,13 @@ from ...device import resolve_device
 from ...ops.kv_cache import KVCache
 from ...ops.mel import MelConfig, log_mel_kernel, num_frames, reflect_pad_np
 from ...ops.nn import embedding_lookup, tied_lm_head
-from ...ops.quant import dequantize_tree
+from ...ops.quant import dequantize_tree, repack_tree_groupdot
 from ...ops.sampling import (SamplingOptions, check_supported, force_eos_after,
                              log_softmax_confidence, sample_token)
 from ...serving.dispatch import BULK, LATENCY, gate_slot
 from ...tokenizers.bpe import BPETokenizer
 from .beam import beam_search
-from .config import CONFIG_SMALL, Qwen3ASRConfig
+from .config import CONFIG_SMALL, Qwen3ASRConfig, detect_config
 from .decoder import decode_step, fuse_for_inference, make_cache, prefill
 from .encoder import encode
 
@@ -113,7 +114,11 @@ class Qwen3ASR(SpeechRecognitionModel):
 
     ``quant_compute``: ``"packed"`` keeps packed 2/4/8-bit decoder weights
     and runs decode-shaped products through kernel K1; ``"dequant"``
-    materializes them to dense ``dtype`` at load (same quantized values).
+    materializes them to dense ``dtype`` at load (same quantized values);
+    ``"groupdot"`` unpacks the linears' codes once to int8 and multiplies
+    them with int8-quantized activations group by group
+    (``ops/quant.py::quant_matmul_groupdot``), while the packed embedding
+    stays packed, so the LM head still runs K1.
     ``kv_dtype=torch.int8`` quantizes the KV cache per slot, read at decode
     by kernel K3. ``wire_dtype``: ``np.float32``, ``np.int16``, ``"mulaw"``,
     ``"pcm4"`` or ``"dpcm4"``."""
@@ -136,9 +141,7 @@ class Qwen3ASR(SpeechRecognitionModel):
         dispatch_gate=None,
         first_chunk_tokens: int = 8,
     ):
-        if quant_compute == "groupdot":
-            raise NotImplementedError("quant_compute='groupdot' is not ported yet")
-        if quant_compute not in ("packed", "dequant"):
+        if quant_compute not in ("packed", "dequant", "groupdot"):
             raise ValueError(f"unknown quant_compute {quant_compute!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -169,6 +172,9 @@ class Qwen3ASR(SpeechRecognitionModel):
         if quant_compute == "dequant":
             dec = dequantize_tree(dec, cfg.decoder.bits, cfg.decoder.group_size, dtype)
         self.decoder_params = fuse_for_inference(dec, cfg.decoder)
+        if quant_compute == "groupdot":
+            self.decoder_params = repack_tree_groupdot(self.decoder_params,
+                                                       cfg.decoder.group_size)
         self._loaded = True
 
     # ------------------------------------------------------------------ #
@@ -194,9 +200,37 @@ class Qwen3ASR(SpeechRecognitionModel):
         return cls(cfg, enc, dec, device=device, dtype=dtype, **kw)
 
     @classmethod
-    def from_pretrained(cls, model_id: str, cache_dir=None, offline_mode: bool = False,
-                        progress_handler=None, **kwargs):
-        raise NotImplementedError("loading published checkpoints is not ported yet")
+    def from_pretrained(cls, model_id: str = "aufklarer/Qwen3-ASR-0.6B-MLX-4bit",
+                        cache_dir=None, offline_mode: bool = False, progress_handler=None,
+                        dtype: torch.dtype = torch.bfloat16, **kw) -> "Qwen3ASR":
+        """Load a checkpoint in the published layout from a local directory
+        (``*.safetensors``, and ``vocab.json``/``merges.txt`` for text; without
+        them decode returns ids). The directory's name picks the size and the
+        bits, as a model id does. ``kw`` go to the constructor (``device``,
+        ``kv_dtype``, ...)."""
+        from ...core.hub import download_weights
+        from ...core.weights import load_safetensors
+        from .convert import convert_decoder, convert_encoder
+
+        if progress_handler:
+            progress_handler(0.0, "Downloading model...")
+        cfg = detect_config(model_id)
+        model_dir = download_weights(model_id, cache_dir=cache_dir, offline_mode=offline_mode)
+        if progress_handler:
+            progress_handler(0.8, "Loading tokenizer...")
+        tokenizer = None
+        try:
+            tokenizer = BPETokenizer.from_pretrained_dir(model_dir)
+        except FileNotFoundError:
+            log.warning("no tokenizer files in %s — decode will return ids", model_dir)
+        if progress_handler:
+            progress_handler(0.85, "Converting weights...")
+        flat = load_safetensors(model_dir)
+        enc = convert_encoder(flat, cfg)
+        dec = convert_decoder(flat, cfg)
+        if progress_handler:
+            progress_handler(1.0, "Ready")
+        return cls(cfg, enc, dec, tokenizer=tokenizer, dtype=dtype, **kw)
 
     # ------------------------------------------------------------------ #
     # host staging
@@ -226,18 +260,26 @@ class Qwen3ASR(SpeechRecognitionModel):
             padded = np.pad(padded, (0, need - len(padded)))
         return padded[:need], n_valid, bucket
 
-    def prestage(self, audios: Sequence[np.ndarray], sample_rate: int = 16000) -> _StagedBatch:
-        """Host preparation and the copy to the device, apart from compute."""
-        durations = [len(a) / sample_rate for a in audios]
+    def staging_buffer(self, audios: Sequence[np.ndarray], sample_rate: int = 16000):
+        """The float32 buffer a batch is staged from, before the wire
+        encoding: (buffer [B, samples of the bucket, padded to whole 4-bit
+        wire blocks], [(padded clip, valid mel frames, bucket frames)])."""
         prepared = [self._prepare_audio(a, sample_rate) for a in audios]
         bucket = max(p[2] for p in prepared)
         need = (bucket - 1) * self.mel_cfg.hop_length + self.mel_cfg.n_fft
         pad_to = 2 * 128 if self._wire4 else 1  # pcm4 block alignment
         need_pad = ((need + pad_to - 1) // pad_to) * pad_to
-        b = len(prepared)
-        stage = np.zeros((b, need_pad), np.float32)
+        stage = np.zeros((len(prepared), need_pad), np.float32)
         for i, (clip, _, _) in enumerate(prepared):
             stage[i, : len(clip)] = clip[:need]
+        return stage, prepared
+
+    def prestage(self, audios: Sequence[np.ndarray], sample_rate: int = 16000) -> _StagedBatch:
+        """Host preparation and the copy to the device, apart from compute."""
+        durations = [len(a) / sample_rate for a in audios]
+        stage, prepared = self.staging_buffer(audios, sample_rate)
+        bucket = max(p[2] for p in prepared)
+        b = len(prepared)
         scales = None
         if self._wire4:
             enc4 = dpcm4_encode_np if self._wire_name == "dpcm4" else pcm4_encode_np
@@ -317,7 +359,7 @@ class Qwen3ASR(SpeechRecognitionModel):
             torch.arange(a_pad, device=dev)[None] < n_audio[:, None],
             torch.arange(sb, device=dev)[None] < prompt.suffix_len[:, None],
         ], dim=1)
-        cache = make_cache(dcfg, b, cache_len, kv_dtype, dev)
+        cache = make_cache(dcfg, b, cache_len, kv_dtype, device=dev)
         hidden, cache = prefill(self.decoder_params, dcfg, embeds, valid, cache)
         last_idx = pb + a_pad + prompt.suffix_len - 1
         logits = tied_lm_head(hidden[torch.arange(b, device=dev), last_idx], table)

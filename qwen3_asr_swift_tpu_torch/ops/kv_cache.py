@@ -49,7 +49,7 @@ class KVCache:
 
 
 def init_cache(num_layers: int, batch: int, num_kv_heads: int, max_len: int, head_dim: int,
-               dtype=torch.bfloat16, device="cpu") -> KVCache:
+               dtype=torch.bfloat16, *, device) -> KVCache:
     quant = dtype == torch.int8
     shape = (batch, num_kv_heads, max_len, head_dim)
 

@@ -2,8 +2,9 @@
 
 Params are plain dicts of tensors in the reference's layouts: dense
 kernels ``[in, out]``, conv kernels HWIO with NHWC activations at the
-public :func:`conv2d`. Matmuls run in the params' dtype and accumulate in
-fp32 (PyTorch's bf16 GEMMs do); normalization statistics are fp32.
+public :func:`conv2d`, HIO with NLC activations at :func:`conv1d`.
+Matmuls run in the params' dtype and accumulate in fp32 (PyTorch's bf16
+GEMMs do); normalization statistics are fp32.
 """
 
 from __future__ import annotations
@@ -15,7 +16,15 @@ import torch.nn.functional as F
 
 
 def linear(x: torch.Tensor, p) -> torch.Tensor:
-    """x @ kernel + bias, or a group-quantized dict (→ ops.quant)."""
+    """x @ kernel + bias, or a group-quantized dict (→ ops.quant), or the
+    load-time-unpacked group-dot layout {"gcodes", "gscales", "gbiases"}."""
+    if "gcodes" in p:
+        from .quant import quant_matmul_groupdot
+
+        y = quant_matmul_groupdot(x, p)
+        if "bias" in p:
+            y = y + p["bias"].float()
+        return y.to(x.dtype)
     if "codes" in p:
         from .quant import quant_linear
 
@@ -122,6 +131,32 @@ def tied_lm_head(hidden: torch.Tensor, table) -> torch.Tensor:
 
         return quant_tied_lm_head(hidden, table)
     return torch.matmul(hidden, table.T).float()
+
+
+def conv1d(x: torch.Tensor, p, stride: int = 1, padding=0, groups: int = 1,
+           dilation: int = 1) -> torch.Tensor:
+    """NLC conv1d with the reference's layout, p: {"kernel": [width,
+    in//groups, out] (HIO), optional "bias": [out]}; ``padding`` an int or
+    ``((lo, hi),)``; fp32 bias. Computed as strided windows times the
+    kernel, a matmul: fp32 matmuls run in full fp32 by default, where
+    cuDNN's fp32 convs default to TF32, so no process-wide flag is set."""
+    if isinstance(padding, int):
+        padding = ((padding, padding),)
+    ((lo, hi),) = padding
+    k = p["kernel"].to(x.dtype)
+    width, cin_g, cout = k.shape
+    b = x.shape[0]
+    win = F.pad(x, (0, 0, lo, hi)).unfold(1, (width - 1) * dilation + 1, stride)
+    win = win[..., ::dilation]                                  # [B, L', C, width]
+    n = win.shape[1]
+    win = win.reshape(b, n, groups, cin_g, width).transpose(-1, -2).reshape(
+        b, n, groups, width * cin_g)
+    kg = k.reshape(width, cin_g, groups, cout // groups).permute(2, 0, 1, 3).reshape(
+        groups, width * cin_g, cout // groups)
+    y = torch.einsum("blgk,gko->blgo", win, kg).reshape(b, n, cout)
+    if "bias" in p:
+        y = y.float() + p["bias"].float()
+    return y.to(x.dtype)
 
 
 def conv2d_nchw(x: torch.Tensor, p, stride=(2, 2), padding=(1, 1)) -> torch.Tensor:

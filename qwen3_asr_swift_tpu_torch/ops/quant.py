@@ -7,7 +7,7 @@ Param convention (as in the reference): a quantized linear is a dict
 LSB-first; the codes are the reference's uint32 words viewed as int32
 (core/params.py), so every unpack masks after shifting.
 
-Three compute paths, as in the reference:
+Three compute paths over packed weights, as in the reference:
 
 - :func:`quant_matmul` — the plain group decomposition (the
   counterpart of ``quant_matmul_xla``). Prefill-shaped calls take it on
@@ -26,6 +26,10 @@ Three compute paths, as in the reference:
 calls (at most :data:`KERNEL_MAX_ROWS` activation rows) to the wrapper
 that :data:`KERNEL` names, the same row rule and the same
 ``QUANT_KERNEL`` selection as the reference.
+
+``quant_compute="groupdot"`` repacks the linears once at load
+(:func:`repack_tree_groupdot`) and computes them with
+:func:`quant_matmul_groupdot`, a library product.
 """
 
 from __future__ import annotations
@@ -98,6 +102,82 @@ def quant_matmul(x: torch.Tensor, p) -> torch.Tensor:
     xsum = xf.reshape(xf.shape[0], in_dim // gs, gs).sum(dim=-1)            # [B, G]
     y = torch.addmm(xsum @ p["biases"].float().T, xf, scaled.T)
     return y.reshape(*lead, -1)
+
+
+# ---------------------------------------------------------------------------
+# group-dot path (quant_compute="groupdot"): codes unpacked once at load
+# ---------------------------------------------------------------------------
+
+def repack_groupdot(p, group_size: int) -> dict:
+    """Packed dict → the group-dot layout (the reference's
+    ``repack_groupdot``): codes unpacked once to int8 ``[groups, gs, out]``
+    (the same 2/4/8-bit values), scales and biases ``[groups, out]`` fp32.
+    8-bit codes are recentred to -128..127 and the +128·scale shift folded
+    into the group-sum bias term, as the reference does.
+
+    The group size is the caller's: the packed shapes alone do not fix the
+    layout (4-bit group 32 has the shapes of 2-bit group 64), and the
+    reference's guess, group 64 first, misreads groups 32 and 128."""
+    codes = p["codes"]
+    scales = p["scales"].float()
+    biases = p["biases"].float()
+    out_dim, n_groups = scales.shape
+    in_dim = n_groups * group_size
+    bits, _ = infer_quant_dims(in_dim, codes.shape, scales.shape)
+    dense = unpack_codes(codes, bits, in_dim).to(torch.int32)          # [out, in]
+    if bits == 8:
+        dense = dense - 128
+        biases = biases + 128.0 * scales
+    out = {"gcodes": dense.to(torch.int8).T.reshape(n_groups, group_size, out_dim).contiguous(),
+           "gscales": scales.T.contiguous(),
+           "gbiases": biases.T.contiguous()}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+def quant_matmul_groupdot(x: torch.Tensor, p) -> torch.Tensor:
+    """x [..., in] @ dequant(W)^T → fp32 [..., out] over the group-dot
+    layout: x is quantized to int8 with a scale per (row, group), sx =
+    max|x_g|/127 and xq = round(x/sx) half to even (``torch.round``, as
+    ``jnp.round``), and each group's integer partial Σ_k xq·code is scaled
+    by sx·scale; the bias term Σ_g β·Σx_g stays exact fp32.
+
+    The partials come from one batched fp32 ``torch.bmm`` over the groups
+    (a library product: group-dot is an XLA dot in the reference, not a
+    Pallas kernel). Every partial is an integer with |Σ| ≤ gs·127·128 <
+    2^24 at the MLX group sizes, and every operand is exact in fp32 (and in
+    TF32, whose 11-bit significand holds |code| ≤ 128), so fp32 sums it
+    exactly in any order: the reference's int32 result. A bf16 product
+    would hold the operands exactly too, but ``bmm`` would round its output
+    to bf16."""
+    gcodes = p["gcodes"]                                    # [G, gs, out] int8
+    n_groups, gs, out_dim = gcodes.shape
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, n_groups, gs).float()                # [B, G, gs]
+    sx = xf.abs().amax(dim=-1).clamp_min(1e-12) / 127.0     # [B, G]
+    xq = torch.clamp(torch.round(xf / sx[..., None]), -127, 127)
+    partial = torch.bmm(xq.transpose(0, 1), gcodes.float())  # [G, B, out], exact integers
+    y = (partial * sx.T[:, :, None] * p["gscales"].float()[:, None, :]).sum(dim=0)
+    y = y + xf.sum(dim=-1) @ p["gbiases"].float()
+    return y.reshape(*lead, out_dim)
+
+
+def repack_tree_groupdot(tree, group_size: int):
+    """Repack every packed linear of a tree into the group-dot layout;
+    packed embedding tables (gathered, and read by the tied LM head) stay
+    packed."""
+
+    def walk(node, is_embed=False):
+        if isinstance(node, dict):
+            if "codes" in node and not is_embed:
+                return repack_groupdot(node, group_size)
+            return {k: walk(v, is_embed=(k == "embed_tokens")) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(tree)
 
 
 def quant_matmul_plane(x: torch.Tensor, p) -> torch.Tensor:

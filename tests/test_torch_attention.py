@@ -208,7 +208,7 @@ def test_cache_writes_and_bookkeeping_match_reference(dtype):
     b, hkv, max_len, d, t = 2, 2, 12, 8, 5
     jdt, pdt = (jnp.int8, torch.int8) if dtype == "int8" else (jnp.float32, torch.float32)
     jc = jkv.init_cache(1, b, hkv, max_len, d, jdt)
-    pc = pkv.init_cache(1, b, hkv, max_len, d, pdt, "cpu")
+    pc = pkv.init_cache(1, b, hkv, max_len, d, pdt, device="cpu")
     k = rng.standard_normal((b, hkv, t, d)).astype(np.float32)
     v = rng.standard_normal((b, hkv, t, d)).astype(np.float32)
     valid = np.array([[1, 1, 0, 1, 1], [1, 0, 0, 1, 1]], bool)

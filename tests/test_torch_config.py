@@ -141,6 +141,55 @@ def test_port_runs_without_importing_jax():
     assert out.stdout.strip().endswith("OK")
 
 
+def test_family_modules_run_without_importing_jax():
+    """The wire codec, the loader, group-dot, Silero VAD, streaming ASR and
+    the aligner run without importing jax or the JAX package."""
+    code = textwrap.dedent("""
+        import sys, tempfile
+        import numpy as np, torch
+        from qwen3_asr_swift_tpu_torch.audio import companding
+        from qwen3_asr_swift_tpu_torch.core.params import (checkpoint_flat, init_random_params,
+                                                            save_checkpoint)
+        from qwen3_asr_swift_tpu_torch.models.qwen3_asr import (Qwen3ASR, Qwen3ForcedAligner,
+                                                                StreamingASR, StreamingASRConfig,
+                                                                config_tiny)
+        from qwen3_asr_swift_tpu_torch.models.qwen3_asr import model as model_mod
+        from qwen3_asr_swift_tpu_torch.models.silero_vad import SileroVAD, VADConfig
+        from qwen3_asr_swift_tpu_torch.tokenizers.bpe import BPETokenizer, _bytes_to_unicode
+        x = np.zeros((2, companding._NATIVE_MIN_SAMPLES), np.float32)
+        companding.dpcm4_encode_np(x)
+        cfg = config_tiny()
+        m = Qwen3ASR.init_random(cfg, 0, device="cpu", dtype=torch.float32, quant_bits=4,
+                                 audio_buckets_s=(8,), quant_compute="groupdot")
+        assert m.transcribe(np.zeros(8000, np.float32), max_tokens=2).text
+        with tempfile.TemporaryDirectory() as d:
+            save_checkpoint(checkpoint_flat(*init_random_params(cfg, 0, 4)), d)
+            model_mod.detect_config = lambda model_id: cfg
+            m = Qwen3ASR.from_pretrained(d, device="cpu", dtype=torch.float32,
+                                         audio_buckets_s=(8,))
+        vad = SileroVAD.init_random(0, device="cpu")
+        s = StreamingASR(m, vad, StreamingASRConfig(max_tokens=2, vad=VADConfig(onset=0.5,
+                                                                                 offset=0.4)))
+        audio = (0.3 * np.random.default_rng(0).standard_normal(32000)).astype(np.float32)
+        s.push(audio)
+        s.finish()
+        enc = _bytes_to_unicode()
+        tok = BPETokenizer({enc[b]: b for b in range(256)}, [])
+        al = Qwen3ForcedAligner.init_random(device="cpu", dtype=torch.float32, tokenizer=tok)
+        assert len(al.align(audio, "two words")) == 2
+        assert "jax" not in sys.modules, [k for k in sys.modules if k.startswith("jax")]
+        ref = [k for k in sys.modules
+               if k == "qwen3_asr_swift_tpu" or k.startswith("qwen3_asr_swift_tpu.")]
+        assert not ref, ref
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=240, env=env, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("OK")
+
+
 def test_cpu_call_leaves_launch_counters_at_zero(monkeypatch):
     from qwen3_asr_swift_tpu_torch.models.qwen3_asr import Qwen3ASR, config_tiny
     from qwen3_asr_swift_tpu_torch.ops import quant

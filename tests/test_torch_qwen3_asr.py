@@ -103,7 +103,7 @@ def test_prefill_hidden_states(weights, dense):
     embeds, valid = _prompt(2)
     jcache = jdec.make_cache(JCFG.decoder, 2, 48, jnp.float32)
     ref, jcache = jdec.prefill(jparams, JCFG.decoder, jnp.asarray(embeds), jnp.asarray(valid), jcache)
-    pcache = pdec.make_cache(CFG.decoder, 2, 48, torch.float32)
+    pcache = pdec.make_cache(CFG.decoder, 2, 48, torch.float32, device="cpu")
     got, pcache = pdec.prefill(pparams, CFG.decoder, torch.from_numpy(embeds), torch.from_numpy(valid), pcache)
     mask = valid[..., None]
     assert rel(got.numpy() * mask, np.asarray(ref) * mask) <= 1e-4
@@ -126,7 +126,7 @@ def test_decode_step_logits(weights, dense, kv, monkeypatch):
     jdt, pdt = (jnp.int8, torch.int8) if kv == "int8" else (jnp.float32, torch.float32)
     jcache = jdec.make_cache(JCFG.decoder, 2, 48, jdt)
     _, jcache = jdec.prefill(jparams, JCFG.decoder, jnp.asarray(embeds), jnp.asarray(valid), jcache)
-    pcache = pdec.make_cache(CFG.decoder, 2, 48, pdt)
+    pcache = pdec.make_cache(CFG.decoder, 2, 48, pdt, device="cpu")
     _, pcache = pdec.prefill(pparams, CFG.decoder, torch.from_numpy(embeds), torch.from_numpy(valid), pcache)
     ids = np.array([5, 300], np.int32)
     for step in range(2):
@@ -151,7 +151,7 @@ def test_packed_decoder_uses_k1_wrapper_for_decode_rows(weights, monkeypatch):
     real = pq.quant_matmul_cuda
     monkeypatch.setattr(pq, "quant_matmul_cuda", lambda x, p: calls.append(x.shape) or real(x, p))
     embeds, valid = _prompt(4, t=140)  # 280 rows: prefill-shaped
-    cache = pdec.make_cache(CFG.decoder, 2, 150, torch.int8)
+    cache = pdec.make_cache(CFG.decoder, 2, 150, torch.int8, device="cpu")
     pdec.prefill(pparams, CFG.decoder, torch.from_numpy(embeds), torch.from_numpy(valid), cache)
     assert calls == []
     pdec.decode_step(pparams, CFG.decoder, torch.tensor([1, 2]), cache)

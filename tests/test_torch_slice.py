@@ -166,5 +166,5 @@ def test_timings_and_memory_stats(weights, clips):
     with pytest.raises(ValueError, match="requires greedy scoring"):
         model.transcribe_batch(clips, options=SamplingOptions(max_tokens=3, temperature=0.7,
                                                               beam=2))
-    with pytest.raises(NotImplementedError):
-        port_model(weights, "groupdot", None, np.float32)
+    with pytest.raises(ValueError, match="unknown quant_compute"):
+        port_model(weights, "int4", None, np.float32)

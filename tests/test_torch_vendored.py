@@ -18,16 +18,32 @@ import pytest
 
 from qwen3_asr_swift_tpu.audio import companding as j_comp
 from qwen3_asr_swift_tpu.audio import io as j_io
+from qwen3_asr_swift_tpu.core import config as j_config
+from qwen3_asr_swift_tpu.core import protocols as j_protocols
 from qwen3_asr_swift_tpu.core import types as j_types
 from qwen3_asr_swift_tpu.core import weights as j_weights
+from qwen3_asr_swift_tpu.models.qwen3_asr import aligner as j_aligner
+from qwen3_asr_swift_tpu.models.qwen3_asr import config as j_asr_config
+from qwen3_asr_swift_tpu.models.qwen3_asr import convert as j_convert
+from qwen3_asr_swift_tpu.models.qwen3_asr import streaming as j_streaming
+from qwen3_asr_swift_tpu.models.silero_vad import model as j_vad
+from qwen3_asr_swift_tpu.models.silero_vad import streaming as j_vad_stream
 from qwen3_asr_swift_tpu.ops import mel as j_mel
 from qwen3_asr_swift_tpu.serving import batching as j_batching
 from qwen3_asr_swift_tpu.serving import dispatch as j_dispatch
 from qwen3_asr_swift_tpu.tokenizers import bpe as j_bpe
 from qwen3_asr_swift_tpu_torch.audio import companding as p_comp
 from qwen3_asr_swift_tpu_torch.audio import io as p_io
+from qwen3_asr_swift_tpu_torch.core import config as p_config
+from qwen3_asr_swift_tpu_torch.core import protocols as p_protocols
 from qwen3_asr_swift_tpu_torch.core import types as p_types
 from qwen3_asr_swift_tpu_torch.core import weights as p_weights
+from qwen3_asr_swift_tpu_torch.models.qwen3_asr import aligner as p_aligner
+from qwen3_asr_swift_tpu_torch.models.qwen3_asr import config as p_asr_config
+from qwen3_asr_swift_tpu_torch.models.qwen3_asr import convert as p_convert
+from qwen3_asr_swift_tpu_torch.models.qwen3_asr import streaming as p_streaming
+from qwen3_asr_swift_tpu_torch.models.silero_vad import model as p_vad
+from qwen3_asr_swift_tpu_torch.models.silero_vad import streaming as p_vad_stream
 from qwen3_asr_swift_tpu_torch.ops import mel as p_mel
 from qwen3_asr_swift_tpu_torch.serving import batching as p_batching
 from qwen3_asr_swift_tpu_torch.serving import dispatch as p_dispatch
@@ -38,8 +54,8 @@ j_resample = importlib.import_module("qwen3_asr_swift_tpu.audio.resample")
 p_resample = importlib.import_module("qwen3_asr_swift_tpu_torch.audio.resample")
 
 REPO = Path(__file__).resolve().parent.parent
-# the encoders' size threshold above which the JAX package may take its
-# native C++ path; the port is numpy at every size
+# the encoders' size threshold from which both packages take their native
+# C++ codec (the numpy-path check below turns it off in both)
 NATIVE_MIN = 65536
 
 
@@ -79,10 +95,11 @@ def test_mel_config_num_frames_and_reflect_pad_match():
 @pytest.mark.parametrize("name", ["mulaw_encode_np", "pcm4_encode_np", "dpcm4_encode_np"])
 @pytest.mark.parametrize("n", [2048, 2 * NATIVE_MIN + 256])
 def test_wire_encoders_match_numpy_path(monkeypatch, name, n):
-    """Below and above the native threshold: the port's numpy encoder is
-    the JAX package's numpy path, bit for bit (the JAX native codec is
-    held against that same path by tests/test_companding.py)."""
+    """Below and above the native threshold: the port's numpy path is the
+    JAX package's numpy path, bit for bit (the native codecs are held
+    against it by tests/test_companding.py and tests/test_torch_wire_codec.py)."""
     monkeypatch.setattr(j_comp, "_native_lib", False)
+    monkeypatch.setattr(p_comp, "_native_lib", False)
     x = (0.3 * np.random.default_rng(n).standard_normal((2, n))).astype(np.float32)
     x[0, :4] = [1.5, -1.5, 0.0, 1e-9]
     got, want = getattr(p_comp, name)(x), getattr(j_comp, name)(x)
@@ -156,17 +173,34 @@ def test_bpe_tokenizer_matches(text):
     (p_batching, j_batching, ["ContinuousBatcher"]),
     (p_io, j_io, ["read_wav", "wav_bytes", "load_audio"]),
     (p_bpe, j_bpe, ["BPETokenizer"]),
-    (p_comp, j_comp, ["dpcm4_encode_np"]),
+    (p_comp, j_comp, ["mulaw_encode_np", "pcm4_encode_np", "dpcm4_encode_np"]),
+    (p_types, j_types, ["AudioChunk", "PartialTranscription", "SpeechSegment", "AlignedWord"]),
+    (p_protocols, j_protocols, ["VoiceActivityDetectionModel", "StreamingVADProvider",
+                                "ForcedAlignmentModel"]),
+    (p_config, j_config, ["detect_size", "detect_bits"]),
+    (p_weights, j_weights, ["dequantize_mlx"]),
+    (p_convert, j_convert, ["_conv_to_hwio", "_linear", "_ln", "_rms", "strip_prefixes",
+                            "convert_encoder", "convert_decoder"]),
+    (p_asr_config, j_asr_config, ["detect_config"]),
+    (p_vad_stream, j_vad_stream, ["VADEventType", "VADEvent", "_State",
+                                  "StreamingVADProcessor"]),
+    (p_vad, j_vad, ["VADConfig", "dft_basis", "convert_checkpoint", "convert_torchscript",
+                    "binarize"]),
+    (p_streaming, j_streaming, ["longest_common_prefix", "StreamingASRConfig", "StreamingASR"]),
+    (p_aligner, j_aligner, ["split_word_pairs", "SlottedText", "slot_text", "lis_positions",
+                            "enforce_monotonicity"]),
 ])
 def test_copied_code_is_the_original(port, ref, names):
     """Whole copies keep their originals' source, so a fix to one shows as
-    a difference here. (dpcm4_encode_np: only the native branch is cut.)"""
+    a difference here."""
     for name in names:
         got, want = inspect.getsource(getattr(port, name)), inspect.getsource(getattr(ref, name))
-        if name == "dpcm4_encode_np":
-            cut = want[want.index("    lib = _native()"):want.index("    lead = x.shape[:-1]")]
-            want = want.replace(cut, "")
         assert got == want, name
+
+
+def test_wire_codec_source_is_the_original():
+    got = (REPO / "qwen3_asr_swift_tpu_torch" / "runtime" / "wire_codec.cpp").read_bytes()
+    assert got == (REPO / "qwen3_asr_swift_tpu" / "runtime" / "wire_codec.cpp").read_bytes()
 
 
 def _imported_modules(path: Path):
