@@ -49,8 +49,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              and a sampled decode (temperature, top-k, both penalties) run
              twice with one seed: identical tokens;
 10. serve  — the same model behind ``SpeechServer`` answers 4 concurrent
-             ``POST /transcribe`` and one ``GET /health`` with the group
-             scheduler, and again through the port's slot pool.
+             ``POST /transcribe`` (JSON bodies with a 64-token budget) and
+             one ``GET /health`` with the group scheduler, and again with
+             the slot pool, each through the batcher the server builds.
 
 Before the slice, phase codec builds the native wire codec with g++ and
 encodes the slice's staging buffer with it and with numpy (pcm4 and dpcm4
@@ -75,8 +76,35 @@ host_prep. After serve, the rest of the Qwen3-ASR family:
                slot logits card vs host within 5e-2 relative L2, monotone
                times, K1 only when the prompt has at most 256 rows.
 
+Then Qwen3-TTS, at the 1.7B widths (talker 2048 × 28, code predictor
+1024 × 5; random, seed 0; talker and code predictor packed 4-bit group 64):
+
+16. tts    — the first frame's code0 logits and the code predictor's first
+             group logits, card vs host CPU (fp32 both) within 5e-2
+             relative L2; a greedy synthesis of 48 frames in bf16 under
+             ``quant_compute="fused"`` (K1's launches must equal the count
+             worked out from the code and the frames run) and
+             ``"groupdot"`` (no K1): finite audio of frames × 1920 samples,
+             frames/s, RTF, and the device ms a frame of the talker step,
+             the code-predictor chain and the codec (profiler ranges); K1
+             against its plain version at the frame loop's 1-row shapes,
+             with its bound and ``torch.mm`` yardstick summed over a frame;
+17. speak  — ``SpeechServer`` with ``asr`` and ``tts`` (the model's default
+             sampling greedy, 16 frames): four concurrent ``POST /speak``
+             under the group scheduler (``TTSBatcher``) and the slot pool
+             (``SlotPoolTTS``), each batcher the server's own, each answer a
+             24 kHz WAV; each pooled synthesis against the solo
+             ``synthesize`` of its text: every logit vector up to the first
+             code where they part within 5e-2 relative L2, and the codes
+             equal or parting at a near-tie (the solo margin within twice
+             the largest logit gap); no text → 400, no ``tts`` → 503;
+18. cli    — ``python -m qwen3_asr_swift_tpu_torch.cli`` on the card with
+             ``--random-weights``: transcribe, transcribe-batch, align, vad,
+             vad-stream and speak, in parallel, each exit 0 with the
+             reference's JSON keys.
+
 Weights are random (numpy, seed 0) at the full width of the 0.6B
-configuration. The line before the last is ``{"kernels": [...]}`` (each
+configuration (the ASR phases) and the 1.7B one (TTS). The line before the last is ``{"kernels": [...]}`` (each
 entry with its launches in the main path's run, its bound and its library
 time); the last line is ``{"ok": true, "device": {...}}``. Imports nothing
 of JAX nor of the JAX package, and checks so before the last lines.
@@ -85,6 +113,7 @@ of JAX nor of the JAX package, and checks so before the last lines.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -121,6 +150,7 @@ POOL_SLOTS, POOL_TICK, POOL_MAX_NEW = 16, 8, 64
 POOL_SECONDS, POOL_BURSTS = (3, 8, 15, 30), (16, 8)
 DECODE_PRODUCTS = 28 * 4 + 1     # packed products of one decode step
 SR = 16000
+SERVE_TOKENS = 64        # decode budget of each request in phase serve
 VAD_PROB_TOL = 1e-4      # card vs host CPU, fp32 both (the VAD's convs are fp32 matmuls)
 VAD_STREAM_TOL = 1e-5    # process_chunk (batch 1) vs the batch pass, on the card
 ALIGN_TOL = 5e-2         # classify logits at the slots, relative L2, card vs host CPU
@@ -891,15 +921,16 @@ def phase_beam_sampling(model, counters):
         del model._finalize
 
 
-def serve_requests(server, n_clips: int):
-    """Start ``server`` on a free port, POST ``n_clips`` 8 s WAVs and GET
-    /health concurrently, stop it; returns the answers and the wall time."""
+def serve_requests(server, n_clips: int, max_tokens: int):
+    """Start ``server`` on a free port, POST ``n_clips`` 8 s clips (JSON
+    bodies, 16-bit PCM in base64, each with a decode budget of
+    ``max_tokens``) and GET /health concurrently, stop it; returns the
+    answers and the wall time."""
     import asyncio
+    import base64
     import http.client
     import threading
     from concurrent.futures import ThreadPoolExecutor
-
-    from qwen3_asr_swift_tpu_torch.audio import wav_bytes
 
     loop = asyncio.new_event_loop()
     thread = threading.Thread(target=loop.run_forever, daemon=True)
@@ -908,13 +939,15 @@ def serve_requests(server, n_clips: int):
         asyncio.run_coroutine_threadsafe(server.start(), loop).result(timeout=30)
         port = server._server.sockets[0].getsockname()[1]
         rng = np.random.default_rng(3)
-        bodies = [wav_bytes((0.1 * rng.standard_normal(8 * 16000)).astype(np.float32), 16000)
-                  for _ in range(n_clips)]
+        clips = [np.clip(0.1 * rng.standard_normal(8 * 16000), -1, 1) for _ in range(n_clips)]
+        bodies = [json.dumps({"audio_base64": base64.b64encode(
+            (c * 32767).astype("<i2").tobytes()).decode(), "sample_rate": 16000,
+            "max_tokens": max_tokens}).encode() for c in clips]
 
         def request(method, path, body=None):
             conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
             try:
-                headers = {"Content-Type": "audio/wav"} if body is not None else {}
+                headers = {"Content-Type": "application/json"} if body is not None else {}
                 conn.request(method, path, body=body, headers=headers)
                 resp = conn.getresponse()
                 return resp.status, json.loads(resp.read())
@@ -942,22 +975,24 @@ def serve_requests(server, n_clips: int):
 
 
 def phase_serve(model):
-    from qwen3_asr_swift_tpu_torch.serving import SlotPoolASR, SpeechServer, build_registry
+    """The model behind ``SpeechServer`` under each scheduler, with the
+    batchers the server builds itself; each request carries a decode budget
+    of ``SERVE_TOKENS`` (the depth of this path is cut: random weights
+    decode to the budget, and the default 448 took 86-134 s of the run)."""
+    from qwen3_asr_swift_tpu_torch.serving import (ContinuousBatcher, SlotPoolASR, SpeechServer,
+                                                   build_registry)
 
-    server = SpeechServer(build_registry(model), port=0)
-    port, answers, wall = serve_requests(server, 4)
-    log(f"serve: 4 x POST /transcribe (8 s WAV) + GET /health on port {port}: "
-        f"statuses {[a[0] for a in answers]} in {wall:.1f} s; health {json.dumps(answers[4][1])}")
-
-    server = SpeechServer(build_registry(model), port=0, scheduler="slotpool", max_batch=4)
-    port, answers, wall = serve_requests(server, 4)
-    batcher = server._batcher_for(model)
-    served = batcher.stats["requests_served"] if isinstance(batcher, SlotPoolASR) else None
-    log(f"serve (slotpool): 4 x POST /transcribe (8 s WAV) + GET /health on port {port}: "
-        f"statuses {[a[0] for a in answers]} in {wall:.1f} s; pool served {served}, "
-        f"stats {json.dumps(batcher.stats)}")
-    if not isinstance(batcher, SlotPoolASR) or served < 4:
-        raise AssertionError(f"slotpool server: batcher {type(batcher).__name__}, served {served}")
+    for scheduler, kind in (("group", ContinuousBatcher), ("slotpool", SlotPoolASR)):
+        server = SpeechServer(build_registry(model), port=0, scheduler=scheduler, max_batch=4)
+        port, answers, wall = serve_requests(server, 4, SERVE_TOKENS)
+        batcher = server._batcher_for(model)
+        served = batcher.stats["requests_served"] if isinstance(batcher, kind) else None
+        log(f"serve ({scheduler}): 4 x POST /transcribe (8 s, {SERVE_TOKENS} tokens) + GET "
+            f"/health on port {port}: statuses {[a[0] for a in answers]} in {wall:.1f} s; "
+            f"{type(batcher).__name__} served {served}, stats {json.dumps(batcher.stats)}")
+        if not isinstance(batcher, kind) or served != 4:
+            raise AssertionError(f"{scheduler} server: batcher {type(batcher).__name__}, "
+                                 f"served {served}")
 
 
 # --------------------------------------------------------------------------- #
@@ -1368,6 +1403,625 @@ def phase_align(dev_name, power):
                              f"{words} vs {host_words}")
 
 
+# --------------------------------------------------------------------------- #
+# Qwen3-TTS: the frame loop at full width, /speak under both schedulers, the CLI
+
+TTS_TOL = 5e-2          # first frame's logits, relative L2, card vs host CPU (phase step's limit)
+TTS_FRAMES = 48         # 3.84 s of audio
+TTS_TEXT = "Hello from one card. This sentence is spoken by the port."
+# the profiled synthesis: the profiler's event tree takes ~4 s of host time
+# a frame to build (on the H100 machine's host), so few frames
+TTS_SPLIT_FRAMES = 4
+SPEAK_FRAMES = 16
+SPEAK_TEXTS = ("good morning", "the weather is fine today", "one two three four",
+               "speech on a graphics card")
+SPEAK_TOL = 5e-2        # pooled vs solo logits, relative L2 (phase step's limit)
+SPEAK_WAV_TOL = 1e-3    # pooled vs solo waveform, of max |solo|, where the codes are equal
+
+
+def tts_k1_launches(cfg, frames: int) -> int:
+    """K1's launches in one greedy ``synthesize`` of ``frames`` frames
+    (the first included) under ``quant_compute="fused"``, from the code:
+    the prompt's text projection (fc1 and fc2, for the text rows and for
+    the three special tokens), the talker prefill and each talker step (qkv,
+    o, gate_up and down a layer, and the codec head), and each frame's code
+    predictor chain (15 forwards of the input projection where the config
+    has one, and qkv, o, gate_up and down a layer). Every product of the
+    1.7B config packs; all have at most 256 rows."""
+    t, c = cfg.talker, cfg.code_predictor
+    talker = 4 * t.num_layers + 1
+    chain = (c.num_code_groups - 1) * (4 * c.num_layers + int(c.needs_projection))
+    return 2 * 2 + frames * (talker + chain)
+
+
+def tts_first_frame(model, text, code0=None):
+    """The first frame's code0 logits and the code predictor's first group
+    logits (fp32, host); the chain is fed ``code0`` when given, else the
+    greedy code0 of these logits."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.qwen3_tts.code_predictor import cp_prefill
+    from qwen3_asr_swift_tpu_torch.models.qwen3_tts.model import TTSSamplingConfig, sample_code0
+    from qwen3_asr_swift_tpu_torch.models.qwen3_tts.talker import (embed_codec,
+                                                                   make_talker_cache,
+                                                                   talker_prefill)
+
+    tcfg, dev = model.cfg.talker, model.device
+    with torch.inference_mode():
+        prefill, _, _, p_len, _, p_block, _ = model._build_prompt_fused(text, "english", None)
+        cache = make_talker_cache(tcfg, 1, p_block, model.dtype, device=dev)
+        valid = torch.arange(p_block, device=dev)[None] < p_len
+        logits, hidden, _ = talker_prefill(model.talker_params, tcfg, prefill, valid, cache)
+        if code0 is None:
+            ring = torch.full((1, 64), -1, dtype=torch.int64, device=dev)
+            code0 = int(sample_code0(logits[:, p_len - 1], ring,
+                                     TTSSamplingConfig(temperature=0.0, top_k=0), None)[0])
+        cp0, _, _ = cp_prefill(model.cp_params, model.cfg.code_predictor, hidden[:, p_len - 1],
+                               embed_codec(model.talker_params,
+                                           torch.tensor([code0], device=dev)))
+    return logits[0, p_len - 1].float().cpu(), cp0[0].float().cpu(), code0
+
+
+def tree_to(tree, device):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def range_device_ms(run, prefix: str):
+    """Run ``run()`` once under the profiler. Each kernel's device time goes
+    to the ``record_function`` range (named ``prefix...``) whose span on the
+    device holds the kernel's start, else to "other". Returns ({range: device
+    ms}, {range: kernels}, {kernel name: device µs}, wall s)."""
+    import bisect
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, kernels = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name.startswith(prefix):   # the range's own span on the device timeline
+            spans.append((e.time_range.start, e.time_range.end, e.name[len(prefix):]))
+        else:
+            kernels.append(e)
+    spans.sort()
+    starts = [sp[0] for sp in spans]
+    ms, count, by_kernel = {}, {}, {}
+    for k in kernels:
+        us = k.time_range.elapsed_us()
+        by_kernel[k.name] = by_kernel.get(k.name, 0.0) + us
+        i = bisect.bisect_right(starts, k.time_range.start) - 1
+        name = spans[i][2] if i >= 0 and k.time_range.start < spans[i][1] else "other"
+        ms[name] = ms.get(name, 0.0) + us / 1e3
+        count[name] = count.get(name, 0) + 1
+    return ms, count, by_kernel, wall
+
+
+def tts_split(model, text, sampling):
+    """One ``synthesize`` under the profiler with the talker prefill, the
+    talker steps, the code predictor chains and the codec decode in ranges
+    of their own: ({range: device ms}, {kernel: device µs}, wall s, frames
+    run, frames decoded)."""
+    from torch.profiler import record_function
+
+    from qwen3_asr_swift_tpu_torch.models.qwen3_tts import model as model_mod
+
+    def ranged(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    saved = {k: getattr(model_mod, k) for k in ("talker_prefill", "talker_step",
+                                                 "predict_codebooks")}
+    for k, fn in saved.items():
+        setattr(model_mod, k, ranged(f"tts.{k}", fn))
+    decoded = []
+    decode = ranged("tts.codec", model.codec.decode_frames)
+    model.codec.decode_frames = lambda codes, n: decoded.append(n) or decode(codes, n)
+    try:
+        ms, _, kernels, wall = range_device_ms(lambda: model.synthesize(text, sampling=sampling),
+                                               "tts.")
+    finally:
+        for k, fn in saved.items():
+            setattr(model_mod, k, fn)
+        del model.codec.decode_frames
+    return ms, kernels, wall, model.last_loop["frames_run"], decoded[0]
+
+
+#: K1's products on the 1.7B frame loop: (name, in, out, calls a frame)
+TTS_K1_SHAPES = [("talker qkv", 2048, 4096, 28), ("talker o", 2048, 2048, 28),
+                 ("talker gate_up", 2048, 12288, 28), ("talker down", 6144, 2048, 28),
+                 ("codec head", 2048, 3072, 1), ("cp proj", 2048, 1024, 15),
+                 ("cp qkv", 1024, 4096, 75), ("cp o", 2048, 1024, 75),
+                 ("cp gate_up", 1024, 6144, 75), ("cp down", 3072, 1024, 75)]
+
+
+def tts_k1_frame(dev, iters: int = 20):
+    """K1 at the frame loop's shapes (rows 1, bf16 x, 4-bit group 64, as a
+    solo synthesis gives them) against its plain version, and the device
+    time a call of K1, of the plain version and of the ``torch.mm``
+    yardstick, operands cycled so they are cold in L2, from one profiler
+    window; with the bound, summed over a frame's calls. A shape whose
+    window shows no kernel of a call is "not measured" (None)."""
+    import torch
+    from torch.profiler import record_function
+
+    from qwen3_asr_swift_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    cases, worst = [], 0.0
+    for name, d_in, d_out, per_frame in TTS_K1_SHAPES:
+        def make():
+            p = {"codes": torch.randint(-2**31, 2**31 - 1, (d_out, d_in // 8), generator=g,
+                                        device=dev, dtype=torch.int32),
+                 "scales": torch.rand((d_out, d_in // 64), generator=g, device=dev) * 0.02,
+                 "biases": (torch.rand((d_out, d_in // 64), generator=g, device=dev) - 0.5) * 0.2}
+            return torch.randn((1, d_in), generator=g, device=dev).to(torch.bfloat16), p
+
+        w_bytes = d_out * (d_in // 2 + 2 * 4 * d_in // 64)
+        sets = input_sets(make, w_bytes)
+        err, rel = rel_err(quant.quant_matmul_cuda(*sets[0]), quant.quant_matmul(*sets[0]))
+        if not rel <= K1_TOL:
+            raise AssertionError(f"K1 tts {name}: rel error {rel} > {K1_TOL}")
+        worst = max(worst, err)
+        lib = [k1_library(*st)[1] for st in sets[:4]]
+        cases.append((name, d_in, d_out, per_frame, sets, lib, w_bytes))
+
+    def run(prefix):
+        for name, _, _, _, sets, lib, _ in cases:
+            for label, fn, args in (("k1", quant.quant_matmul_cuda, sets),
+                                    ("plain", quant.quant_matmul, sets), ("lib", torch.mm, lib)):
+                with record_function(f"{prefix}{label}.{name}"):
+                    for i in range(iters):
+                        fn(*args[i % len(args)])
+
+    run("warm.")
+    torch.cuda.synchronize()
+    # a first pass inside the window too: the profiler has dropped the
+    # first events of a window (the first range has come back short)
+    ms, count, _, _ = range_device_ms(lambda: (run("warm."), run("k1f.")), "k1f.")
+    frame = {"device_ms": 0.0, "plain_device_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for name, d_in, d_out, per_frame, _, _, w_bytes in cases:
+        b_ms, _ = bound(w_bytes + 2 * d_in + 4 * d_out, 2 * d_out * d_in, K1_PEAK["bfloat16"])
+        got = {label: (ms[f"{label}.{name}"] / iters if count.get(f"{label}.{name}", 0) >= iters
+                       else None) for label in ("k1", "plain", "lib")}
+        log(f"K1 tts {name:14s} rows=1 in={d_in:4d} out={d_out:5d} x=bfloat16 calls/frame="
+            f"{per_frame:2d} device: kernel_ms={got['k1']} plain_ms={got['plain']} "
+            f"library_ms={got['lib']} bound_ms={b_ms:.4f} (bytes)")
+        for key, label in (("device_ms", "k1"), ("plain_device_ms", "plain"),
+                           ("library_ms", "lib")):
+            frame[key] = None if got[label] is None or frame[key] is None else \
+                frame[key] + per_frame * got[label]
+        frame["bound_ms"] += per_frame * b_ms
+    log(f"K1 tts per frame (1.7B, rows 1, bf16 x; profiler): device kernel_ms "
+        f"{frame['device_ms']} plain_ms {frame['plain_device_ms']} library_ms "
+        f"{frame['library_ms']} bound_ms {frame['bound_ms']:.4f}")
+    return dict(frame, max_abs_err=worst, bound_by="bytes")
+
+
+def phase_tts(dev, k1_counter, dev_name, power):
+    """Qwen3-TTS at the published 1.7B widths (random, seed 0; talker and
+    code predictor packed 4-bit group 64 on the card): the first frame's
+    logits card vs host CPU (fp32 both), then a greedy synthesis of
+    ``TTS_FRAMES`` frames in bf16 under ``quant_compute="fused"`` (K1's
+    launches must equal ``tts_k1_launches``) and ``"groupdot"`` (no K1).
+    Returns (the bf16 fused model, K1's launches under fused, K1's frame
+    timing)."""
+    import dataclasses
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.qwen3_tts import CONFIG_17B, Qwen3TTS, TTSSamplingConfig
+    from qwen3_asr_swift_tpu_torch.models.qwen3_tts.code_predictor import init_cp_params
+    from qwen3_asr_swift_tpu_torch.models.qwen3_tts.codec import init_codec_params
+    from qwen3_asr_swift_tpu_torch.models.qwen3_tts.talker import init_talker_params
+
+    cfg = CONFIG_17B
+    _, tok = byte_tokenizer()
+    k1_frame = tts_k1_frame(dev)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    weights = (init_talker_params(rng, cfg.talker), init_cp_params(rng, cfg.code_predictor),
+               init_codec_params(rng, cfg.codec))
+    log(f"tts weights: CONFIG_17B (talker 2048 x 28, CP 1024 x 5, codec decoder), random "
+        f"seed 0 ({time.perf_counter() - t0:.1f} s on the host)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    ref32 = Qwen3TTS(cfg, *weights, device=dev, dtype=torch.float32, tokenizer=tok,
+                     quant_bits=4, quant_compute="fused")
+    torch.cuda.synchronize()
+    log(f"tts: packed 4-bit group 64 on the card in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # the host takes the card's packed trees (packing 1.7B on the host would
+    # take a minute); already fused, they pass through the constructor
+    host = Qwen3TTS(cfg, tree_to(ref32.talker_params, "cpu"), tree_to(ref32.cp_params, "cpu"),
+                    tree_to(ref32.codec.params, "cpu"), device="cpu", dtype=torch.float32,
+                    tokenizer=tok, quant_compute="fused")
+    h_code, h_cp, code0 = tts_first_frame(host, TTS_TEXT)
+    del host
+    log(f"tts first frame on the host CPU: {time.perf_counter() - t0:.1f} s")
+    c_code, c_cp, c_code0 = tts_first_frame(ref32, TTS_TEXT, code0)
+    rels = [(torch.linalg.vector_norm(c - h) / torch.linalg.vector_norm(h)).item()
+            for c, h in ((c_code, h_code), (c_cp, h_cp))]
+    log(f"tts first frame, card vs host (fp32): code0 logits rel L2 {rels[0]:.3e}, CP group-0 "
+        f"logits rel L2 {rels[1]:.3e} (tol {TTS_TOL:g}); greedy code0 host {code0} card "
+        f"{c_code0}")
+    if not max(rels) <= TTS_TOL:
+        raise AssertionError(f"tts first-frame logits rel L2 {rels} > {TTS_TOL}")
+
+    del ref32
+    fused, groupdot = (Qwen3TTS(cfg, *weights, device=dev, dtype=torch.bfloat16, tokenizer=tok,
+                                quant_bits=4, quant_compute=qc) for qc in ("fused", "groupdot"))
+    del weights
+    sampling = TTSSamplingConfig(temperature=0.0, top_k=0, max_frames=TTS_FRAMES)
+    fused_launches = None
+    for label, m in (("fused", fused), ("groupdot", groupdot)):
+        m.synthesize("warm up", sampling=dataclasses.replace(sampling, max_frames=4))
+        seen = []
+        decode = m.codec.decode_frames
+        m.codec.decode_frames = lambda codes, n: seen.append(n) or decode(codes, n)
+        torch.cuda.synchronize()
+        k1_counter.reset()
+        t0 = time.perf_counter()
+        out = m.synthesize(TTS_TEXT, sampling=sampling)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = k1_counter.value
+        del m.codec.decode_frames
+        frames_run, (n,) = m.last_loop["frames_run"], seen
+        want = tts_k1_launches(cfg, frames_run) if label == "fused" else 0
+        audio_s = len(out.samples) / out.sample_rate
+        log(f"tts {label}: {n} frames ({frames_run} run, {m.last_loop['done_reads']} host reads "
+            f"of done), {audio_s:.2f} s of audio in {wall:.3f} s: {frames_run / wall:.1f} "
+            f"frames/s, RTF {wall / audio_s:.3f} on {dev_name} ({power}); K1 launches "
+            f"{launches}, from the code {want}")
+        if len(out.samples) != n * 1920 or not np.isfinite(out.samples).all() or n == 0:
+            raise AssertionError(f"tts {label}: {len(out.samples)} samples for {n} frames, "
+                                 f"finite {np.isfinite(out.samples).all()}")
+        if launches != want:
+            raise AssertionError(f"tts {label}: K1 launched {launches} times, the code says "
+                                 f"{want}")
+        if label == "fused":
+            fused_launches = launches
+        ranges, kernels, prof_wall, run_f, dec_n = tts_split(
+            m, TTS_TEXT, dataclasses.replace(sampling, max_frames=TTS_SPLIT_FRAMES))
+        busy = sum(kernels.values()) / 1e3
+        k1_ms = sum(v for k, v in kernels.items()
+                    if "::quant_matmul_kernel<" in k or "::split_sum(" in k) / 1e3
+        log(f"tts {label} under the profiler ({run_f} frames): wall {prof_wall:.3f} s, device "
+            f"busy {busy:.2f} ms (idle {100 * (1 - busy / 1e3 / prof_wall):.1f} %); device ms a "
+            f"frame: talker step {ranges.get('talker_step', 0.0) / max(run_f - 1, 1):.3f}, CP "
+            f"chain {ranges.get('predict_codebooks', 0.0) / run_f:.3f}, codec "
+            f"{ranges.get('codec', 0.0) / dec_n:.3f}, all {busy / run_f:.3f}; talker prefill "
+            f"{ranges.get('talker_prefill', 0.0):.3f} ms once, outside the ranges "
+            f"{ranges.get('other', 0.0):.3f} ms; K1 {k1_ms / run_f:.3f} ms a frame; wall a frame "
+            f"{1e3 * wall / frames_run:.1f} ms unprofiled; on {dev_name} ({power})")
+        for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"  device {us / 1e3:9.2f} ms  {name[:100]}")
+    del groupdot
+    return fused, fused_launches, k1_frame
+
+
+class LogitLog:
+    """The logits each frame's samplers saw, per thread: a record starts at
+    a frame's code0 sampling and collects that frame's 15 CP group logits."""
+
+    def __init__(self):
+        import threading
+
+        self.tls = threading.local()
+        self.frames = []
+
+    def start(self, logits, **meta):
+        rec = dict(meta, code0=logits.float().cpu().clone(), cp=[])
+        self.frames.append(rec)
+        self.tls.cur = rec
+
+    def cp(self, logits):
+        cur = getattr(self.tls, "cur", None)
+        if cur is not None:
+            cur["cp"].append(logits.float().cpu().clone())
+
+
+def first_parting(solo_codes, pool_codes):
+    """(frame, group) of the first code where two [n, 16] code lists part, or None."""
+    for f in range(min(len(solo_codes), len(pool_codes))):
+        for g in range(16):
+            if solo_codes[f][g] != pool_codes[f][g]:
+                return f, g
+    if len(solo_codes) != len(pool_codes):
+        return min(len(solo_codes), len(pool_codes)), 0
+    return None
+
+
+def phase_speak(asr, tts, dev_name, power):
+    """``SpeechServer`` with ``asr`` and ``tts`` registered, the model's
+    default sampling set to greedy with a ``SPEAK_FRAMES`` cap (a /speak
+    body carries no sampling; the server's batchers use the model's): four
+    concurrent ``POST /speak`` under the group scheduler (``TTSBatcher``)
+    and under the slot pool (``SlotPoolTTS``), each batcher the one the
+    server builds, each answer a 24 kHz WAV. Each pooled synthesis is held
+    against the solo ``synthesize`` of its text: every logit vector the
+    pool's samplers saw up to the first code where the two part (all of
+    them where none does) within ``SPEAK_TOL`` relative L2 of the solo
+    path's, and the codes identical or parting at a near-tie (the solo
+    path's margin between its code and the pool's within twice the largest
+    logit gap there). ``/speak`` with no text → 400; a server with no
+    ``tts`` → 503."""
+    import asyncio
+    import http.client
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from qwen3_asr_swift_tpu_torch.audio.io import read_wav, wav_bytes
+    from qwen3_asr_swift_tpu_torch.models.qwen3_tts import TTSSamplingConfig
+    from qwen3_asr_swift_tpu_torch.models.qwen3_tts import code_predictor as cp_mod
+    from qwen3_asr_swift_tpu_torch.models.qwen3_tts import model as model_mod
+    from qwen3_asr_swift_tpu_torch.serving import (SlotPoolTTS, SpeechServer, TTSBatcher,
+                                                   build_registry)
+    from qwen3_asr_swift_tpu_torch.serving import ttspool as pool_mod
+    import torch
+
+    greedy = TTSSamplingConfig(temperature=0.0, top_k=0, max_frames=SPEAK_FRAMES)
+
+    def serve(server, bodies):
+        loop = asyncio.new_event_loop()
+        thread = threading.Thread(target=loop.run_forever, daemon=True)
+        thread.start()
+        try:
+            asyncio.run_coroutine_threadsafe(server.start(), loop).result(timeout=30)
+            port = server._server.sockets[0].getsockname()[1]
+
+            def ask(body):
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+                try:
+                    conn.request("POST", "/speak", body=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    return resp.status, resp.getheader("Content-Type", ""), resp.read()
+                finally:
+                    conn.close()
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=len(bodies)) as ex:
+                answers = list(ex.map(ask, bodies))
+            return answers, time.perf_counter() - t0
+        finally:
+            asyncio.run_coroutine_threadsafe(server.stop(), loop).result(timeout=120)
+            loop.call_soon_threadsafe(loop.stop)
+            thread.join(timeout=30)
+            loop.close()
+
+    def check_wavs(label, answers):
+        wavs = []
+        for status, ctype, body in answers:
+            if status != 200 or not ctype.startswith("audio/wav"):
+                raise AssertionError(f"speak ({label}): /speak answered {status} {body[:200]}")
+            audio, rate = read_wav(body)
+            if rate != 24000 or len(audio) == 0 or len(audio) % 1920:
+                raise AssertionError(f"speak ({label}): {len(audio)} samples at {rate} Hz")
+            wavs.append(audio)
+        return wavs
+
+    # the solo reference of each text, with the logits its samplers saw
+    log_ = LogitLog()
+    saved = (model_mod.sample_code0, cp_mod.sample_token, pool_mod.sample_code0)
+
+    def solo_code0(logits, ring, sampling, gen):
+        log_.start(logits, kind=getattr(log_.tls, "kind", "solo"),
+                   text=getattr(log_.tls, "text", None))
+        return saved[0](logits, ring, sampling, gen)
+
+    def cp_token(logits, opts, gen=None, *a, **kw):
+        log_.cp(logits)
+        return saved[1](logits, opts, gen, *a, **kw)
+
+    model_mod.sample_code0, cp_mod.sample_token = solo_code0, cp_token
+    default_sampling, tts.sampling = tts.sampling, greedy
+    solo = {}
+    try:
+        decode = tts.codec.decode_frames
+        for text in SPEAK_TEXTS:
+            log_.tls.text = text
+            seen = []
+            tts.codec.decode_frames = lambda codes, n: seen.append(
+                codes[0, :n].cpu().numpy()) or decode(codes, n)
+            try:
+                wav = tts.synthesize(text, sampling=greedy).samples
+            finally:
+                del tts.codec.decode_frames
+            solo[text] = (seen[0] if seen else np.zeros((0, 16), np.int64), wav)
+        # per text, frame f's samplers are record f
+        solo_logs = {t: [r for r in log_.frames if r["text"] == t] for t in SPEAK_TEXTS}
+        log_.frames = []
+        log_.tls.text = None
+
+        registry = build_registry(asr, tts=tts)
+        group = SpeechServer(registry, port=0, max_batch=4)
+        answers, wall = serve(group, [{"text": t} for t in SPEAK_TEXTS])
+        check_wavs("group", answers)
+        batcher = group._tts_batcher_for(tts)
+        log(f"speak (group): 4 x POST /speak, {SPEAK_FRAMES}-frame cap: statuses "
+            f"{[a[0] for a in answers]} in {wall:.2f} s on {dev_name} ({power}); "
+            f"{type(batcher).__name__} {json.dumps(batcher.stats)}")
+        if not isinstance(batcher, TTSBatcher) or batcher.stats["requests_served"] != 4:
+            raise AssertionError(f"speak (group): batcher {type(batcher).__name__} "
+                                 f"{batcher.stats}")
+
+        pool_codes = {}
+        slot = SpeechServer(registry, port=0, scheduler="slotpool", max_batch=4)
+        pool = slot._tts_batcher_for(tts)    # built by the server, as a request would
+        if not (isinstance(pool, SlotPoolTTS) and pool.slots == 4 and pool.sampling == greedy
+                and pool.oversize == "fallback"):
+            raise AssertionError(f"speak (slotpool): the server built {type(pool).__name__} "
+                                 f"{getattr(pool, 'slots', None)} slots, sampling "
+                                 f"{getattr(pool, 'sampling', None)}")
+        texts_of = {}
+        admit, retire = pool._admit_one, pool._retire
+
+        def admit_one(req):
+            texts_of[id(req.fut)] = req.text
+            log_.tls.kind, log_.tls.text = "first", req.text
+            return admit(req)
+
+        def retire_(s):
+            live = pool._live[s]
+            pool_codes[texts_of[id(live.fut)]] = np.stack(live.frames) if live.frames else \
+                np.zeros((0, 16), np.int64)
+            return retire(s)
+
+        def tick_code0(logits, ring, sampling, gen):
+            owners = {s: texts_of[id(lv.fut)] for s, lv in pool._live.items()}
+            log_.start(logits, kind="tick", steps=pool._state.step.cpu().numpy().copy(),
+                       owners=owners,
+                       live=(pool._state.active & ~pool._state.done).cpu().numpy())
+            return saved[2](logits, ring, sampling, gen)
+
+        pool._admit_one, pool._retire, pool_mod.sample_code0 = admit_one, retire_, tick_code0
+        answers, wall = serve(slot, [{"text": t} for t in SPEAK_TEXTS])
+        wavs = check_wavs("slotpool", answers)
+        log(f"speak (slotpool): 4 x POST /speak: statuses {[a[0] for a in answers]} in "
+            f"{wall:.2f} s; {type(pool).__name__} {json.dumps(pool.stats)}")
+        if pool.stats["requests_served"] != 4:
+            raise AssertionError(f"speak (slotpool): the pool served {pool.stats}")
+    finally:
+        model_mod.sample_code0, cp_mod.sample_token, pool_mod.sample_code0 = saved
+        tts.sampling = default_sampling
+
+    def pool_record(text, f):
+        """The pool's sampler record of frame ``f`` of ``text``, and its row."""
+        if f == 0:
+            return next(r for r in log_.frames if r["kind"] == "first" and r["text"] == text), 0
+        return next((r, s) for r in log_.frames if r["kind"] == "tick"
+                    for s, owner in r["owners"].items()
+                    if owner == text and r["live"][s] and r["steps"][s] == f)
+
+    def logits_of(rec, row, g):
+        return rec["code0"][row] if g == 0 else rec["cp"][g - 1][row]
+
+    def worst_gap(text, upto):
+        """The largest relative L2 between the pool's and the solo path's
+        logits over the (frame, group) pairs before ``upto``, inclusive."""
+        worst = 0.0
+        for f in range(upto[0] + 1):
+            (prec, row), srec = pool_record(text, f), solo_logs[text][f]
+            for g in range(16 if f < upto[0] else upto[1] + 1):
+                ls, lp = logits_of(srec, 0, g), logits_of(prec, row, g)
+                worst = max(worst, (torch.linalg.vector_norm(lp - ls)
+                                    / torch.linalg.vector_norm(ls)).item())
+        return worst
+
+    for text, wav in zip(SPEAK_TEXTS, wavs):
+        want_codes, want_wav = solo[text]
+        got = pool_codes[text]
+        part = first_parting(want_codes, got)
+        worst = worst_gap(text, part or (len(got) - 1, 15))
+        if part is None:
+            err = np.abs(wav - read_wav(wav_bytes(want_wav, 24000))[0]).max()
+            rel = err / max(np.abs(want_wav).max(), 1e-30)
+            log(f"speak: {text!r}: pooled codes equal the solo path's ({len(got)} frames); "
+                f"logits rel L2 at most {worst:.3e} (tol {SPEAK_TOL:g}); waveform max diff "
+                f"{err:.3e} ({rel:.3e} of max |solo|, tol {SPEAK_WAV_TOL:g})")
+            if not (rel <= SPEAK_WAV_TOL and worst <= SPEAK_TOL):
+                raise AssertionError(f"speak: {text!r}: pooled waveform {rel} from the solo one, "
+                                     f"logits rel L2 {worst}")
+            continue
+        f, g = part
+        (pool_rec, row), solo_rec = pool_record(text, f), solo_logs[text][f]
+        ls, lp = logits_of(solo_rec, 0, g), logits_of(pool_rec, row, g)
+        a = int(want_codes[f][g]) if f < len(want_codes) else 2150
+        b = int(got[f][g]) if f < len(got) else 2150
+        margin = (ls[a] - ls[b]).item()
+        gap = (ls - lp).abs().max().item()
+        log(f"speak: {text!r}: pooled codes part from the solo path's at frame {f}, group {g}: "
+            f"solo {a}, pool {b}; solo margin {margin:.6g}, largest logit gap {gap:.6g} "
+            f"(near-tie if margin <= 2 x gap); logits rel L2 up to there at most {worst:.3e} "
+            f"(tol {SPEAK_TOL:g})")
+        if not (margin <= 2 * gap and worst <= SPEAK_TOL):
+            raise AssertionError(f"speak: {text!r} parts at frame {f} group {g} with margin "
+                                 f"{margin} (2 x gap {2 * gap}), logits rel L2 {worst}")
+
+    (status, _, body), = serve(SpeechServer(build_registry(asr, tts=tts), port=0),
+                               [{"text": ""}])[0]
+    (status503, _, body503), = serve(SpeechServer(build_registry(asr), port=0),
+                                     [{"text": "hello"}])[0]
+    log(f"speak: no text -> {status} {body.decode()}; no tts registered -> {status503} "
+        f"{body503.decode()}")
+    if status != 400 or status503 != 503:
+        raise AssertionError(f"speak: no text {status}, no tts {status503}")
+
+
+def phase_cli(dev_name):
+    """``python -m qwen3_asr_swift_tpu_torch.cli`` on the card (its default
+    device) with ``--random-weights``: transcribe, transcribe-batch, align,
+    vad, vad-stream and speak, one process each, all started together; each
+    must exit 0 and print the reference's JSON keys (vad-stream: its event
+    lines)."""
+    import tempfile
+
+    from qwen3_asr_swift_tpu_torch.audio.io import write_wav
+
+    keys = {"transcribe": {"text", "confidence", "duration", "rtf"},
+            "transcribe-batch": {"file", "text", "confidence"},
+            "align": {"word", "start", "end"}, "vad": {"start", "end"},
+            "speak": {"output", "seconds"}}
+    with tempfile.TemporaryDirectory() as d:
+        rng = np.random.default_rng(4)
+        t = np.arange(3 * 16000) / 16000
+        clip = os.path.join(d, "clip.wav")
+        write_wav(clip, (0.3 * np.sin(2 * np.pi * 220 * t) * (t > 1)
+                         + 0.01 * rng.standard_normal(len(t))).astype(np.float32), 16000)
+        runs = {"transcribe": [clip, "--max-tokens", "8"],
+                "transcribe-batch": [clip, clip, "--max-tokens", "8"],
+                "align": [clip, "hello big world"], "vad": [clip], "vad-stream": [clip],
+                "speak": ["hello", "--output", os.path.join(d, "out.wav")]}
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", "qwen3_asr_swift_tpu_torch.cli", name, "--random-weights",
+             *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+            for name, args in runs.items()}
+        outs = {}
+        try:
+            for name, p in procs.items():
+                outs[name] = p.communicate(timeout=300)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for name, p in procs.items():
+            out, err = outs[name]
+            if p.returncode != 0:
+                raise AssertionError(f"cli {name}: exit {p.returncode}: {err[-2000:]}")
+            if name == "vad-stream":
+                got = {line.split()[-1] for line in out.splitlines()}
+                if not got <= {"speech_started", "speech_ended"}:
+                    raise AssertionError(f"cli vad-stream printed {out[:500]}")
+                log(f"cli {name}: exit 0, {len(out.splitlines())} event lines")
+                continue
+            obj = json.loads(out)
+            items = obj if isinstance(obj, list) else [obj]
+            if any(set(i) != keys[name] for i in items) or (name != "vad" and not items):
+                raise AssertionError(f"cli {name}: keys {[sorted(i) for i in items]}")
+            log(f"cli {name}: exit 0, keys {sorted(keys[name])}: {out.strip()[:160]!r}")
+        log(f"cli: {len(procs)} subcommands on {dev_name} in {wall:.1f} s (in parallel)")
+
+
 def main() -> int:
     import torch
 
@@ -1397,7 +2051,13 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
+    t_run = time.perf_counter()
+
+    def mark(name):
+        log(f"phase {name} done, {time.perf_counter() - t_run:.1f} s into the run")
+
     k1, k2, k3 = phase_k1(dev), phase_k2(dev), phase_k3(dev)
+    mark("k1-k3")
     weights = make_weights()
     phase_step(weights)
     model = build_model(*weights, "cuda", torch.bfloat16)
@@ -1406,15 +2066,25 @@ def main() -> int:
                               power)
     k1["launches"] = launches["quant_matmul_cuda"]
     k3["launches"] = launches["decode_attention_int8"]
+    mark("slice")
     k2["launches"] = phase_pool(model, (K1_LAUNCHES, K2_LAUNCHES), dev_name,
                                 power)["quant_matmul_plane_cuda"]
     phase_beam_sampling(model, (K1_LAUNCHES, K3_LAUNCHES))
     phase_serve(model)
+    mark("pool, beam, serve")
     phase_load(weights, dev_name, power)
     phase_groupdot(weights, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
     vad, stream = phase_vad(dev_name, power)
     phase_stream(model, vad, stream, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
     phase_align(dev_name, power)
+    mark("load, groupdot, vad, stream, align")
+    tts, k1["launches_tts"], k1["tts_frame"] = phase_tts(dev, K1_LAUNCHES, dev_name, power)
+    mark("tts")
+    phase_speak(model, tts, dev_name, power)
+    del tts
+    mark("speak")
+    phase_cli(dev_name)
+    mark("cli")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     ref = [m for m in sys.modules if m == "qwen3_asr_swift_tpu" or m.startswith("qwen3_asr_swift_tpu.")]

@@ -1,17 +1,17 @@
 """The port's copy of the capability interfaces it implements, from
 ``qwen3_asr_swift_tpu/core/protocols.py``: ``SpeechRecognitionModel``,
-``VoiceActivityDetectionModel``, ``StreamingVADProvider`` and
-``ForcedAlignmentModel``.
+``SpeechGenerationModel``, ``VoiceActivityDetectionModel``,
+``StreamingVADProvider`` and ``ForcedAlignmentModel``.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Any, Optional, Sequence
+from typing import Any, Iterator, Optional, Sequence
 
 import numpy as np
 
-from .types import AlignedWord, ModelMemoryStats, SpeechSegment, TranscriptionResult
+from .types import AlignedWord, AudioChunk, ModelMemoryStats, SpeechSegment, TranscriptionResult
 
 
 class SpeechModel(abc.ABC):
@@ -55,6 +55,17 @@ class SpeechRecognitionModel(SpeechModel):
         **kwargs,
     ) -> TranscriptionResult:
         ...
+
+
+class SpeechGenerationModel(SpeechModel):
+    """TTS (reference: SpeechGenerationModel)."""
+
+    @abc.abstractmethod
+    def synthesize(self, text: str, voice: Optional[str] = None, **kwargs) -> AudioChunk:
+        ...
+
+    def synthesize_stream(self, text: str, voice: Optional[str] = None, **kwargs) -> Iterator[AudioChunk]:
+        yield self.synthesize(text, voice=voice, **kwargs)
 
 
 class VoiceActivityDetectionModel(SpeechModel):

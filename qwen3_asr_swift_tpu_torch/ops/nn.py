@@ -89,6 +89,20 @@ def fuse_linears(ps):
     return fused
 
 
+def split_linear(p, bounds):
+    """Exact inverse of :func:`fuse_linears`: split a linear at output-row
+    ``bounds`` (ascending offsets)."""
+    lo_hi = list(zip((0,) + tuple(bounds), tuple(bounds) + (None,)))
+    if "codes" in p:
+        parts = [{k: p[k][lo:hi] for k in ("codes", "scales", "biases")} for lo, hi in lo_hi]
+    else:
+        parts = [{"kernel": p["kernel"][:, lo:hi]} for lo, hi in lo_hi]
+    if "bias" in p:
+        for part, (lo, hi) in zip(parts, lo_hi):
+            part["bias"] = p["bias"][lo:hi]
+    return parts
+
+
 def fuse_qkv_gate_up(params) -> dict:
     """q/k/v → ``qkv_proj`` and gate/up → ``gate_up_proj`` in every layer."""
     out = dict(params)

@@ -332,6 +332,86 @@ def quant_embedding_lookup(p, ids: torch.Tensor, dim: int, dtype=torch.bfloat16)
     return (c * s + b).to(dtype)
 
 
+def quantize_mlx_tensor(w: torch.Tensor, bits: int, group_size: int = 64):
+    """The reference's ``core.weights.quantize_mlx`` on a tensor of any
+    device: w [out, in] → (codes int32 [out, in*bits/32] — the uint32 words
+    viewed —, scales fp32 [out, in/gs], biases fp32 [out, in/gs]). The same
+    fp32 operations in the same order (group max and min, ``(max-min)/levels``,
+    round half to even of ``(w-min)/scale``), so the codes are the numpy
+    function's bit for bit."""
+    out_dim, in_dim = w.shape
+    if in_dim % group_size:
+        raise ValueError(f"in_dim {in_dim} not divisible by group size {group_size}")
+    per_word = 32 // bits
+    levels = (1 << bits) - 1
+    grouped = w.float().reshape(out_dim, in_dim // group_size, group_size)
+    gmax, gmin = grouped.amax(dim=-1), grouped.amin(dim=-1)
+    scales = (gmax - gmin) / levels
+    scales = torch.where(scales == 0, torch.full_like(scales, 1e-8), scales)
+    codes = torch.clamp(torch.round((grouped - gmin[..., None]) / scales[..., None]), 0, levels)
+    codes = codes.reshape(out_dim, in_dim).to(torch.int64)
+    packed = torch.zeros((out_dim, in_dim // per_word), dtype=torch.int64, device=w.device)
+    for j in range(per_word):
+        packed |= codes[:, j::per_word] << (j * bits)
+    packed = torch.where(packed >= 1 << 31, packed - (1 << 32), packed).to(torch.int32)
+    return packed.contiguous(), scales.contiguous(), gmin.contiguous()
+
+
+def quantize_tree(params, bits: int, group_size: int = 64, embed_keys=("embed_tokens",),
+                  min_dim: int = 128):
+    """Pack every eligible linear of a tree of tensors into the MLX format,
+    on the tensors' device (the reference's ``quantize_tree``, which packs
+    on the host with numpy): ``{"kernel": [in, out]}`` dicts with in % group
+    == 0 and both dims >= ``min_dim``, and ``[vocab, dim]`` tables named in
+    ``embed_keys``. Norms, convs and small heads pass through."""
+
+    def pack(w_out_in):
+        codes, scales, biases = quantize_mlx_tensor(w_out_in, bits, group_size)
+        return {"codes": codes, "scales": scales, "biases": biases}
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            k = node.get("kernel")
+            if k is not None and k.dim() == 2:
+                d_in, d_out = k.shape
+                if d_in % group_size == 0 and d_in >= min_dim and d_out >= min_dim:
+                    q = pack(k.T)
+                    if "bias" in node:
+                        q["bias"] = node["bias"]
+                    return q
+                return node
+            return {k2: walk(v, k2) for k2, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, name) for v in node]
+        if (name in embed_keys and isinstance(node, torch.Tensor) and node.dim() == 2
+                and node.shape[1] % group_size == 0 and node.shape[1] >= min_dim):
+            return pack(node)
+        return node
+
+    return walk(params)
+
+
+def cast_tree(tree, dtype):
+    """Float leaves to ``dtype``; packed tensors keep their layout (codes
+    int32, group scales and biases fp32; group-dot codes int8), as the
+    reference's ``cast_tree``. Integer leaves are never cast."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "gcodes" in node or "codes" in node:
+                out = {k: v.float() if k in ("scales", "biases", "gscales", "gbiases") else v
+                       for k, v in node.items() if k != "bias"}
+                if "bias" in node:
+                    out["bias"] = node["bias"].to(dtype)
+                return out
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return node.to(dtype) if node.is_floating_point() else node
+
+    return walk(tree)
+
+
 def dequantize_tree(params, bits: int, group_size: int = 64, dtype=torch.bfloat16,
                     embed_keys=("embed_tokens",)):
     """Every packed tensor back to dense ``dtype`` (the reference's

@@ -1,5 +1,5 @@
-"""The port's copy of ``ContinuousBatcher`` from
-``qwen3_asr_swift_tpu/serving/batching.py`` (``TTSBatcher`` waits for a TTS family).
+"""The port's copies of ``ContinuousBatcher`` and ``TTSBatcher`` from
+``qwen3_asr_swift_tpu/serving/batching.py``.
 
 Continuous batching scheduler for ASR/TTS serving.
 
@@ -196,3 +196,119 @@ class ContinuousBatcher:
         if self.gate is not None:
             out["dispatch_gate"] = self.gate.stats
         return out
+
+
+@dataclasses.dataclass
+class _TTSRequest:
+    text: str
+    kwargs: dict
+    future: Future
+    enqueued_at: float
+
+
+class TTSBatcher:
+    """Groups concurrent synthesis requests into one batched talker/CP
+    program (models/qwen3_tts.synthesize_batch). Requests group by their
+    generation kwargs (voice/language/sampling) — mixed settings run in
+    separate batches.
+
+    ``workers`` > 1 runs several dispatcher threads: one slow synthesis
+    (a long text, a cold bucket compile) no longer blocks the whole TTS
+    queue — another worker picks up the next group while it runs, and the
+    device serializes the compute."""
+
+    def __init__(self, model, max_batch: int = 8, max_wait_ms: float = 30.0,
+                 workers: int = 2):
+        self.model = model
+        self.max_batch = max_batch
+        self.max_wait_s = max_wait_ms / 1000.0
+        self._queue: "queue.Queue[Optional[_TTSRequest]]" = queue.Queue()
+        self._stats_lock = threading.Lock()
+        self.requests_served = 0
+        self.batches_run = 0
+        self._stop = False
+        self._threads = [
+            threading.Thread(target=self._run, daemon=True, name=f"tts-batcher-{i}")
+            for i in range(max(1, workers))
+        ]
+        for t in self._threads:
+            t.start()
+
+    def submit(self, text: str, **kwargs) -> Future:
+        fut: Future = Future()
+        self._queue.put(_TTSRequest(text, kwargs, fut, time.perf_counter()))
+        return fut
+
+    def synthesize(self, text: str, timeout: float = 300.0, **kwargs):
+        return self.submit(text, **kwargs).result(timeout=timeout)
+
+    def shutdown(self):
+        self._stop = True
+        for _ in self._threads:
+            self._queue.put(None)
+        for t in self._threads:
+            t.join(timeout=5)
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if req is not None and not req.future.done():
+                req.future.set_exception(RuntimeError("batcher shut down"))
+
+    def _run(self):
+        while not self._stop:
+            try:
+                first = self._queue.get(timeout=0.2)
+            except queue.Empty:
+                continue
+            if first is None:
+                continue
+            batch = [first]
+            deadline = time.perf_counter() + self.max_wait_s
+            leftovers = []
+            while len(batch) < self.max_batch:
+                budget = deadline - time.perf_counter()
+                if budget <= 0:
+                    break
+                try:
+                    req = self._queue.get(timeout=budget)
+                except queue.Empty:
+                    break
+                if req is None:
+                    self._queue.put(None)  # re-queue another worker's sentinel
+                    break
+                if req.kwargs == first.kwargs:
+                    batch.append(req)
+                else:
+                    leftovers.append(req)
+            for req in leftovers:
+                self._queue.put(req)
+            try:
+                t0 = time.perf_counter()
+                if len(batch) > 1 and hasattr(self.model, "synthesize_batch"):
+                    results = self.model.synthesize_batch(
+                        [r.text for r in batch], **first.kwargs)
+                else:
+                    results = [self.model.synthesize(r.text, **r.kwargs) for r in batch]
+                with self._stats_lock:
+                    self.requests_served += len(batch)
+                    self.batches_run += 1
+                log.debug("tts batch of %d in %.0f ms", len(batch),
+                          (time.perf_counter() - t0) * 1e3)
+                for r, res in zip(batch, results):
+                    r.future.set_result(res)
+            except Exception as e:  # noqa: BLE001
+                log.exception("tts batch failed")
+                for r in batch:
+                    if not r.future.done():
+                        r.future.set_exception(e)
+
+    @property
+    def stats(self) -> dict:
+        with self._stats_lock:
+            return {
+                "requests_served": self.requests_served,
+                "batches_run": self.batches_run,
+                "mean_batch_size": self.requests_served / max(1, self.batches_run),
+            }

@@ -1,13 +1,17 @@
 """Speech serving over HTTP, stdlib asyncio — the port's copy of the ASR
-routes of ``qwen3_asr_swift_tpu/serving/server.py``.
+and TTS routes of ``qwen3_asr_swift_tpu/serving/server.py``.
 
-``GET /health`` and ``POST /transcribe`` with the reference's HTTP/1.1
-plumbing (keep-alive, chunked bodies, body and header limits, read
-timeouts). ASR requests flow through the :class:`ContinuousBatcher`
-(``scheduler="group"``) or the port's :class:`SlotPoolASR`
-(``scheduler="slotpool"``). The reference's ``/speak``, ``/respond``,
-``/enhance`` and ``/v1/realtime`` wait for a model family of the port that
-serves them; until then they answer 404 like any unknown route.
+``GET /health``, ``POST /transcribe`` and ``POST /speak`` with the
+reference's HTTP/1.1 plumbing (keep-alive, chunked bodies, body and header
+limits, read timeouts). ASR requests flow through the
+:class:`ContinuousBatcher` (``scheduler="group"``) or the port's
+:class:`SlotPoolASR` (``scheduler="slotpool"``); TTS requests through the
+:class:`TTSBatcher` or the port's :class:`SlotPoolTTS`, by the same switch.
+A JSON ``/transcribe`` body may carry ``max_tokens``, the request's decode
+budget (the reference's route has none; its ``/respond`` takes
+``max_steps`` so). The reference's ``/respond``, ``/enhance`` and
+``/v1/realtime`` wait for a model family of the port that serves them;
+until then they answer 404 like any unknown route.
 """
 
 from __future__ import annotations
@@ -20,10 +24,10 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
-from ..audio.io import read_wav
+from ..audio.io import read_wav, wav_bytes
 from ..core.logging import serving as log
 from ..core.types import to_float32
-from .batching import ContinuousBatcher
+from .batching import ContinuousBatcher, TTSBatcher
 from .slotpool import SlotPoolASR
 
 
@@ -71,7 +75,7 @@ class ModelRegistry:
 
 
 class SpeechServer:
-    """REST speech server: ``/health`` and ``/transcribe``."""
+    """REST speech server: ``/health``, ``/transcribe`` and ``/speak``."""
 
     MAX_HEADERS = 100
 
@@ -110,6 +114,7 @@ class SpeechServer:
         # lever bench.py uses for the loaded first-token number.
         self.bulk_nice = bulk_nice
         self._batchers: Dict[int, object] = {}
+        self._tts_batchers: Dict[int, object] = {}
         self._max_batch = max_batch
         self._server: Optional[asyncio.AbstractServer] = None
         self._started = time.time()
@@ -126,6 +131,21 @@ class SpeechServer:
                 self._batchers[key] = ContinuousBatcher(
                     model, max_batch=self._max_batch, bulk_nice=self.bulk_nice)
         return self._batchers[key]
+
+    def _tts_batcher_for(self, model):
+        key = id(model)
+        if key not in self._tts_batchers:
+            if self.scheduler == "slotpool":
+                # frame-level continuous batching: syntheses join the running
+                # talker batch at frame boundaries; oversize and clone prompts
+                # divert to the serial fallback
+                from .ttspool import SlotPoolTTS
+
+                self._tts_batchers[key] = SlotPoolTTS(
+                    model, slots=min(self._max_batch, 8), oversize="fallback")
+            else:
+                self._tts_batchers[key] = TTSBatcher(model, max_batch=self._max_batch)
+        return self._tts_batchers[key]
 
     # ------------------------------------------------------------------ #
     # HTTP plumbing
@@ -146,6 +166,8 @@ class SpeechServer:
             self._server.close()
             await self._server.wait_closed()
         for b in self._batchers.values():
+            b.shutdown()
+        for b in self._tts_batchers.values():
             b.shutdown()
 
     async def _read_chunked_body(self, reader) -> bytes:
@@ -299,6 +321,8 @@ class SpeechServer:
                 })
             elif method == "POST" and path == "/transcribe":
                 await self._handle_transcribe(headers, body, writer)
+            elif method == "POST" and path == "/speak":
+                await self._handle_speak(body, writer)
             else:
                 await self._respond(writer, 404, {"error": f"no route {method} {path}"})
         except _BadRequest as e:
@@ -342,6 +366,15 @@ class SpeechServer:
         kwargs = {}
         if payload.get("language"):
             kwargs["language"] = payload["language"]
+        if payload.get("max_tokens") is not None:
+            # the decode budget of this request (JSON body only), as /respond
+            # takes max_steps
+            try:
+                kwargs["max_tokens"] = int(payload["max_tokens"])
+            except (TypeError, ValueError) as e:
+                raise _BadRequest(f"invalid max_tokens: {e}") from e
+            if kwargs["max_tokens"] < 1:
+                raise _BadRequest("max_tokens must be at least 1")
         fut = batcher.submit(audio, sample_rate=rate, **kwargs)
         result = await loop.run_in_executor(None, fut.result)
         await self._respond(writer, 200, {
@@ -350,3 +383,33 @@ class SpeechServer:
             "duration": result.duration,
             "language": result.language,
         })
+
+    async def _handle_speak(self, body, writer):
+        """``engine`` selects the TTS model (the registry entry
+        ``tts:<engine>``, else the default ``tts``); ``voice`` and
+        ``language`` pass through. Answers a 24 kHz WAV."""
+        try:
+            payload = json.loads(body)
+        except json.JSONDecodeError as e:
+            raise _BadRequest(f"invalid JSON body: {e}") from e
+        if not payload.get("text"):
+            await self._respond(writer, 400, {"error": "missing 'text' field"})
+            return
+        engine = payload.get("engine")
+        tts = await self.registry.get(f"tts:{engine}") if engine else None
+        if tts is None:
+            tts = await self.registry.get("tts")
+        if tts is None:
+            await self._respond(writer, 503, {"error": "no TTS model registered"})
+            return
+        loop = asyncio.get_running_loop()
+        batcher = self._tts_batcher_for(tts)
+        kwargs = {}
+        for k in ("voice", "language"):
+            if payload.get(k):
+                kwargs[k] = payload[k]
+        chunk = await loop.run_in_executor(
+            None, lambda: batcher.synthesize(payload["text"], **kwargs)
+        )
+        await self._respond(writer, 200, wav_bytes(chunk.samples, chunk.sample_rate),
+                            content_type="audio/wav")

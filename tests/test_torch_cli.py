@@ -1,0 +1,185 @@
+"""The port's CLI (``python -m qwen3_asr_swift_tpu_torch.cli``).
+
+Each ported subcommand runs through ``main([..., "--device", "cpu",
+"--random-weights"])``, prints the reference's JSON keys, and its result
+equals a direct call of the port's API on the same seeded model. The
+parser carries the reference's names, options and defaults for every
+ported subcommand (``--device`` takes the place of ``--platform``). The
+card is the default device: on a machine without one the CLI raises
+unless ``--device cpu`` is given.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from qwen3_asr_swift_tpu import cli as jcli
+from qwen3_asr_swift_tpu_torch import cli
+from qwen3_asr_swift_tpu_torch.audio.io import load_audio, write_wav
+
+REPO = Path(__file__).resolve().parent.parent
+PORTED = ["transcribe", "transcribe-batch", "align", "speak", "qwen3-tts", "qwen3-tts-coreml",
+          "vad", "vad-stream", "serve"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The frame loops are chains of small ops: with several test workers
+    on the host, torch's intra-op threads only contend."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
+@pytest.fixture(scope="module")
+def clips(tmp_path_factory):
+    d = tmp_path_factory.mktemp("clips")
+    rng = np.random.default_rng(0)
+    paths = []
+    for i, seconds in enumerate((1.5, 2.5)):
+        t = np.arange(int(16000 * seconds)) / 16000
+        burst = (np.sin(2 * np.pi * 220 * t) * (t > 0.5)).astype(np.float32)
+        audio = (0.3 * burst + 0.01 * rng.standard_normal(len(t))).astype(np.float32)
+        paths.append(str(d / f"clip{i}.wav"))
+        write_wav(paths[-1], audio, 16000)
+    return paths
+
+
+def run(capsys, *argv):
+    cli.main(["--device", "cpu", *argv])
+    return capsys.readouterr().out
+
+
+def asr_model():
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr import Qwen3ASR, config_tiny
+
+    return Qwen3ASR.init_random(config_tiny(), audio_buckets_s=(8,), device="cpu")
+
+
+@pytest.mark.parametrize("beam", [0, 2])
+def test_transcribe(capsys, clips, beam):
+    from qwen3_asr_swift_tpu_torch.ops.sampling import SamplingOptions
+
+    out = json.loads(run(capsys, "transcribe", clips[0], "--random-weights", "--max-tokens", "6",
+                         "--beam", str(beam)))
+    assert set(out) == {"text", "confidence", "duration", "rtf"}
+    opts = SamplingOptions(max_tokens=6, beam=beam) if beam > 1 else None
+    want = asr_model().transcribe(load_audio(clips[0], 16000)[0], max_tokens=6, options=opts)
+    assert out["text"] == want.text and out["duration"] == pytest.approx(want.duration)
+
+
+def test_transcribe_batch(capsys, clips):
+    out = json.loads(run(capsys, "transcribe-batch", *clips, "--random-weights",
+                         "--max-tokens", "5"))
+    assert [set(r) for r in out] == [{"file", "text", "confidence"}] * 2
+    want = asr_model().transcribe_batch([load_audio(p, 16000)[0] for p in clips], max_tokens=5)
+    assert [r["text"] for r in out] == [w.text for w in want]
+    assert [r["file"] for r in out] == clips
+
+
+def test_align(capsys, clips):
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr import Qwen3ForcedAligner
+
+    out = json.loads(run(capsys, "align", clips[1], "hello big world", "--random-weights"))
+    assert [set(w) for w in out] == [{"word", "start", "end"}] * 3
+    model = Qwen3ForcedAligner.init_random(dtype=torch.float32, tokenizer=cli.byte_tokenizer(),
+                                           device="cpu")
+    words = model.align(load_audio(clips[1], 16000)[0], "hello big world", language="English")
+    assert out == [{"word": w.word, "start": round(w.start, 3), "end": round(w.end, 3)}
+                   for w in words]
+
+
+@pytest.mark.parametrize("name", ["speak", "qwen3-tts", "qwen3-tts-coreml"])
+def test_speak(capsys, tmp_path, name):
+    from qwen3_asr_swift_tpu_torch.models.qwen3_tts import Qwen3TTS, TTSSamplingConfig, config_tiny
+
+    path = str(tmp_path / "out.wav")
+    out = json.loads(run(capsys, name, "hello", "--random-weights", "--output", path))
+    assert set(out) == {"output", "seconds"} and out["output"] == path
+    audio, rate = load_audio(path)
+    model = Qwen3TTS.init_random(config_tiny(), dtype=torch.float32,
+                                 tokenizer=cli.byte_tokenizer(), device="cpu")
+    want = model.synthesize("hello", sampling=TTSSamplingConfig(max_frames=8, temperature=0.0))
+    assert rate == 24000 and len(audio) == len(want.samples) > 0
+    assert out["seconds"] == len(want.samples) / 24000
+
+
+def test_vad_and_stream(capsys, clips):
+    from qwen3_asr_swift_tpu_torch.models.silero_vad import SileroVAD, StreamingVADProcessor
+
+    out = json.loads(run(capsys, "vad", clips[1], "--random-weights"))
+    vad = SileroVAD.init_random(device="cpu")
+    audio = load_audio(clips[1], 16000)[0]
+    assert out == [{"start": round(s.start, 3), "end": round(s.end, 3)}
+                   for s in vad.detect_speech(audio)]
+    assert all(set(s) == {"start", "end"} for s in out)
+    lines = run(capsys, "vad-stream", clips[1], "--random-weights").splitlines()
+    proc = StreamingVADProcessor(vad)
+    want = []
+    for off in range(0, len(audio), 4000):
+        want += [f"{ev.time:8.2f}s {ev.type.value}" for ev in proc.process(audio[off:off + 4000])]
+    want += [f"{ev.time:8.2f}s {ev.type.value}" for ev in proc.flush()]
+    assert lines == want
+
+
+@pytest.mark.parametrize("engine", ["pyannote", "firered"])
+def test_vad_other_engines_are_not_ported(capsys, clips, engine):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run(capsys, "vad", clips[0], "--random-weights", "--engine", engine)
+
+
+def _options(parser):
+    """{subcommand: {dest: (option strings, default, nargs)}}."""
+    out = {}
+    for action in parser._subparsers._group_actions:
+        for name, sub in action.choices.items():
+            out[name] = {a.dest: (tuple(a.option_strings), a.default, a.nargs)
+                         for a in sub._actions if a.dest != "help"}
+    return out
+
+
+def test_parser_has_the_reference_subcommands_and_options():
+    port, ref = _options(cli.build_parser()), _options(jcli.build_parser())
+    assert sorted(port) == sorted(PORTED)
+    for name in PORTED:
+        assert port[name] == ref[name], name
+    top = {a.dest: a.default for a in cli.build_parser()._actions}
+    assert top["device"] == "cuda" and "platform" not in top
+
+
+def test_serve_wires_the_options(monkeypatch):
+    seen = {}
+
+    class FakeServer:
+        def __init__(self, registry, **kw):
+            seen.update(kw, registry=registry)
+
+        async def serve_forever(self):
+            seen["served"] = True
+
+    monkeypatch.setattr("qwen3_asr_swift_tpu_torch.serving.server.SpeechServer", FakeServer)
+    cli.main(["--device", "cpu", "serve", "--random-weights", "--scheduler", "slotpool",
+              "--port", "0", "--slotpool-max-s", "8", "--bulk-nice", "5", "--decode-chunk", "4"])
+    assert seen["served"] and seen["scheduler"] == "slotpool" and seen["slotpool_max_s"] == 8.0
+    assert seen["bulk_nice"] == 5 and seen["port"] == 0
+    model = seen["registry"]._loaders["asr"]()
+    assert model.decode_chunk_tokens == 4 and model.device.type == "cpu"
+
+
+def test_module_entry_defaults_to_the_card(clips):
+    """``python -m`` runs the CLI; without ``--device`` it asks for the
+    card, and on a machine without one that raises."""
+    out = subprocess.run([sys.executable, "-m", "qwen3_asr_swift_tpu_torch.cli", "vad",
+                          clips[0], "--random-weights"], capture_output=True, text=True,
+                         cwd=REPO, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    if torch.cuda.is_available():
+        assert out.returncode == 0, out.stderr
+    else:
+        assert out.returncode != 0 and "CUDA" in out.stderr

@@ -133,6 +133,41 @@ def test_k1_rows_do_not_depend_on_the_batch(card):
                 assert torch.equal(k1.quant_matmul_cuda(x[256 - n:], p), full[256 - n:])
 
 
+#: K1's products on the Qwen3-TTS frame loop at the 1.7B config: the
+#: talker's qkv, o (and the text projection), gate_up, down and codec head,
+#: and the code predictor's input projection, qkv, o, gate_up and down
+TTS_SHAPES = [(2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048), (2048, 3072),
+              (2048, 1024), (1024, 4096), (1024, 6144), (3072, 1024)]
+
+
+@pytest.mark.parametrize("xdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("in_dim,out_dim", TTS_SHAPES)
+def test_k1_tts_shapes(card, xdt, rows, in_dim, out_dim):
+    """The TTS frame loop's products at a solo synthesis's row (1) and a
+    full pool's (8)."""
+    p = packed(out_dim, in_dim, 4, card, seed=rows + in_dim)
+    x = torch.randn((rows, in_dim), device=card).to(getattr(torch, xdt))
+    before = k1.K1_LAUNCHES.value
+    got = k1.quant_matmul_cuda(x, p)
+    torch.cuda.synchronize()
+    assert k1.K1_LAUNCHES.value == before + 1
+    assert got.shape == (rows, out_dim) and got.dtype == torch.float32
+    assert rel(got, k1.quant_matmul(x, p)) <= TOL
+
+
+@pytest.mark.parametrize("in_dim,out_dim", TTS_SHAPES)
+def test_k1_tts_rows_do_not_depend_on_the_batch(card, in_dim, out_dim):
+    """A pooled row equals the same row computed alone, bit for bit (the
+    pool's greedy codes are the solo path's)."""
+    p = packed(out_dim, in_dim, 4, card, seed=5)
+    for xdt in (torch.bfloat16, torch.float32):
+        x = torch.randn((8, in_dim), device=card).to(xdt)
+        full = k1.quant_matmul_cuda(x, p)
+        for i in range(8):
+            assert torch.equal(k1.quant_matmul_cuda(x[i:i + 1], p), full[i:i + 1])
+
+
 def test_k1_rejects_bad_dtype_group_and_device(card):
     p = packed(64, 256, 4, card)
     x = torch.randn((2, 256), device=card)

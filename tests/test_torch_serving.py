@@ -1,6 +1,6 @@
-"""The port's own ``SpeechServer`` (``/health``, ``/transcribe``; the
-unported routes answer 404), and the thread safety the two batcher workers
-need."""
+"""The port's own ``SpeechServer`` (``/health``, ``/transcribe``; ``/speak``
+answers 503 without a TTS model; the unported routes answer 404), and the
+thread safety the two batcher workers need."""
 
 import asyncio
 import http.client
@@ -77,7 +77,8 @@ def test_unported_routes_answer_like_unknown_ones(model, method, path):
         def request():
             conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
             try:
-                conn.request(method, path, body=b"{}" if method == "POST" else None,
+                body = b'{"text": "hello"}' if path == "/speak" else b"{}"
+                conn.request(method, path, body=body if method == "POST" else None,
                              headers={"Upgrade": "websocket", "Connection": "Upgrade",
                                       "Sec-WebSocket-Key": "dGhlIHNhbXBsZSBub25jZQ=="})
                 resp = conn.getresponse()
@@ -91,7 +92,12 @@ def test_unported_routes_answer_like_unknown_ones(model, method, path):
             await server.stop()
 
     status, payload = asyncio.run(ask())
-    assert status == 404 and payload == {"error": f"no route {method} {path}"}
+    if path == "/speak":
+        # /speak is ported (Qwen3-TTS): with no "tts" entry in the registry it
+        # answers as the reference does
+        assert status == 503 and payload == {"error": "no TTS model registered"}
+    else:
+        assert status == 404 and payload == {"error": f"no route {method} {path}"}
 
 
 def test_concurrent_transcribes_match_sequential(model):
@@ -122,3 +128,50 @@ def test_launch_counter_loses_no_update():
     assert counter.value == 16 * 2000
     counter.reset()
     assert counter.value == 0
+
+
+def _post_json(server, body):
+    async def ask():
+        await server.start()
+        port = server._server.sockets[0].getsockname()[1]
+
+        def request():
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            try:
+                conn.request("POST", "/transcribe", body=json.dumps(body).encode(),
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                return resp.status, json.loads(resp.read())
+            finally:
+                conn.close()
+
+        try:
+            return await asyncio.get_running_loop().run_in_executor(None, request)
+        finally:
+            await server.stop()
+
+    return asyncio.run(ask())
+
+
+@pytest.mark.parametrize("scheduler", ["group", "slotpool"])
+def test_transcribe_json_body_takes_a_decode_budget(model, scheduler):
+    import base64
+
+    from qwen3_asr_swift_tpu_torch.core.types import to_float32
+
+    pcm = (np.random.default_rng(2).standard_normal(16000) * 3000).astype("<i2")
+    body = {"audio_base64": base64.b64encode(pcm.tobytes()).decode(), "max_tokens": 3}
+    status, payload = _post_json(SpeechServer(build_registry(model), port=0,
+                                              scheduler=scheduler), body)
+    want = model.transcribe_batch([to_float32(pcm)], max_tokens=3)[0]
+    assert status == 200 and payload["text"] == want.text, (payload, want.text)
+
+
+@pytest.mark.parametrize("max_tokens", [0, "many"])
+def test_transcribe_rejects_a_bad_decode_budget(model, max_tokens):
+    import base64
+
+    pcm = np.zeros(1600, "<i2")
+    body = {"audio_base64": base64.b64encode(pcm.tobytes()).decode(), "max_tokens": max_tokens}
+    status, payload = _post_json(SpeechServer(build_registry(model), port=0), body)
+    assert status == 400 and "max_tokens" in payload["error"], payload

@@ -8,9 +8,13 @@ imports the JAX package.
 """
 
 import ast
+import dataclasses
 import importlib
 import inspect
 import os
+import subprocess
+import sys
+import textwrap
 from pathlib import Path
 
 import numpy as np
@@ -27,7 +31,12 @@ from qwen3_asr_swift_tpu.models.qwen3_asr import config as j_asr_config
 from qwen3_asr_swift_tpu.models.qwen3_asr import convert as j_convert
 from qwen3_asr_swift_tpu.models.qwen3_asr import streaming as j_streaming
 from qwen3_asr_swift_tpu.models.silero_vad import model as j_vad
+from qwen3_asr_swift_tpu.models.qwen3_tts import config as j_tts_config
+from qwen3_asr_swift_tpu.models.qwen3_tts import convert as j_tts_convert
+from qwen3_asr_swift_tpu.models.qwen3_tts import model as j_tts_model
+from qwen3_asr_swift_tpu.models.qwen3_tts import voice_clone as j_voice_clone
 from qwen3_asr_swift_tpu.models.silero_vad import streaming as j_vad_stream
+from qwen3_asr_swift_tpu.ops import fbank as j_fbank
 from qwen3_asr_swift_tpu.ops import mel as j_mel
 from qwen3_asr_swift_tpu.serving import batching as j_batching
 from qwen3_asr_swift_tpu.serving import dispatch as j_dispatch
@@ -43,7 +52,12 @@ from qwen3_asr_swift_tpu_torch.models.qwen3_asr import config as p_asr_config
 from qwen3_asr_swift_tpu_torch.models.qwen3_asr import convert as p_convert
 from qwen3_asr_swift_tpu_torch.models.qwen3_asr import streaming as p_streaming
 from qwen3_asr_swift_tpu_torch.models.silero_vad import model as p_vad
+from qwen3_asr_swift_tpu_torch.models.qwen3_tts import config as p_tts_config
+from qwen3_asr_swift_tpu_torch.models.qwen3_tts import convert as p_tts_convert
+from qwen3_asr_swift_tpu_torch.models.qwen3_tts import model as p_tts_model
+from qwen3_asr_swift_tpu_torch.models.qwen3_tts import voice_clone as p_voice_clone
 from qwen3_asr_swift_tpu_torch.models.silero_vad import streaming as p_vad_stream
+from qwen3_asr_swift_tpu_torch.ops import fbank as p_fbank
 from qwen3_asr_swift_tpu_torch.ops import mel as p_mel
 from qwen3_asr_swift_tpu_torch.serving import batching as p_batching
 from qwen3_asr_swift_tpu_torch.serving import dispatch as p_dispatch
@@ -189,6 +203,16 @@ def test_bpe_tokenizer_matches(text):
     (p_streaming, j_streaming, ["longest_common_prefix", "StreamingASRConfig", "StreamingASR"]),
     (p_aligner, j_aligner, ["split_word_pairs", "SlottedText", "slot_text", "lis_positions",
                             "enforce_monotonicity"]),
+    (p_batching, j_batching, ["_TTSRequest", "TTSBatcher"]),
+    (p_protocols, j_protocols, ["SpeechGenerationModel"]),
+    (p_tts_config, j_tts_config, ["TalkerConfig", "CodePredictorConfig", "CodecDecoderConfig",
+                                  "Qwen3TTSConfig", "CodecTokens", "config_tiny"]),
+    (p_tts_convert, j_tts_convert, ["detect_tts_config", "load_speaker_config", "_Loader",
+                                    "_decoder_layers", "_rvq_codebook", "convert_tts_checkpoint",
+                                    "_snake_from", "_convnext_from"]),
+    (p_tts_model, j_tts_model, ["TTSSamplingConfig", "_round_up"]),
+    (p_voice_clone, j_voice_clone, ["_factor_strides", "ReferenceAudioCache"]),
+    (p_fbank, j_fbank, ["hz_to_mel_htk", "mel_to_hz_htk", "kaldi_mel_banks", "_povey_dft"]),
 ])
 def test_copied_code_is_the_original(port, ref, names):
     """Whole copies keep their originals' source, so a fix to one shows as
@@ -196,6 +220,80 @@ def test_copied_code_is_the_original(port, ref, names):
     for name in names:
         got, want = inspect.getsource(getattr(port, name)), inspect.getsource(getattr(ref, name))
         assert got == want, name
+
+
+def test_tts_configs_and_codec_tokens_match():
+    for name in ("CONFIG_06B", "CONFIG_17B"):
+        assert (dataclasses.asdict(getattr(p_tts_config, name))
+                == dataclasses.asdict(getattr(j_tts_config, name))), name
+    assert dataclasses.asdict(p_tts_config.config_tiny()) == dataclasses.asdict(
+        j_tts_config.config_tiny())
+    port, ref = p_tts_config.CONFIG_17B, j_tts_config.CONFIG_17B
+    assert port.codec.samples_per_frame == ref.codec.samples_per_frame == 1920
+    assert port.code_predictor.needs_projection and ref.code_predictor.needs_projection
+    tokens = {k: v for k, v in vars(j_tts_config.CodecTokens).items() if not k.startswith("_")
+              and not callable(v) and not isinstance(v, classmethod)}
+    assert {k: getattr(p_tts_config.CodecTokens, k) for k in tokens} == tokens
+    for lang in ("english", "ZH", "sichuan_dialect", "klingon"):
+        assert (p_tts_config.CodecTokens.language_id(lang)
+                == j_tts_config.CodecTokens.language_id(lang))
+
+
+@pytest.mark.parametrize("args", [(80, 512, 16000), (64, 512, 16000, 40.0, -200.0),
+                                  (23, 256, 8000)])
+def test_fbank_constants_match(args):
+    np.testing.assert_array_equal(p_fbank.kaldi_mel_banks(*args), j_fbank.kaldi_mel_banks(*args))
+    n_fft = args[1]
+    for got, want in zip(p_fbank._povey_dft(400, n_fft), j_fbank._povey_dft(400, n_fft)):
+        np.testing.assert_array_equal(got, want)
+    hz = np.linspace(0, 8000, 17)
+    np.testing.assert_array_equal(p_fbank.hz_to_mel_htk(hz), j_fbank.hz_to_mel_htk(hz))
+    np.testing.assert_array_equal(p_fbank.mel_to_hz_htk(hz), j_fbank.mel_to_hz_htk(hz))
+
+
+def test_tts_paths_import_nothing_of_the_jax_package():
+    """Running the CLI, ``Qwen3TTS`` and both TTS batchers (the group
+    ``TTSBatcher`` and ``SlotPoolTTS``) imports neither jax nor any module
+    of the JAX package."""
+    code = textwrap.dedent("""
+        import contextlib, io, os, sys, tempfile
+        import numpy as np, torch
+        from qwen3_asr_swift_tpu_torch import cli
+        from qwen3_asr_swift_tpu_torch.audio.io import write_wav
+        from qwen3_asr_swift_tpu_torch.models.qwen3_tts import (Qwen3TTS, TTSSamplingConfig,
+                                                                config_tiny)
+        from qwen3_asr_swift_tpu_torch.serving import SlotPoolTTS, TTSBatcher
+        s = TTSSamplingConfig(temperature=0.0, max_frames=3)
+        m = Qwen3TTS.init_random(config_tiny(), 0, device="cpu", dtype=torch.float32,
+                                 tokenizer=cli.byte_tokenizer())
+        assert len(m.synthesize("hi", sampling=s).samples) > 0
+        b = TTSBatcher(m, workers=1)
+        assert b.synthesize("hi", sampling=s).sample_rate == 24000
+        b.shutdown()
+        pool = SlotPoolTTS(m, slots=2, sampling=s)
+        assert len(pool.synthesize("hi").samples) > 0
+        pool.close()
+        with tempfile.TemporaryDirectory() as d:
+            clip = os.path.join(d, "clip.wav")
+            write_wav(clip, np.zeros(16000, np.float32), 16000)
+            with contextlib.redirect_stdout(io.StringIO()):
+                for argv in (["transcribe", clip, "--max-tokens", "2"],
+                             ["transcribe-batch", clip, "--max-tokens", "2"],
+                             ["align", clip, "one"], ["vad", clip], ["vad-stream", clip],
+                             ["speak", "hi", "--output", os.path.join(d, "o.wav")]):
+                    cli.main(["--device", "cpu", argv[0], "--random-weights", *argv[1:]])
+        assert "jax" not in sys.modules, [k for k in sys.modules if k.startswith("jax")]
+        ref = [k for k in sys.modules
+               if k == "qwen3_asr_swift_tpu" or k.startswith("qwen3_asr_swift_tpu.")]
+        assert not ref, ref
+        print("OK")
+    """)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=240, env=env, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("OK")
 
 
 def test_wire_codec_source_is_the_original():
