@@ -98,13 +98,42 @@ Then Qwen3-TTS, at the 1.7B widths (talker 2048 × 28, code predictor
              code where they part within 5e-2 relative L2, and the codes
              equal or parting at a near-tie (the solo margin within twice
              the largest logit gap); no text → 400, no ``tts`` → 503;
-18. cli    — ``python -m qwen3_asr_swift_tpu_torch.cli`` on the card with
-             ``--random-weights``: transcribe, transcribe-batch, align, vad,
-             vad-stream and speak, in parallel, each exit 0 with the
-             reference's JSON keys.
+Then the server's last three routes:
+
+18. realtime — ``/v1/realtime`` on a server with the slice's ASR model and
+               the 1.7B TTS model: a stdlib client (masked frames) appends
+               8 s of PCM16 in 100 ms pieces and commits (the transcript
+               must equal ``/transcribe``'s for the same samples at the same
+               32-token budget, the model's default there), then
+               ``conversation.item.create`` + ``response.create`` (the deltas
+               must be the PCM16 of the model's own ``synthesize_stream``);
+               K1 and K3 must run;
+19. enhance  — DeepFilterNet3 at its published widths (random, seed 0) on
+               10 s of noisy 48 kHz audio: card vs host within 1e-4 of max
+               |host| (fp32), ``StreamingEnhancer`` in 100 ms pushes within
+               1e-5 of the batch output, ``POST /enhance`` a WAV of the same
+               length, ms a second of audio;
+20. respond  — PersonaPlex ``CONFIG_7B`` with Mimi at its published widths,
+               random weights drawn on the card, temporal stack and text head
+               packed 4-bit: K1 at the frame's five shapes (rows 1, bf16 x)
+               with bound and ``torch.mm`` yardstick summed over a frame; (a)
+               cut to 2 temporal layers, fp32, the first frame's text and
+               codebook-0 logits card vs host within 5e-2 relative L2; (b)
+               the 7B in bf16, one greedy ``respond`` of 4 s with the default
+               system prompt, 75 frames: K1's launches the count from the
+               code (129 a frame, 128 for the 96-row prompt), frames/s, RTF,
+               device ms a frame by range, peak device memory; (c)
+               ``POST /respond``: a WAV, ``format: "json"`` with
+               ``text_token_ids`` and the audio of a direct ``respond`` with
+               the same seed, 503 without an ``s2s`` model;
+21. cli      — ``python -m qwen3_asr_swift_tpu_torch.cli`` on the card with
+               ``--random-weights``: transcribe, transcribe-batch, align,
+               vad, vad-stream, speak, denoise and respond, in parallel, each
+               exit 0 with the reference's JSON keys.
 
 Weights are random (numpy, seed 0) at the full width of the 0.6B
-configuration (the ASR phases) and the 1.7B one (TTS). The line before the last is ``{"kernels": [...]}`` (each
+configuration (the ASR phases) and the 1.7B one (TTS); PersonaPlex's are
+drawn on the card (its numpy draw would take minutes). The line before the last is ``{"kernels": [...]}`` (each
 entry with its launches in the main path's run, its bound and its library
 time); the last line is ``{"ok": true, "device": {...}}``. Imports nothing
 of JAX nor of the JAX package, and checks so before the last lines.
@@ -1472,11 +1501,12 @@ def tree_to(tree, device):
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
-def range_device_ms(run, prefix: str):
+def range_device_ms(run, prefix: str, by_range=None):
     """Run ``run()`` once under the profiler. Each kernel's device time goes
     to the ``record_function`` range (named ``prefix...``) whose span on the
     device holds the kernel's start, else to "other". Returns ({range: device
-    ms}, {range: kernels}, {kernel name: device µs}, wall s)."""
+    ms}, {range: kernels}, {kernel name: device µs}, wall s); ``by_range``,
+    a dict when given, receives {range: {kernel name: device µs}}."""
     import bisect
 
     import torch
@@ -1506,6 +1536,9 @@ def range_device_ms(run, prefix: str):
         name = spans[i][2] if i >= 0 and k.time_range.start < spans[i][1] else "other"
         ms[name] = ms.get(name, 0.0) + us / 1e3
         count[name] = count.get(name, 0) + 1
+        if by_range is not None:
+            into = by_range.setdefault(name, {})
+            into[k.name] = into.get(k.name, 0.0) + us
     return ms, count, by_kernel, wall
 
 
@@ -1550,12 +1583,16 @@ TTS_K1_SHAPES = [("talker qkv", 2048, 4096, 28), ("talker o", 2048, 2048, 28),
 
 
 def tts_k1_frame(dev, iters: int = 20):
-    """K1 at the frame loop's shapes (rows 1, bf16 x, 4-bit group 64, as a
-    solo synthesis gives them) against its plain version, and the device
-    time a call of K1, of the plain version and of the ``torch.mm``
-    yardstick, operands cycled so they are cold in L2, from one profiler
-    window; with the bound, summed over a frame's calls. A shape whose
-    window shows no kernel of a call is "not measured" (None)."""
+    return k1_frame(dev, TTS_K1_SHAPES, "tts", "1.7B", iters)
+
+
+def k1_frame(dev, shapes, what: str, model: str, iters: int = 20):
+    """K1 at a frame loop's ``shapes`` (rows 1, bf16 x, 4-bit group 64, as a
+    solo synthesis or response gives them) against its plain version, and
+    the device time a call of K1, of the plain version and of the
+    ``torch.mm`` yardstick, operands cycled so they are cold in L2, from one
+    profiler window; with the bound, summed over a frame's calls. A shape
+    whose window shows no kernel of a call is "not measured" (None)."""
     import torch
     from torch.profiler import record_function
 
@@ -1563,7 +1600,7 @@ def tts_k1_frame(dev, iters: int = 20):
 
     g = torch.Generator(device=dev).manual_seed(11)
     cases, worst = [], 0.0
-    for name, d_in, d_out, per_frame in TTS_K1_SHAPES:
+    for name, d_in, d_out, per_frame in shapes:
         def make():
             p = {"codes": torch.randint(-2**31, 2**31 - 1, (d_out, d_in // 8), generator=g,
                                         device=dev, dtype=torch.int32),
@@ -1575,7 +1612,7 @@ def tts_k1_frame(dev, iters: int = 20):
         sets = input_sets(make, w_bytes)
         err, rel = rel_err(quant.quant_matmul_cuda(*sets[0]), quant.quant_matmul(*sets[0]))
         if not rel <= K1_TOL:
-            raise AssertionError(f"K1 tts {name}: rel error {rel} > {K1_TOL}")
+            raise AssertionError(f"K1 {what} {name}: rel error {rel} > {K1_TOL}")
         worst = max(worst, err)
         lib = [k1_library(*st)[1] for st in sets[:4]]
         cases.append((name, d_in, d_out, per_frame, sets, lib, w_bytes))
@@ -1598,7 +1635,7 @@ def tts_k1_frame(dev, iters: int = 20):
         b_ms, _ = bound(w_bytes + 2 * d_in + 4 * d_out, 2 * d_out * d_in, K1_PEAK["bfloat16"])
         got = {label: (ms[f"{label}.{name}"] / iters if count.get(f"{label}.{name}", 0) >= iters
                        else None) for label in ("k1", "plain", "lib")}
-        log(f"K1 tts {name:14s} rows=1 in={d_in:4d} out={d_out:5d} x=bfloat16 calls/frame="
+        log(f"K1 {what} {name:14s} rows=1 in={d_in:5d} out={d_out:5d} x=bfloat16 calls/frame="
             f"{per_frame:2d} device: kernel_ms={got['k1']} plain_ms={got['plain']} "
             f"library_ms={got['lib']} bound_ms={b_ms:.4f} (bytes)")
         for key, label in (("device_ms", "k1"), ("plain_device_ms", "plain"),
@@ -1606,7 +1643,7 @@ def tts_k1_frame(dev, iters: int = 20):
             frame[key] = None if got[label] is None or frame[key] is None else \
                 frame[key] + per_frame * got[label]
         frame["bound_ms"] += per_frame * b_ms
-    log(f"K1 tts per frame (1.7B, rows 1, bf16 x; profiler): device kernel_ms "
+    log(f"K1 {what} per frame ({model}, rows 1, bf16 x; profiler): device kernel_ms "
         f"{frame['device_ms']} plain_ms {frame['plain_device_ms']} library_ms "
         f"{frame['library_ms']} bound_ms {frame['bound_ms']:.4f}")
     return dict(frame, max_abs_err=worst, bound_by="bytes")
@@ -1964,10 +2001,478 @@ def phase_speak(asr, tts, dev_name, power):
         raise AssertionError(f"speak: no text {status}, no tts {status503}")
 
 
+# --------------------------------------------------------------------------- #
+# the server's last routes: /v1/realtime over the ASR and TTS models,
+# /enhance (DeepFilterNet3) and /respond (PersonaPlex 7B with Mimi)
+
+REALTIME_TOKENS = 32     # the ASR model's default budget on the realtime path (depth cut)
+REALTIME_FRAMES = 24     # the TTS model's default frame cap there (1.92 s)
+REALTIME_WAIT_S = 600     # the client socket's timeout
+REALTIME_TEXT = "The realtime route speaks this sentence."
+ENHANCE_S = 10           # seconds of noisy 48 kHz audio
+ENHANCE_TOL = 1e-4       # card vs host CPU, of max |host|, fp32 both
+ENHANCE_STREAM_TOL = 1e-5  # 100 ms pushes vs the batch pass, of max |batch|, on the card
+RESPOND_TOL = 5e-2       # first frame's text and codebook-0 logits, relative L2, card vs host
+RESPOND_USER_S = 4       # seconds of user audio (50 frames)
+RESPOND_STEPS = 75       # the greedy response's frame budget
+# the profiled response: the profiler's event tree costs seconds of host a
+# frame, so few frames
+RESPOND_SPLIT_FRAMES = 4
+RESPOND_SERVE_STEPS = 12
+#: K1's products on the PersonaPlex 7B frame: (name, in, out, calls a frame)
+PERSONAPLEX_K1_SHAPES = [("qkv", 4096, 12288, 32), ("o", 4096, 4096, 32),
+                         ("gate_up", 4096, 22528, 32), ("down", 11264, 4096, 32),
+                         ("text head", 4096, 32001, 1)]
+
+
+class Serving:
+    """A ``SpeechServer`` on its own event-loop thread: ``with
+    Serving(server) as port``; stopped (batchers shut down) on exit."""
+
+    def __init__(self, server):
+        import asyncio
+        import threading
+
+        self.server = server
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+
+    def __enter__(self):
+        import asyncio
+
+        self.thread.start()
+        asyncio.run_coroutine_threadsafe(self.server.start(), self.loop).result(timeout=30)
+        return self.server._server.sockets[0].getsockname()[1]
+
+    def __exit__(self, *exc):
+        import asyncio
+
+        asyncio.run_coroutine_threadsafe(self.server.stop(), self.loop).result(timeout=60)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=30)
+        self.loop.close()
+
+
+def post(port, path, body: bytes, ctype: str):
+    """(status, content type, body) of one POST."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, body=body, headers={"Content-Type": ctype})
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type", ""), resp.read()
+    finally:
+        conn.close()
+
+
+def phase_realtime(asr, tts, counters, dev_name, power):
+    """``/v1/realtime`` on a server with the ASR model of phase serve (the
+    slice's: packed, int8 KV) and the TTS model of phase speak (1.7B,
+    ``"fused"``): a stdlib client (masked frames) appends 8 s of PCM16 in
+    100 ms pieces and commits; the transcript must equal what
+    ``/transcribe`` answers for the same samples at the same budget (the
+    depth is cut through the model's default, ``Qwen3ASR.max_tokens``, that
+    a commit decodes to). Then ``conversation.item.create`` and
+    ``response.create`` must give ``response.created``, audio deltas,
+    ``response.audio.done`` and ``response.done`` "completed", and the
+    deltas must be the PCM16 of the model's own ``synthesize_stream`` of the
+    text, run directly. K1 and K3 must run under the commit, K1 under the
+    response."""
+    import base64
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.core.types import to_pcm16
+    from qwen3_asr_swift_tpu_torch.models.qwen3_tts import TTSSamplingConfig
+    from qwen3_asr_swift_tpu_torch.serving import ContinuousBatcher, SpeechServer, build_registry
+    from qwen3_asr_swift_tpu_torch.serving.ws import SyncWSClient
+
+    k1c, k3c = counters
+    rng = np.random.default_rng(5)
+    t = np.arange(8 * SR) / SR
+    audio = (0.3 * np.sin(2 * np.pi * 180 * t) * ((t % 1.0) < 0.6)
+             + 0.02 * rng.standard_normal(len(t))).astype(np.float32)
+    pcm = to_pcm16(audio).tobytes()
+    step = SR // 10 * 2
+    saved = asr.max_tokens, tts.sampling
+    asr.max_tokens = REALTIME_TOKENS
+    tts.sampling = TTSSamplingConfig(temperature=0.0, top_k=0, max_frames=REALTIME_FRAMES)
+    try:
+        server = SpeechServer(build_registry(asr, tts), port=0)
+        with Serving(server) as port:
+            client = SyncWSClient("127.0.0.1", port, timeout=REALTIME_WAIT_S)
+            types = [client.recv_json()["type"]]
+
+            def until(kind):
+                got = []
+                while not got or got[-1]["type"] != kind:
+                    got.append(client.recv_json())
+                    if got[-1]["type"] == "error":
+                        raise AssertionError(f"realtime: error event {got[-1]}")
+                types.extend(e["type"] for e in got)
+                return got
+
+            client.send_json({"type": "session.update",
+                              "session": {"input_audio_sample_rate": SR}})
+            until("session.updated")
+            torch.cuda.synchronize()
+            k1c.reset()
+            k3c.reset()
+            t0 = time.perf_counter()
+            for off in range(0, len(pcm), step):
+                client.send_json({"type": "input_audio_buffer.append",
+                                  "audio": base64.b64encode(pcm[off:off + step]).decode()})
+            client.send_json({"type": "input_audio_buffer.commit"})
+            transcript = until("conversation.item.input_audio_transcription.completed"
+                               )[-1]["transcript"]
+            t_commit = time.perf_counter() - t0
+            asr_launches = (k1c.value, k3c.value)
+            client.send_json({"type": "conversation.item.create", "item": {
+                "content": [{"type": "input_text", "text": REALTIME_TEXT}]}})
+            until("conversation.item.created")
+            t0 = time.perf_counter()
+            client.send_json({"type": "response.create"})
+            events = until("response.done")
+            t_response = time.perf_counter() - t0
+            tts_launches = k1c.value - asr_launches[0]
+            client.close()
+            body = json.dumps({"audio_base64": base64.b64encode(pcm).decode(),
+                               "sample_rate": SR, "max_tokens": REALTIME_TOKENS}).encode()
+            status, _, answer = post(port, "/transcribe", body, "application/json")
+            batcher = server._batcher_for(asr)
+        direct = np.concatenate([c.samples for c in tts.synthesize_stream(REALTIME_TEXT)])
+    finally:
+        asr.max_tokens, tts.sampling = saved
+    served = json.loads(answer)["text"] if status == 200 else None
+    kinds = [e["type"] for e in events]
+    deltas = [base64.b64decode(e["delta"]) for e in events if e["type"] == "response.audio.delta"]
+    got = b"".join(deltas)
+    want = to_pcm16(direct).tobytes()
+    log(f"realtime: {len(pcm) // step} appends of 100 ms, commit → transcript in {t_commit:.2f} s "
+        f"({REALTIME_TOKENS}-token budget; K1 {asr_launches[0]}, K3 {asr_launches[1]} launches); "
+        f"/transcribe {status}, same text {transcript == served}: {transcript[:60]!r}")
+    log(f"realtime: response in {t_response:.2f} s: {len(deltas)} deltas, "
+        f"{len(got) // 2 / 24000:.2f} s of audio, equal to synthesize_stream {got == want} "
+        f"({len(want) // 2} samples); K1 {tts_launches} launches; events {types[:4]} ... "
+        f"{types[-3:]}; {type(batcher).__name__} stats {json.dumps(batcher.stats)}; on "
+        f"{dev_name} ({power})")
+    if status != 200 or transcript != served:
+        raise AssertionError(f"realtime transcript {transcript!r} != /transcribe {served!r}")
+    if kinds[0] != "response.created" or kinds[-2:] != ["response.audio.done", "response.done"] \
+            or events[-1]["response"] != {"status": "completed"} or not deltas:
+        raise AssertionError(f"realtime response events {kinds[:3]} ... {kinds[-3:]}")
+    if got != want:
+        raise AssertionError(f"realtime deltas ({len(got)} bytes) differ from synthesize_stream "
+                             f"({len(want)} bytes)")
+    if not (asr_launches[0] > 0 and asr_launches[1] > 0 and tts_launches > 0):
+        raise AssertionError(f"realtime launches: commit K1/K3 {asr_launches}, response K1 "
+                             f"{tts_launches}")
+    if not isinstance(batcher, ContinuousBatcher) or batcher.stats["requests_served"] != 2:
+        raise AssertionError(f"realtime batcher {type(batcher).__name__} {batcher.stats}")
+
+
+def phase_enhance(dev_name, power):
+    """DeepFilterNet3 at its published widths (random, seed 0) on
+    ``ENHANCE_S`` s of noisy 48 kHz audio: card vs host CPU (fp32 both)
+    within ``ENHANCE_TOL`` of max |host|; ``StreamingEnhancer`` on the card
+    in 100 ms pushes within ``ENHANCE_STREAM_TOL`` of the card's batch
+    output; ``POST /enhance`` answers 200 and a WAV of the same length; ms
+    a second of audio."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.audio.io import read_wav, wav_bytes
+    from qwen3_asr_swift_tpu_torch.models.enhancement import SpeechEnhancer, StreamingEnhancer
+    from qwen3_asr_swift_tpu_torch.serving import SpeechServer, build_registry
+
+    rate = 48000
+    rng = np.random.default_rng(6)
+    t = np.arange(ENHANCE_S * rate) / rate
+    speech = 0.3 * np.sin(2 * np.pi * 220 * t) * np.sin(2 * np.pi * 3 * t) ** 2
+    noisy = (speech + 0.05 * rng.standard_normal(len(t))).astype(np.float32)
+    card = SpeechEnhancer.init_random(0, device="cuda")
+    card.enhance(noisy[:rate], rate)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = card.enhance(noisy, rate).samples
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = SpeechEnhancer.init_random(0, device="cpu").enhance(noisy, rate).samples
+    host_wall = time.perf_counter() - t0
+    scale = np.abs(ref).max()
+    rel = np.abs(out - ref).max() / scale
+    stream = StreamingEnhancer(card)
+    pushes, parts = [], []
+    for off in range(0, len(noisy), rate // 10):
+        t0 = time.perf_counter()
+        parts.append(stream.push(noisy[off:off + rate // 10]))
+        pushes.append(time.perf_counter() - t0)
+    parts.append(stream.flush())
+    streamed = np.concatenate(parts)[: len(out)]
+    s_rel = np.abs(streamed - out).max() / np.abs(out).max()
+    server = SpeechServer(build_registry(enhance=card), port=0)
+    with Serving(server) as port:
+        status, ctype, body = post(port, "/enhance", wav_bytes(noisy, rate), "audio/wav")
+    wav, wav_rate = read_wav(body) if status == 200 else (np.zeros(0), 0)
+    log(f"enhance: DFN3 (published widths, random seed 0), {ENHANCE_S} s at 48 kHz: card "
+        f"{1e3 * wall / ENHANCE_S:.1f} ms a second of audio ({wall:.3f} s), host CPU "
+        f"{1e3 * host_wall / ENHANCE_S:.1f} ms; card vs host max err {rel:.3e} of max |host| "
+        f"(tol {ENHANCE_TOL:g}); streamed (100 ms pushes, p50 "
+        f"{1e3 * np.median(pushes):.1f} ms, p90 {1e3 * np.percentile(pushes, 90):.1f} ms) vs "
+        f"batch {s_rel:.3e} (tol {ENHANCE_STREAM_TOL:g}); POST /enhance {status} {ctype}, "
+        f"{len(wav)} samples at {wav_rate} Hz; on {dev_name} ({power})")
+    if len(out) != len(noisy) or not np.isfinite(out).all() or not rel <= ENHANCE_TOL:
+        raise AssertionError(f"enhance: {len(out)} samples, card vs host {rel}")
+    if len(streamed) != len(out) or not s_rel <= ENHANCE_STREAM_TOL:
+        raise AssertionError(f"enhance: streamed vs batch {s_rel} ({len(streamed)} samples)")
+    if status != 200 or ctype != "audio/wav" or wav_rate != rate or len(wav) != len(noisy):
+        raise AssertionError(f"POST /enhance: {status} {ctype}, {len(wav)} samples at {wav_rate}")
+
+
+def respond_k1_launches(cfg, frames: int, prefill_rows: int) -> int:
+    """K1's launches in one ``respond`` of ``frames`` frames (every frame
+    the loop ran) from the code: the prompt prefill's products (qkv, o,
+    gate_up and down a layer) when it has at most 256 rows, and each
+    frame's temporal step (the same four a layer) and text head. The
+    depformer's banks and Mimi are dense."""
+    from qwen3_asr_swift_tpu_torch.ops.quant import KERNEL_MAX_ROWS
+
+    per_frame = 4 * cfg.num_layers + 1
+    return (4 * cfg.num_layers if prefill_rows <= KERNEL_MAX_ROWS else 0) + frames * per_frame
+
+
+def respond_user_audio(seconds: float, seed: int = 7, rate: int = 24000) -> np.ndarray:
+    """A voiced 150 Hz tone gated at 2 Hz, with noise: the user's turn."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    voiced = 0.25 * np.sin(2 * np.pi * 150 * t) * (np.sin(2 * np.pi * 2 * t) > 0)
+    return (voiced + 0.02 * rng.standard_normal(len(t))).astype(np.float32)
+
+
+def respond_first_frame(model, user, text_token=None, dep_tokens=None):
+    """The first generated frame's text logits and the depformer's
+    codebook-0 logits (fp32, host), fed the given text token and depformer
+    tokens (else the greedy text token and the user's first Mimi frame):
+    (text logits, codebook-0 logits, text token, depformer tokens, user
+    codes)."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.personaplex import model as pp
+
+    cfg, dev = model.cfg, model.device
+    k = cfg.temporal_codebooks
+    with torch.inference_mode():
+        uc, n_frames, ve, nv, reads, n_prompt = model._conversation_inputs(user, 24000, None,
+                                                                           None)
+        cache = model._prefill(uc, ve, nv, reads, n_prompt, 1)
+        sine = torch.tensor(pp.SINE_TOKENS[:k], device=dev)[None]
+        user_read = pp.user_stream_reads(uc, sine, 0, n_frames, k)
+        silence = torch.tensor(pp.SILENCE_TOKENS[:k], device=dev)[None]
+        pad = torch.full((1,), cfg.text_pad, dtype=torch.long, device=dev)
+        hidden, text_logits = model._frame_hidden(cache, pad, user_read, silence)
+        if text_token is None:
+            text_token = int(text_logits.argmax(-1)[0])
+        if dep_tokens is None:
+            dep_tokens = uc[:, :, 0].cpu()
+        dep = pp.depformer_forward_logits(model.params, cfg, hidden,
+                                          torch.tensor([text_token], device=dev),
+                                          dep_tokens.to(dev))
+    return text_logits[0].float().cpu(), dep[0, 0].float().cpu(), text_token, dep_tokens, uc.cpu()
+
+
+def respond_split(model, user, sampling):
+    """One ``respond`` under the profiler with the prefill, the temporal
+    steps, the depformer and Mimi's encode and decode in ranges of their
+    own: ({range: device ms}, {kernel: device µs}, wall s, frames run, K1's
+    device ms in the frames (temporal steps and text heads), K1's in the
+    prefill)."""
+    from torch.profiler import record_function
+
+    from qwen3_asr_swift_tpu_torch.models.personaplex import model as pp
+
+    def ranged(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    names = ("temporal_prefill", "temporal_step", "depformer_generate", "mimi_encode",
+             "mimi_decode")
+    saved = {k: getattr(pp, k) for k in names}
+    for k, fn in saved.items():
+        setattr(pp, k, ranged(f"pp.{k}", fn))
+    by_range = {}
+    try:
+        ms, _, kernels, wall = range_device_ms(
+            lambda: model.respond(user, 24000, sampling=sampling), "pp.", by_range)
+    finally:
+        for k, fn in saved.items():
+            setattr(pp, k, fn)
+
+    def k1_ms(*ranges):
+        return sum(us for r in ranges for name, us in by_range.get(r, {}).items()
+                   if "::quant_matmul_kernel<" in name or "::split_sum(" in name) / 1e3
+
+    return (ms, kernels, wall, model.last_loop["frames_run"],
+            k1_ms("temporal_step", "other"), k1_ms("temporal_prefill"))
+
+
+def phase_respond(dev, k1_counter, dev_name, power):
+    """PersonaPlex at ``CONFIG_7B`` with Mimi at its published widths
+    (random weights drawn on the card from a seeded ``torch.Generator``,
+    the temporal stack and text head packed 4-bit group 64 as drawn):
+    (a) a full-width model cut to 2 temporal layers, fp32, card vs host
+    CPU: the first frame's text and codebook-0 logits within ``RESPOND_TOL``
+    relative L2 (the host cannot hold the fp32 7B); (b) the 7B in bf16: one
+    greedy ``respond`` of ``RESPOND_USER_S`` s of user audio, the default
+    system prompt, no voice prompt, ``RESPOND_STEPS`` frames: K1's launches
+    must equal ``respond_k1_launches``; frames/s, RTF, device ms a frame by
+    range, peak device memory; (c) ``POST /respond``: 200 and a WAV, and
+    ``format: "json"`` with ``text_token_ids`` and the audio of a direct
+    ``respond`` with the same seed; 503 from a server without ``s2s``.
+    Returns (K1's launches in (b), K1's frame timing)."""
+    import base64
+    import dataclasses
+    import gc
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.audio.io import read_wav, wav_bytes
+    from qwen3_asr_swift_tpu_torch.core.params import param_bytes
+    from qwen3_asr_swift_tpu_torch.core.types import to_float32, to_pcm16
+    from qwen3_asr_swift_tpu_torch.models.personaplex import (CONFIG_7B, PersonaPlex,
+                                                              PersonaSampling)
+    from qwen3_asr_swift_tpu_torch.serving import SpeechServer, build_registry
+
+    k1_frame_info = k1_frame(dev, PERSONAPLEX_K1_SHAPES, "respond", "PersonaPlex 7B")
+    user = respond_user_audio(RESPOND_USER_S)
+
+    # (a) card vs host, 2 temporal layers at full width, fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg2 = dataclasses.replace(CONFIG_7B, num_layers=2)
+    t0 = time.perf_counter()
+    card = PersonaPlex.init_random_on_device(cfg2, 0, device=dev, dtype=torch.float32,
+                                             quant_bits=4)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = PersonaPlex(cfg2, tree_to(card.params, "cpu"), tree_to(card.mimi_params, "cpu"),
+                       device="cpu", dtype=torch.float32)
+    h_text, h_cb0, tok, dep_tokens, h_codes = respond_first_frame(host, user)
+    t_host = time.perf_counter() - t0
+    c_text, c_cb0, _, _, c_codes = respond_first_frame(card, user, tok, dep_tokens)
+    rels = [(torch.linalg.vector_norm(c - h) / torch.linalg.vector_norm(h)).item()
+            for c, h in ((c_text, h_text), (c_cb0, h_cb0))]
+    log(f"respond (a): CONFIG_7B cut to 2 temporal layers, full depformer and Mimi, fp32, "
+        f"packed 4-bit on the card in {t_build:.1f} s; first frame card vs host CPU: text "
+        f"logits rel L2 {rels[0]:.3e}, codebook-0 logits rel L2 {rels[1]:.3e} (tol "
+        f"{RESPOND_TOL:g}; host {t_host:.1f} s); greedy text token host {tok} card "
+        f"{int(c_text.argmax())}; Mimi codes of {RESPOND_USER_S} s equal on "
+        f"{(c_codes == h_codes).float().mean().item():.4f} of entries")
+    if not max(rels) <= RESPOND_TOL:
+        raise AssertionError(f"respond first-frame logits rel L2 {rels} > {RESPOND_TOL}")
+    del card, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the 7B
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = PersonaPlex.init_random_on_device(CONFIG_7B, 0, device=dev, dtype=torch.bfloat16,
+                                              quant_bits=4)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    log(f"respond (b): CONFIG_7B (32 x 4096, FFN 11264, text vocab 32001; depformer 6 x 1024; "
+        f"Mimi), random seed 0 drawn on the card, temporal stack and text head packed 4-bit "
+        f"group 64, bf16: {param_bytes(model.params) / 2**30:.2f} GiB of LM weights, "
+        f"{param_bytes(model.mimi_params) / 2**20:.1f} MiB of Mimi, built in {t_build:.1f} s")
+    greedy = PersonaSampling(audio_temperature=0.0, text_temperature=0.0,
+                             max_steps=RESPOND_STEPS)
+    spf = model.cfg.mimi.samples_per_frame
+    model.respond(user[:2 * spf], 24000, sampling=dataclasses.replace(greedy, max_steps=2))
+    torch.cuda.synchronize()
+    k1_counter.reset()
+    t0 = time.perf_counter()
+    out = model.respond(user, 24000, sampling=greedy)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = k1_counter.value
+    frames_run, reads = model.last_loop["frames_run"], model.last_loop["stop_reads"]
+    n_done = len(out.samples) // spf
+    prefill_rows = PersonaPlex.VOICE_PROMPT_CAP + PersonaPlex.PROMPT_CAP
+    want = respond_k1_launches(CONFIG_7B, frames_run, prefill_rows)
+    audio_s = len(out.samples) / out.sample_rate
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"respond (b): {RESPOND_USER_S} s of user audio → {n_done} frames ({frames_run} run, "
+        f"{reads} host reads of the stop flag), {audio_s:.2f} s of audio in {wall:.3f} s: "
+        f"{frames_run / wall:.2f} frames/s, RTF {wall / audio_s:.3f}; K1 launches {launches}, "
+        f"from the code {want} (prefill {prefill_rows} rows); text tokens "
+        f"{model.last_text_tokens[:12].tolist()}...; peak device memory {peak:.2f} GiB; on "
+        f"{dev_name} ({power})")
+    if n_done == 0 or len(out.samples) != n_done * spf or not np.isfinite(out.samples).all():
+        raise AssertionError(f"respond: {len(out.samples)} samples for {n_done} frames")
+    if launches != want:
+        raise AssertionError(f"respond: K1 launched {launches} times, the code says {want}")
+    ranges, kernels, prof_wall, run_f, k1_frames, k1_prefill = respond_split(
+        model, user, dataclasses.replace(greedy, max_steps=RESPOND_SPLIT_FRAMES))
+    busy = sum(kernels.values()) / 1e3
+    log(f"respond under the profiler ({run_f} frames): wall {prof_wall:.3f} s, device busy "
+        f"{busy:.2f} ms (idle {100 * (1 - busy / 1e3 / prof_wall):.1f} %); device ms a frame: "
+        f"temporal step {ranges.get('temporal_step', 0.0) / run_f:.3f}, depformer "
+        f"{ranges.get('depformer_generate', 0.0) / run_f:.3f}, outside the ranges (text head, "
+        f"sampling, embeddings) {ranges.get('other', 0.0) / run_f:.3f}; once: prefill "
+        f"{ranges.get('temporal_prefill', 0.0):.3f}, Mimi encode "
+        f"{ranges.get('mimi_encode', 0.0):.3f}, Mimi decode {ranges.get('mimi_decode', 0.0):.3f}; "
+        f"K1 {k1_frames / run_f:.3f} ms a frame (bound {k1_frame_info['bound_ms']:.4f}), "
+        f"{k1_prefill:.3f} ms in the prefill; wall a "
+        f"frame {1e3 * wall / frames_run:.1f} ms unprofiled; on {dev_name} ({power})")
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"  device {us / 1e3:9.2f} ms  {name[:100]}")
+
+    # (c) POST /respond
+    pcm = to_pcm16(respond_user_audio(2.0, seed=8, rate=SR))
+    body = {"audio_base64": base64.b64encode(pcm.tobytes()).decode(), "sample_rate": SR,
+            "max_steps": RESPOND_SERVE_STEPS, "seed": 7}
+    server = SpeechServer(build_registry(s2s=model), port=0)
+    with Serving(server) as port:
+        t0 = time.perf_counter()
+        status_wav, ctype, wav_body = post(port, "/respond", json.dumps(body).encode(),
+                                           "application/json")
+        status_json, _, json_body = post(port, "/respond",
+                                         json.dumps(dict(body, format="json")).encode(),
+                                         "application/json")
+        t_serve = time.perf_counter() - t0
+    with Serving(SpeechServer(build_registry(), port=0)) as port:
+        status_none, _, none_body = post(port, "/respond", json.dumps(body).encode(),
+                                         "application/json")
+    direct = model.respond(to_float32(pcm), SR, sampling=PersonaSampling(
+        max_steps=RESPOND_SERVE_STEPS), seed=7)
+    served = json.loads(json_body) if status_json == 200 else {}
+    served_audio = read_wav(base64.b64decode(served.get("audio_base64", "")))[0] \
+        if served else np.zeros(0)
+    wav = read_wav(wav_body)[0] if status_wav == 200 else np.zeros(0)
+    want_audio = read_wav(wav_bytes(direct.samples, 24000))[0]
+    same = np.array_equal(served_audio, want_audio)
+    log(f"respond (c): POST /respond {status_wav} {ctype} ({len(wav)} samples), format json "
+        f"{status_json} with {len(served.get('text_token_ids', []))} text token ids, audio equal "
+        f"to respond(seed=7) {same}, ids equal {served.get('text_token_ids') == model.last_text_tokens.tolist()}; "
+        f"both in {t_serve:.2f} s; without s2s: {status_none} {none_body[:60]!r}")
+    if status_wav != 200 or ctype != "audio/wav" or len(wav) != RESPOND_SERVE_STEPS * spf:
+        raise AssertionError(f"POST /respond: {status_wav} {ctype}, {len(wav)} samples")
+    if (status_json != 200 or not same
+            or served.get("text_token_ids") != model.last_text_tokens.tolist()):
+        raise AssertionError(f"POST /respond json: {status_json}, audio equal {same}")
+    if status_none != 503:
+        raise AssertionError(f"POST /respond without s2s: {status_none}")
+    k1_frame_info.update(frames=frames_run, in_respond_device_ms=k1_frames / run_f)
+    return launches, k1_frame_info
+
+
 def phase_cli(dev_name):
     """``python -m qwen3_asr_swift_tpu_torch.cli`` on the card (its default
     device) with ``--random-weights``: transcribe, transcribe-batch, align,
-    vad, vad-stream and speak, one process each, all started together; each
+    vad, vad-stream, speak, denoise and respond, one process each, all
+    started together; each
     must exit 0 and print the reference's JSON keys (vad-stream: its event
     lines)."""
     import tempfile
@@ -1977,7 +2482,8 @@ def phase_cli(dev_name):
     keys = {"transcribe": {"text", "confidence", "duration", "rtf"},
             "transcribe-batch": {"file", "text", "confidence"},
             "align": {"word", "start", "end"}, "vad": {"start", "end"},
-            "speak": {"output", "seconds"}}
+            "speak": {"output", "seconds"}, "denoise": {"output"},
+            "respond": {"output", "seconds"}}
     with tempfile.TemporaryDirectory() as d:
         rng = np.random.default_rng(4)
         t = np.arange(3 * 16000) / 16000
@@ -1987,7 +2493,9 @@ def phase_cli(dev_name):
         runs = {"transcribe": [clip, "--max-tokens", "8"],
                 "transcribe-batch": [clip, clip, "--max-tokens", "8"],
                 "align": [clip, "hello big world"], "vad": [clip], "vad-stream": [clip],
-                "speak": ["hello", "--output", os.path.join(d, "out.wav")]}
+                "speak": ["hello", "--output", os.path.join(d, "out.wav")],
+                "denoise": [clip, "--output", os.path.join(d, "denoised.wav")],
+                "respond": [clip, "--output", os.path.join(d, "response.wav")]}
         t0 = time.perf_counter()
         procs = {name: subprocess.Popen(
             [sys.executable, "-m", "qwen3_asr_swift_tpu_torch.cli", name, "--random-weights",
@@ -2081,8 +2589,15 @@ def main() -> int:
     tts, k1["launches_tts"], k1["tts_frame"] = phase_tts(dev, K1_LAUNCHES, dev_name, power)
     mark("tts")
     phase_speak(model, tts, dev_name, power)
-    del tts
     mark("speak")
+    phase_realtime(model, tts, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
+    del tts
+    mark("realtime")
+    phase_enhance(dev_name, power)
+    mark("enhance")
+    k1["launches_respond"], k1["respond_frame"] = phase_respond(dev, K1_LAUNCHES, dev_name,
+                                                                power)
+    mark("respond")
     phase_cli(dev_name)
     mark("cli")
     if "jax" in sys.modules:

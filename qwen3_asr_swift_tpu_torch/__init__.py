@@ -10,10 +10,13 @@ mirrors its layout so each module's counterpart is easy to find:
                (kernel K3), sampling, log-mel
     audio/     WAV I/O, resampling, the wire formats' host encoders and
                on-device decoders (mu-law, pcm4, dpcm4)
-    tokenizers/  the byte-level BPE tokenizer
-    models/    Qwen3-ASR (encoder, decoder, batched transcription, beam)
-    serving/   the port's own SpeechServer (/health, /transcribe) over the
-               group batcher or the slot pool
+    tokenizers/  the byte-level BPE tokenizer, the SentencePiece reader
+    models/    Qwen3-ASR (encoder, decoder, batched transcription, beam,
+               streaming, aligner), Silero VAD, Qwen3-TTS, DeepFilterNet3
+               (enhancement), PersonaPlex with the Mimi codec
+    serving/   the port's own SpeechServer (/health, /transcribe, /speak,
+               /respond, /enhance, the /v1/realtime WebSocket) over the
+               group batchers or the slot pools
     csrc/      the hand-written CUDA kernels (sm_90a), built at first use
 
 Importing or running this package never imports ``jax`` nor any module of

@@ -1,8 +1,8 @@
 """`speech` command-line interface of the PyTorch/CUDA port — port of the
 subcommands of ``qwen3_asr_swift_tpu/cli.py`` whose models are ported:
 ``transcribe``, ``transcribe-batch``, ``align``, ``speak`` (and its aliases
-``qwen3-tts`` and ``qwen3-tts-coreml``), ``vad``, ``vad-stream`` and
-``serve``. The other families' subcommands are not in the parser yet
+``qwen3-tts`` and ``qwen3-tts-coreml``), ``respond`` (PersonaPlex),
+``vad``, ``vad-stream``, ``denoise`` (DeepFilterNet3) and ``serve``. The other families' subcommands are not in the parser yet
 (ROADMAP §1).
 
 Every model runs on ``--device`` (default ``cuda``, the first card; a
@@ -129,6 +129,51 @@ def cmd_vad(args):
     _print([{"start": round(s.start, 3), "end": round(s.end, 3)} for s in segs])
 
 
+def cmd_respond(args):
+    from .audio.io import write_wav
+    from .models.personaplex import PersonaPlex, PersonaSampling, config_tiny
+
+    if args.random_weights:
+        model = PersonaPlex.init_random(config_tiny(), device=args.device)
+        sampling = PersonaSampling(audio_temperature=0.0, max_steps=8)
+    else:
+        model = PersonaPlex.from_pretrained(args.model, device=args.device)
+        sampling = PersonaSampling()
+    audio, rate = _load_audio(args.audio, rate=model.cfg.mimi.sample_rate)
+    # the model resolves the string: path-like → load the file (plain
+    # missing-file error), bare name → snapshot preset
+    voice = args.voice_prompt
+    result = {"output": args.output}
+    if args.diagnostic:
+        out, diag = model.respond_diagnostic(audio, rate, sampling=sampling,
+                                             voice_prompt=voice,
+                                             system_prompt=args.system_prompt)
+        result["diagnostic"] = {
+            "text_tokens": diag["text_tokens"].tolist(),
+            "text_entropy": [round(float(e), 3) for e in diag["text_entropy"]],
+            "hidden_mean_range": [round(float(diag["hidden_stats"][:, 0].min()), 4),
+                                  round(float(diag["hidden_stats"][:, 0].max()), 4)],
+        }
+    else:
+        out = model.respond(audio, rate, sampling=sampling, voice_prompt=voice,
+                            system_prompt=args.system_prompt)
+    write_wav(args.output, out.samples, out.sample_rate)
+    result["seconds"] = len(out.samples) / out.sample_rate
+    _print(result)
+
+
+def cmd_denoise(args):
+    from .audio.io import write_wav
+    from .models.enhancement import SpeechEnhancer
+
+    model = (SpeechEnhancer.init_random(device=args.device) if args.random_weights
+             else SpeechEnhancer.from_pretrained(args.model, device=args.device))
+    audio, rate = _load_audio(args.audio, rate=48000)
+    out = model.enhance(audio, rate)
+    write_wav(args.output, out.samples, out.sample_rate)
+    _print({"output": args.output})
+
+
 def cmd_vad_stream(args):
     from .models.silero_vad import SileroVAD, StreamingVADProcessor
 
@@ -217,11 +262,25 @@ def build_parser() -> argparse.ArgumentParser:
         "--model": dict(default="aufklarer/Qwen3-TTS-0.6B-CoreML"),
         "--voice": dict(default=None), "--language": dict(default="english"),
         "--instruct": dict(default=None), "--output": dict(default="out.wav")})
+    add("respond", cmd_respond, audio={}, **{
+        "--model": dict(default="nvidia/personaplex-7b-v1"),
+        "--output": dict(default="response.wav"),
+        "--voice-prompt": dict(default=None,
+                               help="voice .safetensors/.npz path, or a "
+                                    "snapshot preset name (NATM0...)"),
+        "--system-prompt": dict(default=None,
+                                help="text steering prompt (SentencePiece'd; "
+                                     "default: built-in assistant prompt)"),
+        "--diagnostic": dict(action="store_true",
+                             help="also print per-step text tokens / entropy "
+                                  "/ hidden stats (respondDiagnostic)")})
     add("vad", cmd_vad, audio={}, **{
         "--model": dict(default=None, help="checkpoint id (default: the "
                                            "selected engine's own)"),
         "--engine": dict(default="silero", choices=["silero", "pyannote", "firered"])})
     add("vad-stream", cmd_vad_stream, audio={}, **{"--model": dict(default="silero-vad-v5")})
+    add("denoise", cmd_denoise, audio={}, **{
+        "--model": dict(default="deepfilternet3"), "--output": dict(default="denoised.wav")})
     add("serve", cmd_serve, **{
         "--host": dict(default="127.0.0.1"), "--port": dict(type=int, default=8321),
         "--decode-chunk": dict(

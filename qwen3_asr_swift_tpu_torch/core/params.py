@@ -44,6 +44,8 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 def _float_tensor(x, device, dtype) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device, dtype)
     return _tensor(_to_numpy(x).astype(np.float32, copy=False)).to(device, dtype)
 
 
@@ -61,9 +63,14 @@ def params_from_jax(tree, device, dtype=torch.bfloat16):
                     out["bias"] = _float_tensor(node["bias"], device, dtype)
                 return out
             if "codes" in node:
-                codes = np.ascontiguousarray(_to_numpy(node["codes"]).astype(np.uint32, copy=False))
+                codes = node["codes"]
+                if isinstance(codes, torch.Tensor):   # the port's own packing: int32 words
+                    codes = codes.to(device)
+                else:
+                    codes = np.ascontiguousarray(_to_numpy(codes).astype(np.uint32, copy=False))
+                    codes = _tensor(codes.view(np.int32)).to(device)
                 out = {
-                    "codes": _tensor(codes.view(np.int32)).to(device),
+                    "codes": codes,
                     "scales": _float_tensor(node["scales"], device, torch.float32),
                     "biases": _float_tensor(node["biases"], device, torch.float32),
                 }

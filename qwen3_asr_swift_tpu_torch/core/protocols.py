@@ -1,7 +1,8 @@
 """The port's copy of the capability interfaces it implements, from
 ``qwen3_asr_swift_tpu/core/protocols.py``: ``SpeechRecognitionModel``,
-``SpeechGenerationModel``, ``VoiceActivityDetectionModel``,
-``StreamingVADProvider`` and ``ForcedAlignmentModel``.
+``SpeechGenerationModel``, ``SpeechToSpeechModel``,
+``VoiceActivityDetectionModel``, ``StreamingVADProvider``,
+``SpeechEnhancementModel`` and ``ForcedAlignmentModel``.
 """
 
 from __future__ import annotations
@@ -95,6 +96,22 @@ class StreamingVADProvider(abc.ABC):
     @abc.abstractmethod
     def chunk_size(self) -> int:
         """Samples per VAD step at 16 kHz."""
+
+
+class SpeechToSpeechModel(SpeechModel):
+    """Full-duplex speech-to-speech (reference: SpeechToSpeechModel)."""
+
+    @abc.abstractmethod
+    def respond(self, audio: np.ndarray, sample_rate: int = 16000, **kwargs) -> AudioChunk:
+        ...
+
+
+class SpeechEnhancementModel(SpeechModel):
+    """Denoising / enhancement (reference: SpeechEnhancementModel)."""
+
+    @abc.abstractmethod
+    def enhance(self, audio: np.ndarray, sample_rate: int) -> AudioChunk:
+        ...
 
 
 class ForcedAlignmentModel(SpeechModel):

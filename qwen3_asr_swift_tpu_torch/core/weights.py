@@ -18,13 +18,28 @@ from typing import Dict, Optional
 import numpy as np
 
 
+def read_safetensors_file(path: str | Path) -> Dict[str, np.ndarray]:
+    """Every tensor of one ``.safetensors`` file; bf16 comes back as float32."""
+    from safetensors import safe_open
+
+    out: Dict[str, np.ndarray] = {}
+    with safe_open(str(path), framework="np") as f:
+        bf16 = {name for name in f.keys() if f.get_slice(name).get_dtype() == "BF16"}
+        for name in f.keys():
+            if name not in bf16:
+                out[name] = f.get_tensor(name)
+    if bf16:
+        with safe_open(str(path), framework="pt") as f:
+            for name in bf16:
+                out[name] = f.get_tensor(name).float().numpy()
+    return out
+
+
 def load_safetensors(model_dir: str | Path, dtype: Optional[np.dtype] = None) -> Dict[str, np.ndarray]:
     """Load all safetensors shards in a directory into a flat dict.
 
     Respects ``model.safetensors.index.json`` when present; otherwise loads
     every ``*.safetensors`` file. bf16 tensors come back as float32."""
-    from safetensors import safe_open
-
     model_dir = Path(model_dir)
     index = model_dir / "model.safetensors.index.json"
     if index.exists():
@@ -37,15 +52,7 @@ def load_safetensors(model_dir: str | Path, dtype: Optional[np.dtype] = None) ->
 
     out: Dict[str, np.ndarray] = {}
     for shard in shards:
-        with safe_open(str(shard), framework="np") as f:
-            bf16 = {name for name in f.keys() if f.get_slice(name).get_dtype() == "BF16"}
-            for name in f.keys():
-                if name not in bf16:
-                    out[name] = f.get_tensor(name)
-        if bf16:
-            with safe_open(str(shard), framework="pt") as f:
-                for name in bf16:
-                    out[name] = f.get_tensor(name).float().numpy()
+        out.update(read_safetensors_file(shard))
     if dtype is not None:
         out = {name: arr.astype(dtype) if np.issubdtype(arr.dtype, np.floating) else arr
                for name, arr in out.items()}

@@ -151,6 +151,9 @@ class Qwen3ASR(SpeechRecognitionModel):
         self.dispatch_gate = dispatch_gate
         self.first_chunk_tokens = first_chunk_tokens
         self.decode_chunk_tokens = decode_chunk_tokens
+        #: the decode budget of a call that passes none (the batchers' and
+        #: the realtime session's commits pass none)
+        self.max_tokens = 448
         self.mel_cfg = mel_cfg
         self.tokenizer = tokenizer
         if isinstance(wire_dtype, str) and wire_dtype not in _WIRES:
@@ -484,7 +487,7 @@ class Qwen3ASR(SpeechRecognitionModel):
 
     def transcribe(self, audio: np.ndarray, sample_rate: int = 16000,
                    language: Optional[str] = None, context: Optional[str] = None,
-                   max_tokens: int = 448, options: Optional[SamplingOptions] = None,
+                   max_tokens: Optional[int] = None, options: Optional[SamplingOptions] = None,
                    priority: Optional[int] = None, timings: Optional[dict] = None,
                    **kwargs) -> TranscriptionResult:
         return self.transcribe_batch(
@@ -493,7 +496,7 @@ class Qwen3ASR(SpeechRecognitionModel):
 
     def transcribe_batch(self, audios: Optional[Sequence[np.ndarray]] = None,
                          sample_rate: int = 16000, language: Optional[str] = None,
-                         context: Optional[str] = None, max_tokens: int = 448,
+                         context: Optional[str] = None, max_tokens: Optional[int] = None,
                          options: Optional[SamplingOptions] = None, seed: int = 0,
                          timings: Optional[dict] = None, priority: Optional[int] = None,
                          prestaged: Optional[_StagedBatch] = None) -> List[TranscriptionResult]:
@@ -503,7 +506,8 @@ class Qwen3ASR(SpeechRecognitionModel):
         times ({host_prep, encode, generate, postprocess} s) with a device
         sync at each boundary. ``prestaged`` is a :meth:`prestage` handle."""
         t_start = time.perf_counter()
-        opts = options or SamplingOptions(max_tokens=max_tokens)
+        opts = options or SamplingOptions(
+            max_tokens=self.max_tokens if max_tokens is None else max_tokens)
         check_supported(opts)
         st = prestaged if prestaged is not None else self.prestage(audios, sample_rate)
         if timings is not None:

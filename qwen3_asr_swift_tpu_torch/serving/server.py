@@ -1,7 +1,11 @@
-"""Speech serving over HTTP, stdlib asyncio — the port's copy of the ASR
-and TTS routes of ``qwen3_asr_swift_tpu/serving/server.py``.
+"""Speech serving: REST + OpenAI-Realtime WebSocket, stdlib asyncio — the
+port's copy of ``qwen3_asr_swift_tpu/serving/server.py``.
 
-``GET /health``, ``POST /transcribe`` and ``POST /speak`` with the
+``GET /health``, ``POST /transcribe``, ``/speak``, ``/respond`` (the
+``s2s`` entry, PersonaPlex) and ``/enhance`` (the ``enhance`` entry,
+DeepFilterNet3), and the ``/v1/realtime`` WebSocket
+(:class:`RealtimeSession`, the reference's copy: commits transcribe through
+the ASR batcher, ``response.create`` streams TTS audio deltas), with the
 reference's HTTP/1.1 plumbing (keep-alive, chunked bodies, body and header
 limits, read timeouts). ASR requests flow through the
 :class:`ContinuousBatcher` (``scheduler="group"``) or the port's
@@ -9,9 +13,7 @@ limits, read timeouts). ASR requests flow through the
 :class:`TTSBatcher` or the port's :class:`SlotPoolTTS`, by the same switch.
 A JSON ``/transcribe`` body may carry ``max_tokens``, the request's decode
 budget (the reference's route has none; its ``/respond`` takes
-``max_steps`` so). The reference's ``/respond``, ``/enhance`` and
-``/v1/realtime`` wait for a model family of the port that serves them;
-until then they answer 404 like any unknown route.
+``max_steps`` so).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import asyncio
 import base64
 import json
+import threading
 import time
 from typing import Callable, Dict, Optional
 
@@ -26,9 +29,10 @@ import numpy as np
 
 from ..audio.io import read_wav, wav_bytes
 from ..core.logging import serving as log
-from ..core.types import to_float32
+from ..core.types import to_float32, to_pcm16
 from .batching import ContinuousBatcher, TTSBatcher
 from .slotpool import SlotPoolASR
+from .ws import OP_TEXT, WebSocket, accept_key
 
 
 class _BodyTooLarge(Exception):
@@ -75,7 +79,7 @@ class ModelRegistry:
 
 
 class SpeechServer:
-    """REST speech server: ``/health``, ``/transcribe`` and ``/speak``."""
+    """REST + realtime WebSocket speech server."""
 
     MAX_HEADERS = 100
 
@@ -117,6 +121,7 @@ class SpeechServer:
         self._tts_batchers: Dict[int, object] = {}
         self._max_batch = max_batch
         self._server: Optional[asyncio.AbstractServer] = None
+        self._s2s_lock = threading.Lock()
         self._started = time.time()
 
     def _batcher_for(self, model):
@@ -231,6 +236,10 @@ class SpeechServer:
                     await self._respond(writer, header_error[0], {"error": header_error[1]})
                     break
 
+                if headers.get("upgrade", "").lower() == "websocket":
+                    await self._handle_websocket(path, headers, reader, writer)
+                    return
+
                 if headers.get("expect", "").lower() == "100-continue":
                     writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
                     await writer.drain()
@@ -323,6 +332,10 @@ class SpeechServer:
                 await self._handle_transcribe(headers, body, writer)
             elif method == "POST" and path == "/speak":
                 await self._handle_speak(body, writer)
+            elif method == "POST" and path == "/respond":
+                await self._handle_respond(headers, body, writer)
+            elif method == "POST" and path == "/enhance":
+                await self._handle_enhance(headers, body, writer)
             else:
                 await self._respond(writer, 404, {"error": f"no route {method} {path}"})
         except _BadRequest as e:
@@ -413,3 +426,244 @@ class SpeechServer:
         )
         await self._respond(writer, 200, wav_bytes(chunk.samples, chunk.sample_rate),
                             content_type="audio/wav")
+
+    async def _handle_respond(self, headers, body, writer):
+        """JSON-body params mirror the reference's /respond
+        (AudioServer.swift:111-150): ``max_steps``, ``system_prompt``,
+        ``seed``, and ``format: "json"`` — which returns the duration,
+        the agent transcript (when the model carries a tokenizer), and
+        base64 WAV instead of raw audio/wav."""
+        s2s = await self.registry.get("s2s")
+        if s2s is None:
+            await self._respond(writer, 503, {"error": "no speech-to-speech model registered"})
+            return
+        audio, rate, payload = self._decode_audio_body(headers, body)
+        kwargs = {}
+        if payload.get("system_prompt") is not None:
+            kwargs["system_prompt"] = payload["system_prompt"]
+        if payload.get("seed") is not None:
+            kwargs["seed"] = int(payload["seed"])
+        if payload.get("max_steps") is not None:
+            from ..models.personaplex import PersonaSampling
+
+            kwargs["sampling"] = PersonaSampling(max_steps=int(payload["max_steps"]))
+        loop = asyncio.get_running_loop()
+
+        def job():
+            # serialize respond + last_text_tokens/last_transcript reads:
+            # they are instance state on the model, so two overlapping
+            # requests would otherwise pair one request's audio with the
+            # other's transcript (the device serializes compute anyway)
+            with self._s2s_lock:
+                chunk = s2s.respond(audio, sample_rate=rate, **kwargs)
+                return (chunk, getattr(s2s, "last_text_tokens", None),
+                        getattr(s2s, "last_transcript", None))
+
+        chunk, toks, transcript = await loop.run_in_executor(None, job)
+        if payload.get("format") == "json":
+            out = {"duration": round(chunk.duration, 2),
+                   "audio_base64": base64.b64encode(
+                       wav_bytes(chunk.samples, chunk.sample_rate)).decode()}
+            if toks is not None:
+                # count under the reference's field name
+                # (AudioServer.swift:144), ids alongside
+                out["text_tokens"] = len(toks)
+                out["text_token_ids"] = [int(t) for t in toks]
+            if transcript is not None:
+                out["transcript"] = transcript
+            await self._respond(writer, 200, out)
+            return
+        await self._respond(writer, 200, wav_bytes(chunk.samples, chunk.sample_rate),
+                            content_type="audio/wav")
+
+    async def _handle_enhance(self, headers, body, writer):
+        enh = await self.registry.get("enhance")
+        if enh is None:
+            await self._respond(writer, 503, {"error": "no enhancement model registered"})
+            return
+        audio, rate, _ = self._decode_audio_body(headers, body)
+        loop = asyncio.get_running_loop()
+        chunk = await loop.run_in_executor(None, lambda: enh.enhance(audio, rate))
+        await self._respond(writer, 200, wav_bytes(chunk.samples, chunk.sample_rate),
+                            content_type="audio/wav")
+
+    # ------------------------------------------------------------------ #
+    # /v1/realtime (reference: AudioServer.swift:255-497)
+    # ------------------------------------------------------------------ #
+
+    async def _handle_websocket(self, path, headers, reader, writer):
+        key = headers.get("sec-websocket-key")
+        if not key or not path.startswith("/v1/realtime"):
+            await self._respond(writer, 400, {"error": "bad websocket request"})
+            return
+        resp = (
+            "HTTP/1.1 101 Switching Protocols\r\n"
+            "Upgrade: websocket\r\n"
+            "Connection: Upgrade\r\n"
+            f"Sec-WebSocket-Accept: {accept_key(key)}\r\n\r\n"
+        )
+        writer.write(resp.encode())
+        await writer.drain()
+        ws = WebSocket(reader, writer)
+        session = RealtimeSession(self, ws)
+        await session.run()
+
+
+class RealtimeSession:
+    """OpenAI Realtime protocol subset: audio in → transcription;
+    response.create → TTS audio deltas."""
+
+    def __init__(self, server: SpeechServer, ws: WebSocket):
+        self.server = server
+        self.ws = ws
+        self._audio = bytearray()  # pcm16 @ 16 kHz mono (input_audio_format pcm16)
+        self._input_rate = 16000
+        self._event_counter = 0
+        self._last_transcript = ""
+        self._pending_text = ""  # queued conversation.item.create text
+
+    def _event_id(self) -> str:
+        self._event_counter += 1
+        return f"evt_{self._event_counter}"
+
+    async def _send(self, payload: dict):
+        await self.ws.send_text(json.dumps(payload))
+
+    async def run(self):
+        await self._send({"type": "session.created", "event_id": self._event_id(),
+                          "session": {"id": "sess_1", "input_audio_format": "pcm16"}})
+        while True:
+            msg = await self.ws.recv()
+            if msg is None:
+                return
+            op, payload = msg
+            if op != OP_TEXT:
+                continue
+            try:
+                event = json.loads(payload)
+            except json.JSONDecodeError:
+                await self._send({"type": "error", "error": {"message": "invalid JSON"}})
+                continue
+            try:
+                await self._dispatch(event)
+            except Exception as e:  # noqa: BLE001
+                log.exception("realtime event failed")
+                await self._send({"type": "error", "error": {"message": str(e)}})
+
+    async def _dispatch(self, event: dict):
+        etype = event.get("type", "")
+        if etype == "session.update":
+            rate = event.get("session", {}).get("input_audio_sample_rate")
+            if rate:
+                self._input_rate = int(rate)
+            await self._send({"type": "session.updated", "event_id": self._event_id()})
+        elif etype == "input_audio_buffer.append":
+            self._audio += base64.b64decode(event.get("audio", ""))
+            if len(self._audio) > self.server.max_body:
+                self._audio.clear()
+                await self._send({"type": "error", "error": {
+                    "message": "input audio buffer overflow; buffer cleared"}})
+        elif etype == "input_audio_buffer.clear":
+            self._audio.clear()
+            await self._send({"type": "input_audio_buffer.cleared", "event_id": self._event_id()})
+        elif etype == "input_audio_buffer.commit":
+            await self._commit()
+        elif etype == "response.create":
+            await self._response(event)
+        elif etype == "conversation.item.create":
+            # text items queue for the next response.create's TTS
+            # (reference: AudioServer.swift:477-490)
+            item = event.get("item") or {}
+            for part in item.get("content") or []:
+                if part.get("type") in ("input_text", "text") and part.get("text"):
+                    self._pending_text = part["text"]
+                    await self._send({"type": "conversation.item.created",
+                                      "event_id": self._event_id(), "item": item})
+        else:
+            await self._send({"type": "error", "error": {"message": f"unsupported event {etype!r}"}})
+
+    async def _commit(self):
+        asr = await self.server.registry.get("asr")
+        if asr is None:
+            await self._send({"type": "error", "error": {"message": "no ASR model"}})
+            return
+        pcm = np.frombuffer(bytes(self._audio), dtype=np.int16)
+        self._audio.clear()
+        audio = to_float32(pcm)
+        await self._send({"type": "input_audio_buffer.committed", "event_id": self._event_id()})
+        batcher = self.server._batcher_for(asr)
+        loop = asyncio.get_running_loop()
+        fut = batcher.submit(audio, sample_rate=self._input_rate)
+        result = await loop.run_in_executor(None, fut.result)
+        self._last_transcript = result.text
+        await self._send({
+            "type": "conversation.item.input_audio_transcription.completed",
+            "event_id": self._event_id(),
+            "transcript": result.text,
+        })
+
+    async def _response(self, event: dict):
+        tts = await self.server.registry.get("tts")
+        text = ((event.get("response", {}) or {}).get("instructions")
+                or self._pending_text or self._last_transcript)
+        self._pending_text = ""
+        if tts is None or not text:
+            await self._send({"type": "response.done", "event_id": self._event_id(),
+                              "response": {"status": "incomplete"}})
+            return
+        loop = asyncio.get_running_loop()
+        await self._send({"type": "response.created", "event_id": self._event_id()})
+
+        # true streaming: deltas go out as the engine emits chunks
+        # (reference: synthesizeStream → response.audio.delta,
+        # AudioServer.swift:371-475). Every TTS model has
+        # synthesize_stream (the protocol default yields one
+        # whole-utterance chunk); each emitted piece is re-sliced into
+        # ~200 ms deltas so single-chunk engines still stream. The
+        # blocking generator runs on a worker thread; an asyncio queue
+        # bridges to the socket, and a producer error reaches the client
+        # as an error event + incomplete status instead of being
+        # swallowed with truncated audio marked complete.
+        q: "asyncio.Queue" = asyncio.Queue()
+        stream_fn = getattr(tts, "synthesize_stream", None)
+        if stream_fn is None:
+            # duck-typed models without the protocol default: one chunk
+            def stream_fn(t):
+                yield tts.synthesize(t)
+
+        def produce():
+            try:
+                for piece in stream_fn(text):
+                    loop.call_soon_threadsafe(q.put_nowait, piece)
+            except Exception as e:  # noqa: BLE001
+                log.exception("streaming TTS failed")
+                loop.call_soon_threadsafe(q.put_nowait, e)
+            finally:
+                loop.call_soon_threadsafe(q.put_nowait, None)
+
+        loop.run_in_executor(None, produce)
+        failed = None
+        while True:
+            piece = await q.get()
+            if piece is None:
+                break
+            if isinstance(piece, Exception):
+                failed = piece
+                continue  # drain to the sentinel
+            pcm = to_pcm16(piece.samples).tobytes()
+            step = max(2, piece.sample_rate // 5 * 2)  # ~200 ms of PCM16
+            for off in range(0, len(pcm), step):
+                await self._send({
+                    "type": "response.audio.delta",
+                    "event_id": self._event_id(),
+                    "delta": base64.b64encode(pcm[off : off + step]).decode(),
+                })
+        if failed is not None:
+            await self._send({"type": "error",
+                              "error": {"message": f"synthesis failed: {failed}"}})
+            await self._send({"type": "response.done", "event_id": self._event_id(),
+                              "response": {"status": "incomplete"}})
+            return
+        await self._send({"type": "response.audio.done", "event_id": self._event_id()})
+        await self._send({"type": "response.done", "event_id": self._event_id(),
+                          "response": {"status": "completed"}})

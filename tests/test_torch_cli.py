@@ -1,4 +1,5 @@
-"""The port's CLI (``python -m qwen3_asr_swift_tpu_torch.cli``).
+"""The port's CLI (``python -m qwen3_asr_swift_tpu_torch.cli``), ``respond``
+and ``denoise`` included.
 
 Each ported subcommand runs through ``main([..., "--device", "cpu",
 "--random-weights"])``, prints the reference's JSON keys, and its result
@@ -25,7 +26,7 @@ from qwen3_asr_swift_tpu_torch.audio.io import load_audio, write_wav
 
 REPO = Path(__file__).resolve().parent.parent
 PORTED = ["transcribe", "transcribe-batch", "align", "speak", "qwen3-tts", "qwen3-tts-coreml",
-          "vad", "vad-stream", "serve"]
+          "respond", "vad", "vad-stream", "denoise", "serve"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -127,6 +128,47 @@ def test_vad_and_stream(capsys, clips):
         want += [f"{ev.time:8.2f}s {ev.type.value}" for ev in proc.process(audio[off:off + 4000])]
     want += [f"{ev.time:8.2f}s {ev.type.value}" for ev in proc.flush()]
     assert lines == want
+
+
+@pytest.mark.parametrize("diagnostic", [False, True])
+def test_respond(capsys, clips, tmp_path, diagnostic):
+    from qwen3_asr_swift_tpu_torch.audio.io import read_wav, wav_bytes
+    from qwen3_asr_swift_tpu_torch.models.personaplex import (PersonaPlex, PersonaSampling,
+                                                              config_tiny)
+
+    model = PersonaPlex.init_random(config_tiny(), device="cpu")
+    voice = str(tmp_path / "voice.safetensors")
+    model.make_voice_prompt(load_audio(clips[0], 24000)[0], 24000, path=voice)
+    path = str(tmp_path / "response.wav")
+    argv = ["respond", clips[1], "--random-weights", "--output", path, "--voice-prompt", voice]
+    out = json.loads(run(capsys, *argv, *(["--diagnostic"] if diagnostic else [])))
+    audio = load_audio(clips[1], 24000)[0]
+    sampling = PersonaSampling(audio_temperature=0.0, max_steps=8)
+    if diagnostic:
+        want, diag = model.respond_diagnostic(audio, 24000, sampling=sampling, voice_prompt=voice)
+        assert set(out) == {"output", "seconds", "diagnostic"}
+        assert out["diagnostic"]["text_tokens"] == diag["text_tokens"].tolist()
+        assert set(out["diagnostic"]) == {"text_tokens", "text_entropy", "hidden_mean_range"}
+    else:
+        want = model.respond(audio, 24000, sampling=sampling, voice_prompt=voice)
+        assert set(out) == {"output", "seconds"}
+    got, rate = read_wav(open(path, "rb").read())
+    assert rate == 24000 and out["seconds"] == len(want.samples) / 24000
+    np.testing.assert_array_equal(got, read_wav(wav_bytes(want.samples, 24000))[0])
+
+
+def test_denoise(capsys, clips, tmp_path):
+    from qwen3_asr_swift_tpu_torch.audio.io import read_wav, wav_bytes
+    from qwen3_asr_swift_tpu_torch.models.enhancement import SpeechEnhancer
+
+    path = str(tmp_path / "denoised.wav")
+    out = json.loads(run(capsys, "denoise", clips[0], "--random-weights", "--output", path))
+    assert out == {"output": path}
+    audio = load_audio(clips[0], 48000)[0]
+    want = SpeechEnhancer.init_random(device="cpu").enhance(audio, 48000)
+    got, rate = read_wav(open(path, "rb").read())
+    assert rate == 48000 and len(got) == len(audio)
+    np.testing.assert_array_equal(got, read_wav(wav_bytes(want.samples, 48000))[0])
 
 
 @pytest.mark.parametrize("engine", ["pyannote", "firered"])

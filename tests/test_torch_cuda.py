@@ -168,6 +168,77 @@ def test_k1_tts_rows_do_not_depend_on_the_batch(card, in_dim, out_dim):
             assert torch.equal(k1.quant_matmul_cuda(x[i:i + 1], p), full[i:i + 1])
 
 
+#: K1's products on the PersonaPlex 7B frame loop: qkv, o, gate_up, down
+#: (in 11264: the K split over shared memory) and the text head (out 32001:
+#: odd, a ragged last tile)
+PERSONAPLEX_SHAPES = [(4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096), (4096, 32001)]
+
+
+@pytest.mark.parametrize("xdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("in_dim,out_dim", PERSONAPLEX_SHAPES)
+def test_k1_personaplex_shapes(card, xdt, rows, in_dim, out_dim):
+    p = packed(out_dim, in_dim, 4, card, seed=rows + in_dim)
+    x = torch.randn((rows, in_dim), device=card).to(getattr(torch, xdt))
+    before = k1.K1_LAUNCHES.value
+    got = k1.quant_matmul_cuda(x, p)
+    torch.cuda.synchronize()
+    assert k1.K1_LAUNCHES.value == before + 1
+    assert got.shape == (rows, out_dim) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert rel(got, k1.quant_matmul(x, p)) <= TOL
+
+
+@pytest.mark.parametrize("in_dim,out_dim", PERSONAPLEX_SHAPES)
+def test_k1_personaplex_rows_do_not_depend_on_the_batch(card, in_dim, out_dim):
+    p = packed(out_dim, in_dim, 4, card, seed=7)
+    for xdt in (torch.bfloat16, torch.float32):
+        x = torch.randn((8, in_dim), device=card).to(xdt)
+        full = k1.quant_matmul_cuda(x, p)
+        for i in (0, 3, 7):
+            assert torch.equal(k1.quant_matmul_cuda(x[i:i + 1], p), full[i:i + 1])
+
+
+def test_tiny_personaplex_on_card_matches_host(card):
+    """A packed tiny PersonaPlex (widths 128, so every temporal linear and
+    the text head pack) in fp32: the first frame's text logits and the
+    depformer's codebook logits card vs host within 2e-2 relative L2, K1 at
+    every packed product of the prefill and the frame, and greedy codes
+    run on the card."""
+    from qwen3_asr_swift_tpu_torch.models.personaplex import PersonaPlex, PersonaSampling
+    from qwen3_asr_swift_tpu_torch.models.personaplex import model as pp
+
+    cfg = dataclasses.replace(pp.config_tiny(), d_model=128, num_heads=4, head_dim=32,
+                              intermediate_size=128, text_vocab=128)
+    rng = np.random.default_rng(0)
+    params = pp.init_personaplex_params(rng, cfg)
+    mimi = pp.init_mimi_params(rng, cfg.mimi)
+    audio = (0.2 * rng.standard_normal(3 * cfg.mimi.samples_per_frame)).astype(np.float32)
+    got = {}
+    for where in ("cpu", "cuda"):
+        m = PersonaPlex(cfg, params, mimi, device=where, dtype=torch.float32, quant_bits=4)
+        with torch.inference_mode():
+            uc, nf, ve, nv, reads, n_prompt = m._conversation_inputs(audio, 24000, None, None)
+            before = k1.K1_LAUNCHES.value
+            cache = m._prefill(uc, ve, nv, reads, n_prompt, 4)
+            sine = torch.tensor(pp.SINE_TOKENS[:8], device=m.device)[None]
+            silence = torch.tensor(pp.SILENCE_TOKENS[:8], device=m.device)[None]
+            hidden, text_logits = m._frame_hidden(
+                cache, torch.tensor([cfg.text_pad], device=m.device), sine, silence)
+            launches = k1.K1_LAUNCHES.value - before
+            dep = pp.depformer_forward_logits(m.params, cfg, hidden,
+                                              text_logits.argmax(-1), uc[:, :, 0])
+        got[where] = (text_logits.cpu(), dep.cpu())
+        if where == "cuda":
+            assert launches == 2 * 4 + 2 * 4 + 1   # prefill's and the frame's products, the head
+            out = m.respond(audio, 24000, sampling=PersonaSampling(audio_temperature=0.0,
+                                                                   text_temperature=0.0,
+                                                                   max_steps=4))
+            assert np.isfinite(out.samples).all() and len(out.samples) > 0
+    for c, h in zip(got["cuda"], got["cpu"]):
+        assert (torch.linalg.vector_norm(c - h) / torch.linalg.vector_norm(h)).item() <= 2e-2
+
+
 def test_k1_rejects_bad_dtype_group_and_device(card):
     p = packed(64, 256, 4, card)
     x = torch.randn((2, 256), device=card)

@@ -1,6 +1,7 @@
-"""The port's own ``SpeechServer`` (``/health``, ``/transcribe``; ``/speak``
-answers 503 without a TTS model; the unported routes answer 404), and the
-thread safety the two batcher workers need."""
+"""The port's own ``SpeechServer`` (``/health``, ``/transcribe``; ``/speak``,
+``/respond`` and ``/enhance`` answer 503 without their models, ``/v1/realtime``
+the WebSocket handshake, unknown routes 404), and the thread safety the two
+batcher workers need."""
 
 import asyncio
 import http.client
@@ -68,7 +69,16 @@ def test_server_answers_transcribe_and_health(model):
                                          ("POST", "/enhance"), ("GET", "/v1/realtime"),
                                          ("GET", "/nowhere")])
 def test_unported_routes_answer_like_unknown_ones(model, method, path):
+    """Every route of the reference is ported now: with only an ``asr`` entry
+    in the registry, ``/speak``, ``/respond`` and ``/enhance`` answer the
+    reference's 503s, ``/v1/realtime`` the WebSocket handshake (then the
+    session's first event), and an unknown route 404."""
+    import socket
+
+    from qwen3_asr_swift_tpu_torch.serving.ws import accept_key
+
     server = SpeechServer(build_registry(model), port=0)
+    ws_key = "dGhlIHNhbXBsZSBub25jZQ=="
 
     async def ask():
         await server.start()
@@ -79,15 +89,29 @@ def test_unported_routes_answer_like_unknown_ones(model, method, path):
             try:
                 body = b'{"text": "hello"}' if path == "/speak" else b"{}"
                 conn.request(method, path, body=body if method == "POST" else None,
-                             headers={"Upgrade": "websocket", "Connection": "Upgrade",
-                                      "Sec-WebSocket-Key": "dGhlIHNhbXBsZSBub25jZQ=="})
+                             headers={"Content-Type": "application/json"})
                 resp = conn.getresponse()
                 return resp.status, json.loads(resp.read())
             finally:
                 conn.close()
 
+        def handshake():
+            with socket.create_connection(("127.0.0.1", port), timeout=60) as sock:
+                sock.sendall((f"{method} {path} HTTP/1.1\r\nHost: x\r\nUpgrade: websocket\r\n"
+                              f"Connection: Upgrade\r\nSec-WebSocket-Key: {ws_key}\r\n"
+                              "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+                data = b""
+                while b"\r\n\r\n" not in data:
+                    data += sock.recv(4096)
+                head, _, rest = data.partition(b"\r\n\r\n")
+                while len(rest) < 2 or len(rest) < 2 + (rest[1] & 0x7F):
+                    rest += sock.recv(4096)
+                first = json.loads(rest[2:2 + (rest[1] & 0x7F)])
+                return head.decode(), first
+
         try:
-            return await asyncio.get_running_loop().run_in_executor(None, request)
+            fn = handshake if path == "/v1/realtime" else request
+            return await asyncio.get_running_loop().run_in_executor(None, fn)
         finally:
             await server.stop()
 
@@ -96,6 +120,15 @@ def test_unported_routes_answer_like_unknown_ones(model, method, path):
         # /speak is ported (Qwen3-TTS): with no "tts" entry in the registry it
         # answers as the reference does
         assert status == 503 and payload == {"error": "no TTS model registered"}
+    elif path == "/respond":
+        assert status == 503 and payload == {"error": "no speech-to-speech model registered"}
+    elif path == "/enhance":
+        assert status == 503 and payload == {"error": "no enhancement model registered"}
+    elif path == "/v1/realtime":
+        lines = status.split("\r\n")
+        assert lines[0] == "HTTP/1.1 101 Switching Protocols", lines
+        assert f"Sec-WebSocket-Accept: {accept_key(ws_key)}" in lines
+        assert payload["type"] == "session.created", payload
     else:
         assert status == 404 and payload == {"error": f"no route {method} {path}"}
 

@@ -35,6 +35,15 @@ from qwen3_asr_swift_tpu.models.qwen3_tts import config as j_tts_config
 from qwen3_asr_swift_tpu.models.qwen3_tts import convert as j_tts_convert
 from qwen3_asr_swift_tpu.models.qwen3_tts import model as j_tts_model
 from qwen3_asr_swift_tpu.models.qwen3_tts import voice_clone as j_voice_clone
+from qwen3_asr_swift_tpu.models.enhancement import convert as j_dfn_convert
+from qwen3_asr_swift_tpu.models.enhancement import dfn3 as j_dfn3
+from qwen3_asr_swift_tpu.models.enhancement import model as j_enh_model
+from qwen3_asr_swift_tpu.models.personaplex import convert as j_pp_convert
+from qwen3_asr_swift_tpu.models.personaplex import mimi as j_mimi
+from qwen3_asr_swift_tpu.models.personaplex import model as j_pp_model
+from qwen3_asr_swift_tpu.serving import server as j_server
+from qwen3_asr_swift_tpu.serving import ws as j_ws
+from qwen3_asr_swift_tpu.tokenizers import sentencepiece_model as j_spm
 from qwen3_asr_swift_tpu.models.silero_vad import streaming as j_vad_stream
 from qwen3_asr_swift_tpu.ops import fbank as j_fbank
 from qwen3_asr_swift_tpu.ops import mel as j_mel
@@ -56,6 +65,15 @@ from qwen3_asr_swift_tpu_torch.models.qwen3_tts import config as p_tts_config
 from qwen3_asr_swift_tpu_torch.models.qwen3_tts import convert as p_tts_convert
 from qwen3_asr_swift_tpu_torch.models.qwen3_tts import model as p_tts_model
 from qwen3_asr_swift_tpu_torch.models.qwen3_tts import voice_clone as p_voice_clone
+from qwen3_asr_swift_tpu_torch.models.enhancement import convert as p_dfn_convert
+from qwen3_asr_swift_tpu_torch.models.enhancement import dfn3 as p_dfn3
+from qwen3_asr_swift_tpu_torch.models.enhancement import model as p_enh_model
+from qwen3_asr_swift_tpu_torch.models.personaplex import convert as p_pp_convert
+from qwen3_asr_swift_tpu_torch.models.personaplex import mimi as p_mimi
+from qwen3_asr_swift_tpu_torch.models.personaplex import model as p_pp_model
+from qwen3_asr_swift_tpu_torch.serving import server as p_server
+from qwen3_asr_swift_tpu_torch.serving import ws as p_ws
+from qwen3_asr_swift_tpu_torch.tokenizers import sentencepiece_model as p_spm
 from qwen3_asr_swift_tpu_torch.models.silero_vad import streaming as p_vad_stream
 from qwen3_asr_swift_tpu_torch.ops import fbank as p_fbank
 from qwen3_asr_swift_tpu_torch.ops import mel as p_mel
@@ -213,6 +231,23 @@ def test_bpe_tokenizer_matches(text):
     (p_tts_model, j_tts_model, ["TTSSamplingConfig", "_round_up"]),
     (p_voice_clone, j_voice_clone, ["_factor_strides", "ReferenceAudioCache"]),
     (p_fbank, j_fbank, ["hz_to_mel_htk", "mel_to_hz_htk", "kaldi_mel_banks", "_povey_dft"]),
+    (p_ws, j_ws, ["accept_key", "encode_frame", "_unmask", "read_frame", "read_message",
+                  "WebSocket", "encode_client_frame", "SyncWSClient"]),
+    (p_server, j_server, ["RealtimeSession"]),
+    (p_protocols, j_protocols, ["SpeechToSpeechModel", "SpeechEnhancementModel"]),
+    (p_spm, j_spm, ["_read_varint", "_skip_field", "SentencePieceModel"]),
+    (p_dfn_convert, j_dfn_convert, ["_load_state_dict", "_index_groups", "_conv_block",
+                                    "_gru_stack", "map_dfn3_state_dict", "convert_checkpoint"]),
+    (p_enh_model, j_enh_model, ["vorbis_window", "_dft", "_idft", "_erb_fb_widths",
+                                "erb_filterbank", "erb_inverse_filterbank",
+                                "default_mean_norm_init", "default_unit_norm_init"]),
+    (p_pp_convert, j_pp_convert, ["_t", "_conv", "_convT", "_transformer_layers",
+                                  "_seanet_encoder", "_seanet_decoder", "_rvq",
+                                  "dequantize_state_dict", "_rope_traditional_to_half",
+                                  "convert_moshi_tree", "export_moshi_state_dict",
+                                  "normalize_mimi_keys", "convert_mimi_tree"]),
+    (p_mimi, j_mimi, ["MimiConfig", "config_tiny", "_causal_pad"]),
+    (p_pp_model, j_pp_model, ["PersonaPlexConfig", "config_tiny", "PersonaSampling"]),
 ])
 def test_copied_code_is_the_original(port, ref, names):
     """Whole copies keep their originals' source, so a fix to one shows as
@@ -220,6 +255,71 @@ def test_copied_code_is_the_original(port, ref, names):
     for name in names:
         got, want = inspect.getsource(getattr(port, name)), inspect.getsource(getattr(ref, name))
         assert got == want, name
+
+
+@pytest.mark.parametrize("port,ref,names", [
+    (p_server.SpeechServer, j_server.SpeechServer,
+     ["_handle_respond", "_handle_enhance", "_handle_websocket"]),
+    (p_pp_model.PersonaPlex, j_pp_model.PersonaPlex,
+     ["available_voices", "voice", "_build_voice_ring", "load_voice_prompt",
+      "_silence_spacer_frames", "_prompt_tokens", "_prompt_reads"]),
+])
+def test_copied_methods_are_the_originals(port, ref, names):
+    for name in names:
+        got, want = inspect.getattr_static(port, name), inspect.getattr_static(ref, name)
+        if isinstance(got, property):
+            got, want = got.fget, want.fget
+        if isinstance(got, staticmethod):
+            got, want = got.__func__, want.__func__
+        assert inspect.getsource(got) == inspect.getsource(want), name
+    for name in ("VOICE_PROMPT_CAP", "DELAY_RING", "PROMPT_CAP", "VOICES"):
+        assert getattr(port, name, None) == getattr(ref, name, None), name
+
+
+def test_personaplex_and_dfn3_constants_match():
+    for name in ("SINE_TOKENS", "SILENCE_TOKENS", "DEFAULT_SYSTEM_PROMPT_TOKENS"):
+        assert getattr(p_pp_model, name) == getattr(j_pp_model, name), name
+    assert dataclasses.asdict(p_pp_model.CONFIG_7B) == dataclasses.asdict(j_pp_model.CONFIG_7B)
+    assert (dataclasses.asdict(p_pp_model.config_tiny())
+            == dataclasses.asdict(j_pp_model.config_tiny()))
+    assert p_pp_model.CONFIG_7B.mimi.samples_per_frame == 1920
+    for name in ("NB_ERB", "NB_DF", "DF_ORDER", "CONV_CH", "EMB_HIDDEN", "EMB_DIM", "DF_HIDDEN",
+                 "ENC_LIN_GROUPS", "LIN_GROUPS", "LOOKAHEAD", "DF_PATHWAY_KT", "LSNR_MIN",
+                 "LSNR_MAX"):
+        assert getattr(p_dfn3, name) == getattr(j_dfn3, name), name
+    for name in ("SR", "N_FFT", "HOP", "N_BINS", "NORM_ALPHA"):
+        assert getattr(p_enh_model, name) == getattr(j_enh_model, name), name
+
+
+def _sp_model(path):
+    def varint(v):
+        out = bytearray()
+        while True:
+            b = v & 0x7F
+            v >>= 7
+            out.append(b | (0x80 if v else 0))
+            if not v:
+                return bytes(out)
+
+    def piece(text, score, kind):
+        body = b"\x0a" + varint(len(text.encode())) + text.encode()
+        body += b"\x15" + np.float32(score).tobytes() + b"\x18" + varint(kind)
+        return b"\x0a" + varint(len(body)) + body
+
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("\u2581hello", -1.0, 1),
+              ("\u2581world", -1.5, 1), ("ing", -2.0, 1), ("\u2581", -2.5, 1),
+              ("<0xE4>", -3.0, 6), ("<0xB8>", -3.0, 6), ("<0xAD>", -3.0, 6)]
+    path.write_bytes(b"".join(piece(*p) for p in pieces))
+    return path
+
+
+@pytest.mark.parametrize("text", ["hello world", "helloing world", "中", ""])
+def test_sentencepiece_matches(tmp_path, text):
+    path = _sp_model(tmp_path / "sp.model")
+    port, ref = p_spm.SentencePieceModel.load(path), j_spm.SentencePieceModel.load(path)
+    ids = port.encode(text)
+    assert ids == ref.encode(text)
+    assert port.decode(ids) == ref.decode(ids)
 
 
 def test_tts_configs_and_codec_tokens_match():
@@ -252,9 +352,10 @@ def test_fbank_constants_match(args):
 
 
 def test_tts_paths_import_nothing_of_the_jax_package():
-    """Running the CLI, ``Qwen3TTS`` and both TTS batchers (the group
-    ``TTSBatcher`` and ``SlotPoolTTS``) imports neither jax nor any module
-    of the JAX package."""
+    """Running the CLI (``denoise`` and ``respond`` too), ``Qwen3TTS``, both
+    TTS batchers (the group ``TTSBatcher`` and ``SlotPoolTTS``),
+    ``SpeechEnhancer``, ``PersonaPlex`` and a ``/v1/realtime`` session
+    imports neither jax nor any module of the JAX package."""
     code = textwrap.dedent("""
         import contextlib, io, os, sys, tempfile
         import numpy as np, torch
@@ -273,6 +374,42 @@ def test_tts_paths_import_nothing_of_the_jax_package():
         pool = SlotPoolTTS(m, slots=2, sampling=s)
         assert len(pool.synthesize("hi").samples) > 0
         pool.close()
+        from qwen3_asr_swift_tpu_torch.models.enhancement import SpeechEnhancer
+        from qwen3_asr_swift_tpu_torch.models.personaplex import (PersonaPlex, PersonaSampling,
+                                                                  config_tiny as pp_tiny)
+        from qwen3_asr_swift_tpu_torch.models.qwen3_asr import Qwen3ASR, config_tiny as asr_tiny
+        from qwen3_asr_swift_tpu_torch.serving import SpeechServer, build_registry
+        from qwen3_asr_swift_tpu_torch.serving.ws import SyncWSClient
+        import asyncio, base64, threading
+        enh = SpeechEnhancer.init_random(0, device="cpu")
+        assert len(enh.enhance(np.zeros(4800, np.float32), 48000).samples) == 4800
+        pp = PersonaPlex.init_random(pp_tiny(), 0, device="cpu")
+        assert len(pp.respond(np.zeros(1920, np.float32), 24000,
+                              sampling=PersonaSampling(max_steps=2)).samples) > 0
+        asr = Qwen3ASR.init_random(asr_tiny(), device="cpu", dtype=torch.float32,
+                                   audio_buckets_s=(8,))
+        asr.max_tokens = 2
+        m.sampling = s
+        server = SpeechServer(build_registry(asr, m), port=0)
+        loop = asyncio.new_event_loop()
+        t = threading.Thread(target=loop.run_forever, daemon=True)
+        t.start()
+        asyncio.run_coroutine_threadsafe(server.start(), loop).result(timeout=30)
+        ws = SyncWSClient("127.0.0.1", server._server.sockets[0].getsockname()[1])
+        assert ws.recv_json()["type"] == "session.created"
+        ws.send_json({"type": "input_audio_buffer.append",
+                      "audio": base64.b64encode(np.zeros(1600, "<i2").tobytes()).decode()})
+        ws.send_json({"type": "input_audio_buffer.commit"})
+        ws.send_json({"type": "response.create", "response": {"instructions": "hi"}})
+        seen = []
+        while not seen or seen[-1] != "response.done":
+            seen.append(ws.recv_json()["type"])
+        assert "conversation.item.input_audio_transcription.completed" in seen, seen
+        assert "response.audio.delta" in seen, seen
+        ws.close()
+        asyncio.run_coroutine_threadsafe(server.stop(), loop).result(timeout=60)
+        loop.call_soon_threadsafe(loop.stop)
+        t.join(timeout=30)
         with tempfile.TemporaryDirectory() as d:
             clip = os.path.join(d, "clip.wav")
             write_wav(clip, np.zeros(16000, np.float32), 16000)
@@ -280,7 +417,9 @@ def test_tts_paths_import_nothing_of_the_jax_package():
                 for argv in (["transcribe", clip, "--max-tokens", "2"],
                              ["transcribe-batch", clip, "--max-tokens", "2"],
                              ["align", clip, "one"], ["vad", clip], ["vad-stream", clip],
-                             ["speak", "hi", "--output", os.path.join(d, "o.wav")]):
+                             ["speak", "hi", "--output", os.path.join(d, "o.wav")],
+                             ["denoise", clip, "--output", os.path.join(d, "d.wav")],
+                             ["respond", clip, "--output", os.path.join(d, "r.wav")]):
                     cli.main(["--device", "cpu", argv[0], "--random-weights", *argv[1:]])
         assert "jax" not in sys.modules, [k for k in sys.modules if k.startswith("jax")]
         ref = [k for k in sys.modules
