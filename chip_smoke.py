@@ -131,9 +131,39 @@ Then the server's last three routes:
                vad, vad-stream, speak, denoise and respond, in parallel, each
                exit 0 with the reference's JSON keys.
 
+Then the conversational paths (chat and agent run after realtime, while
+the TTS model is still built; duplex after respond, on its 7B):
+
+22. chat     — Qwen3.5 ``CONFIG_08B`` (hidden 1024, 18 DeltaNet + 6 gated
+               attention layers, vocab 151,936), random weights drawn on the
+               card, packed 4-bit group 64 (the tied table too): K1 at the
+               token's 11 shapes (rows 1, bf16 x) with bound and yardstick
+               summed over a token; cut to 2 layers in fp32, the first-step
+               logits card vs host within 5e-2 relative L2; the 0.8B in bf16:
+               64 greedy tokens, ``generate_ids_stream`` equal to
+               ``generate_ids``, K1's launches the count from the code
+               (packed products a row-block × steps), tokens/s, device ms a
+               token by range;
+23. agent    — one turn of ``VoicePipeline`` (the C++ engine built with g++)
+               over Silero on the card, the slice's ASR (K1, K3), the chat
+               model (64 tokens) and the 1.7B TTS (24 frames): no ERROR
+               event; the transcript equal to a direct ``transcribe`` of the
+               samples the STT adapter got, the reply to a direct ``chat`` of
+               it, the audio chunks to a direct ``synthesize`` of the reply;
+               end of speech → transcript, reply and first audio;
+24. duplex   — ``PersonaPlex.realtime_session`` on phase respond's 7B over its
+               4 s of user audio (50 frames), greedy with the repetition
+               penalties off: streaming Mimi codes equal to the batch encode;
+               agent codes and text equal to the offline ``_converse`` or
+               parting at a near-tie; ``batch=2`` with two voice prompts
+               against two single sessions; an int8-KV session; K1's launches
+               128 + 129 a frame; push p50/p90, frames/s against 12.5 Hz,
+               device ms a frame by range, peak memory at batch 1 and 2.
+
 Weights are random (numpy, seed 0) at the full width of the 0.6B
-configuration (the ASR phases) and the 1.7B one (TTS); PersonaPlex's are
-drawn on the card (its numpy draw would take minutes). The line before the last is ``{"kernels": [...]}`` (each
+configuration (the ASR phases) and the 1.7B one (TTS); PersonaPlex's and
+the chat model's are drawn on the card (the 7B's numpy draw would take
+minutes). The line before the last is ``{"kernels": [...]}`` (each
 entry with its launches in the main path's run, its bound and its library
 time); the last line is ``{"ok": true, "device": {...}}``. Imports nothing
 of JAX nor of the JAX package, and checks so before the last lines.
@@ -2465,7 +2495,619 @@ def phase_respond(dev, k1_counter, dev_name, power):
     if status_none != 503:
         raise AssertionError(f"POST /respond without s2s: {status_none}")
     k1_frame_info.update(frames=frames_run, in_respond_device_ms=k1_frames / run_f)
-    return launches, k1_frame_info
+    return launches, k1_frame_info, model
+
+
+CHAT_TOL = 5e-2          # first-step logits, relative L2, card vs host CPU (phase step's limit)
+CHAT_TOKENS = 64         # the greedy generation's budget (depth cut)
+CHAT_SPLIT_TOKENS = 4    # tokens under the profiler
+CHAT_PROMPT = "Tell me about the weather on the coast today, in two short sentences please."
+#: K1's products of one Qwen3.5 0.8B token: (name, in, out, calls a token)
+CHAT_K1_SHAPES = [("deltanet qkv", 1024, 6144, 18), ("deltanet z", 1024, 2048, 18),
+                  ("deltanet out", 2048, 1024, 18), ("attn q+gate", 1024, 4096, 6),
+                  ("attn k", 1024, 512, 6), ("attn v", 1024, 512, 6), ("attn o", 2048, 1024, 6),
+                  ("mlp gate", 1024, 3072, 24), ("mlp up", 1024, 3072, 24),
+                  ("mlp down", 3072, 1024, 24), ("tied head", 1024, 151936, 1)]
+AGENT_SPEECH_S = 3.0     # seconds of speech-like audio fed to the agent, then silence
+AGENT_SILENCE_S = 1.5
+AGENT_STT_TOKENS = 32    # the ASR's budget on the agent's path (as realtime's)
+AGENT_CHAT_TOKENS = 64   # the chat's generation budget on the agent's path
+AGENT_TTS_FRAMES = 24    # the TTS model's frame cap on the agent's path (as realtime's)
+AGENT_WAIT_S = 600
+DUPLEX_TOL = 5e-2        # sampler logits up to the first parting, relative L2
+DUPLEX_BATCH_FRAMES = 16  # frames of the batch-2 comparison
+DUPLEX_SPLIT_FRAMES = 4   # frames under the profiler
+
+
+def chat_vocab_tokenizer(vocab_size: int, im_start: int, im_end: int):
+    """The CLI's byte-level chat tokenizer grown to a Qwen-sized vocabulary:
+    its 256 byte tokens, the chat template's two specials at their Qwen
+    ids, and every other id a token of three printable characters, so a
+    random model's reply decodes to text (ASCII) instead of vanishing."""
+    from qwen3_asr_swift_tpu_torch.cli import chat_tokenizer
+    from qwen3_asr_swift_tpu_torch.tokenizers.bpe import BPETokenizer
+
+    base = chat_tokenizer(256)
+    vocab = dict(base.vocab)
+    enc = base.byte_encoder
+    letters = [enc[b] for b in range(ord("a"), ord("z") + 1)] + [enc[ord(" ")]] + \
+        [enc[b] for b in range(ord("A"), ord("Z") + 1)] + [enc[b] for b in range(ord("0"), ord("9") + 1)]
+    n = len(letters)
+    i = 0
+    for tid in range(256, vocab_size):
+        if tid in (im_start, im_end):
+            continue
+        while True:
+            tok = letters[i // (n * n) % n] + letters[i // n % n] + letters[i % n]
+            i += 1
+            if tok not in vocab:
+                break
+        vocab[tok] = tid
+    return BPETokenizer(vocab, [], {"<|im_start|>": im_start, "<|im_end|>": im_end})
+
+
+def chat_split(model, ids, tokens: int):
+    """The prefill, then ``tokens`` decode steps, each under the profiler,
+    the DeltaNet layers, the gated-attention layers, the MLPs and the tied
+    head in ranges of their own: ((prefill device ms, prefill wall s),
+    {range: device ms of the decode}, {kernel: µs of the decode}, decode
+    wall s)."""
+    from torch.profiler import record_function
+
+    from qwen3_asr_swift_tpu_torch.models.chat import model as chat
+
+    def ranged(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    names = ("deltanet_forward", "gated_attention_forward", "_swiglu_mlp", "tied_lm_head")
+    saved = {k: getattr(chat, k) for k in names}
+    for k, fn in saved.items():
+        setattr(chat, k, ranged(f"chat.{k}", fn))
+    x, n_valid, t_bucket = model._prompt(ids)
+    state = {}
+
+    def prefill():
+        state["s"] = model._gen_start(x, n_valid, tokens + 1, t_bucket + tokens + 1, None, None)
+
+    try:
+        pre_ms, _, _, pre_wall = range_device_ms(prefill, "chat.")
+        ms, _, kernels, wall = range_device_ms(
+            lambda: model._gen_chunk(state["s"], n_valid, tokens + 1), "chat.")
+    finally:
+        for k, fn in saved.items():
+            setattr(chat, k, fn)
+    return (sum(pre_ms.values()), pre_wall), ms, kernels, wall
+
+
+def phase_chat(dev, k1_counter, dev_name, power):
+    """Qwen3.5 chat at ``CONFIG_08B`` (hidden 1024, 24 layers: 18 DeltaNet and
+    6 gated attention; vocab 151,936), random weights drawn on the card from
+    seed 0, packed 4-bit group 64 (every eligible linear and the tied table)
+    as drawn: K1 at the token's product shapes (rows 1, bf16 x) with bound
+    and ``torch.mm`` yardstick summed over a token; the full-width model cut
+    to 2 layers (one DeltaNet, one gated attention), fp32, first-step logits
+    card vs host CPU within ``CHAT_TOL`` relative L2; the 0.8B in bf16:
+    greedy ``generate_ids_stream`` equal to ``generate_ids`` token for token,
+    K1's launches the count from the code (the packed products a row-block
+    × the steps run: the prompt's bucketed prefill and each token), tokens/s, device ms
+    a token by range, idle share. Returns (the bf16 model, K1's launches,
+    K1's token timing)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.core.params import param_bytes
+    from qwen3_asr_swift_tpu_torch.models.chat import CONFIG_08B, Qwen3Chat
+    from qwen3_asr_swift_tpu_torch.models.chat import model as chat
+
+    k1_token = k1_frame(dev, CHAT_K1_SHAPES, "chat", "Qwen3.5 0.8B")
+
+    # card vs host, 2 layers at full width, fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg2 = dataclasses.replace(CONFIG_08B, num_layers=2, full_attention_interval=2)
+    card = Qwen3Chat.init_random_on_device(cfg2, 0, quant_bits=4, device=dev,
+                                           dtype=torch.float32)
+    host = Qwen3Chat(cfg2, tree_to(card.params, "cpu"), device="cpu", dtype=torch.float32)
+    tok = chat_vocab_tokenizer(cfg2.vocab_size, 151644, cfg2.eos_token_id)
+    ids = tok.encode(Qwen3Chat.apply_chat_template([{"role": "user", "content": CHAT_PROMPT}]))
+    logits = []
+    for m in (card, host):
+        x, n_valid, t_bucket = m._prompt(ids)
+        pad = t_bucket - n_valid
+        ar = torch.arange(t_bucket, device=m.device)[None]
+        with torch.inference_mode():
+            out, _ = chat.chat_forward(m.params, cfg2, x, chat.init_states(cfg2, 1, t_bucket,
+                                                                           device=m.device),
+                                       torch.clamp(ar - pad[:, None], min=0), ar >= pad[:, None])
+        logits.append(out[0, -1].float().cpu())
+    rel = (torch.linalg.vector_norm(logits[0] - logits[1])
+           / torch.linalg.vector_norm(logits[1])).item()
+    log(f"chat (a): CONFIG_08B cut to 2 layers (1 DeltaNet, 1 gated attention), packed 4-bit, "
+        f"fp32, prompt of {len(ids)} tokens (bucket {t_bucket}): first-step logits card vs host "
+        f"CPU rel L2 {rel:.3e} (tol {CHAT_TOL:g}); greedy token host "
+        f"{int(logits[1].argmax())} card {int(logits[0].argmax())}")
+    if not rel <= CHAT_TOL:
+        raise AssertionError(f"chat first-step logits rel L2 {rel} > {CHAT_TOL}")
+    del card, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = Qwen3Chat.init_random_on_device(CONFIG_08B, 0, quant_bits=4, device=dev,
+                                            dtype=torch.bfloat16,
+                                            tokenizer=chat_vocab_tokenizer(
+                                                CONFIG_08B.vocab_size, 151644,
+                                                CONFIG_08B.eos_token_id))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    per_block = chat.packed_products(model.params)
+    log(f"chat (b): CONFIG_08B random seed 0 drawn on the card, packed 4-bit group 64, bf16: "
+        f"{param_bytes(model.params) / 2**20:.1f} MiB, built in {t_build:.1f} s; "
+        f"{per_block} packed products a row-block")
+    model.generate_ids(ids, max_new=2)
+    torch.cuda.synchronize()
+    k1_counter.reset()
+    t0 = time.perf_counter()
+    toks = model.generate_ids(ids, max_new=CHAT_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, steps = k1_counter.value, model.last_loop["steps_run"]
+    t0 = time.perf_counter()
+    streamed, first = [], None
+    for t in model.generate_ids_stream(ids, max_new=CHAT_TOKENS):
+        first = first if first is not None else time.perf_counter() - t0
+        streamed.append(t)
+    stream_wall = time.perf_counter() - t0
+    want = per_block * steps
+    log(f"chat (b): {len(toks)} greedy tokens ({steps} steps) in {wall:.3f} s: "
+        f"{steps / wall:.2f} tokens/s; stream: first token {1e3 * first:.1f} ms, all "
+        f"{stream_wall:.3f} s, equal to generate_ids {streamed == toks}; K1 launches "
+        f"{launches}, from the code {want} ({per_block} × {steps}); tokens {toks[:10]}...; "
+        f"on {dev_name} ({power})")
+    if streamed != toks:
+        raise AssertionError("chat: generate_ids_stream differs from generate_ids")
+    if launches != want or steps != CHAT_TOKENS:
+        raise AssertionError(f"chat: K1 launched {launches} times in {steps} steps, "
+                             f"the code says {want}")
+    (pre_ms, pre_wall), ranges, kernels, prof_wall = chat_split(model, ids, CHAT_SPLIT_TOKENS)
+    busy = sum(kernels.values()) / 1e3
+    f = CHAT_SPLIT_TOKENS
+    log(f"chat under the profiler: the prefill (bucket of {t_bucket} rows) {pre_ms:.3f} ms of "
+        f"device in {1e3 * pre_wall:.1f} ms of wall; {f} decode steps: wall {prof_wall:.3f} s, "
+        f"device busy {busy:.2f} ms (idle {100 * (1 - busy / 1e3 / prof_wall):.1f} %); device "
+        f"ms a token: DeltaNet layers {ranges.get('deltanet_forward', 0.0) / f:.3f}, gated "
+        f"attention {ranges.get('gated_attention_forward', 0.0) / f:.3f}, MLPs "
+        f"{ranges.get('_swiglu_mlp', 0.0) / f:.3f}, tied head "
+        f"{ranges.get('tied_lm_head', 0.0) / f:.3f}, other (norms, embedding, sampling) "
+        f"{ranges.get('other', 0.0) / f:.3f}; K1 alone {k1_token['device_ms']} ms a token "
+        f"(bound {k1_token['bound_ms']:.4f}); on {dev_name} ({power})")
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"  device {us / 1e3:9.2f} ms  {name[:100]}")
+    k1_token.update(tokens=steps)
+    return model, launches, k1_token
+
+
+class RecordingSTT:
+    """Delegates to an ASR model and keeps the audio each ``transcribe``
+    got, for the agent's check."""
+
+    def __init__(self, model):
+        self.model = model
+        self.audio = []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def transcribe(self, audio, **kw):
+        self.audio.append(np.array(audio))
+        return self.model.transcribe(audio, **kw)
+
+
+def agent_audio(seed: int = 9) -> np.ndarray:
+    """``AGENT_SPEECH_S`` s of a voiced 140 Hz tone gated at 2 Hz with noise,
+    then ``AGENT_SILENCE_S`` s of quiet noise, at 16 kHz."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(AGENT_SPEECH_S * SR)) / SR
+    voiced = 0.3 * np.sin(2 * np.pi * 140 * t) * (np.sin(2 * np.pi * 2 * t) > -0.3)
+    quiet = np.zeros(int(AGENT_SILENCE_S * SR))
+    audio = np.concatenate([voiced, quiet])
+    return (audio + 0.005 * rng.standard_normal(len(audio))).astype(np.float32)
+
+
+def phase_agent(asr, vad, llm, tts, counters, dev_name, power):
+    """One turn of the voice agent: ``VoicePipeline`` (the C++ engine, built
+    with g++) over the port's Silero on the card (its chunk program runs; an
+    energy decision is laid over its random output, as the reference's own
+    full-stack test does), the slice's packed 0.6B ASR with int8 KV (K1 and
+    K3), phase chat's 0.8B (``AGENT_CHAT_TOKENS`` tokens) and phase tts's
+    1.7B (``AGENT_TTS_FRAMES`` frames, greedy). The phase fails on any ERROR
+    event, unless the final transcript is the ASR's direct ``transcribe`` of
+    the samples its adapter got, the reply a direct greedy ``chat`` of the
+    transcript, and the AUDIO_CHUNK PCM, joined, the adapter's int16 of a
+    direct ``synthesize`` of the reply. Returns (K1, K3) launches of the
+    turn."""
+    import threading
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.qwen3_tts import TTSSamplingConfig
+    from qwen3_asr_swift_tpu_torch.models.chat import model as chat
+    from qwen3_asr_swift_tpu_torch.pipeline import (PipelineConfig, PipelineEventType,
+                                                    VoicePipeline, ensure_library)
+
+    k1c, k3c = counters
+
+    class EnergySilero(type(vad)):
+        def __init__(self, inner):
+            self.__dict__.update(inner.__dict__)
+
+        def process_chunk(self, state, samples):
+            state, _ = super().process_chunk(state, samples)
+            return state, (0.9 if np.abs(samples).mean() > 0.05 else 0.05)
+
+    saved = asr.max_tokens, tts.sampling, llm.max_new
+    asr.max_tokens = AGENT_STT_TOKENS
+    tts.sampling = TTSSamplingConfig(temperature=0.0, top_k=0, max_frames=AGENT_TTS_FRAMES)
+    llm.max_new = AGENT_CHAT_TOKENS
+    stt = RecordingSTT(asr)
+    events, done = [], threading.Event()
+
+    def on_event(ev):
+        events.append((time.perf_counter(), ev))
+        if ev.type in (PipelineEventType.ERROR,) or (
+                ev.type == PipelineEventType.STATE_CHANGED and ev.state.name == "LISTENING"
+                and any(e.type == PipelineEventType.RESPONSE_TEXT for _, e in events)):
+            done.set()
+
+    audio = agent_audio()
+    pipe = None
+    try:
+        t0 = time.perf_counter()
+        engine = ensure_library()
+        t_build = time.perf_counter() - t0
+        pipe = VoicePipeline(stt=stt, llm=llm, tts=tts, vad=EnergySilero(vad),
+                             config=PipelineConfig(eager_stt=False), on_event=on_event)
+        k1c.reset()
+        k3c.reset()
+        with pipe:
+            t_push = time.perf_counter()
+            pipe.push_audio(audio)
+            if not done.wait(AGENT_WAIT_S):
+                raise AssertionError(f"agent: no end of turn in {AGENT_WAIT_S} s; saw "
+                                     f"{[e.type.name for _, e in events]}")
+        torch.cuda.synchronize()
+        launches = (k1c.value, k3c.value)
+    finally:
+        asr.max_tokens, tts.sampling, llm.max_new = saved[0], saved[1], saved[2]
+        if pipe is not None:
+            pipe.close()
+    kinds = [e.type.name for _, e in events if e.type != PipelineEventType.STATE_CHANGED]
+    errors = [(e.text, e.aux) for _, e in events if e.type == PipelineEventType.ERROR]
+    if errors:
+        raise AssertionError(f"agent: ERROR events {errors}")
+
+    def first(kind):
+        hit = [(t, e) for t, e in events if e.type == kind]
+        if not hit:
+            raise AssertionError(f"agent: no {kind.name}; saw {kinds}")
+        return hit[0]
+
+    t_end, _ = first(PipelineEventType.SPEECH_ENDED)
+    t_final, final = first(PipelineEventType.FINAL_TRANSCRIPT)
+    t_reply, reply = first(PipelineEventType.RESPONSE_TEXT)
+    t_audio, _ = first(PipelineEventType.AUDIO_CHUNK)
+    pcm = np.concatenate([e.pcm for _, e in events if e.type == PipelineEventType.AUDIO_CHUNK])
+    if len(stt.audio) != 1:
+        raise AssertionError(f"agent: the STT adapter ran {len(stt.audio)} times")
+    asr.max_tokens = AGENT_STT_TOKENS
+    llm.max_new = AGENT_CHAT_TOKENS
+    tts.sampling = TTSSamplingConfig(temperature=0.0, top_k=0, max_frames=AGENT_TTS_FRAMES)
+    direct = {}
+
+    def timed(name, fn):
+        k1c.reset()
+        k3c.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        direct[name] = (time.perf_counter() - t0, k1c.value, k3c.value)
+        return out
+
+    try:
+        want_text = timed("transcribe", lambda: asr.transcribe(stt.audio[0], sample_rate=SR).text)
+        want_reply = timed("chat", lambda: "".join(
+            llm.chat([{"role": "user", "content": final.text}])))
+        chat_steps = llm.last_loop["steps_run"]
+        spoken = timed("synthesize", lambda: tts.synthesize(reply.text))
+        tts_frames = tts.last_loop["frames_run"]
+    finally:
+        asr.max_tokens, tts.sampling, llm.max_new = saved[0], saved[1], saved[2]
+    want_pcm = (np.clip(spoken.samples, -1, 1) * 32767.0).astype(np.int16)
+    code = (direct["transcribe"][1], chat.packed_products(llm.params) * chat_steps,
+            tts_k1_launches(tts.cfg, tts_frames))
+    log(f"agent: engine {engine.name} (ready in {t_build:.2f} s); {AGENT_SPEECH_S:g} s of speech "
+        f"+ {AGENT_SILENCE_S:g} s of silence pushed in one call; events {kinds[:6]}... "
+        f"({len(kinds)}); the STT got {len(stt.audio[0])} samples; transcript "
+        f"{final.text[:40]!r} equal to transcribe {final.text == want_text}; reply of "
+        f"{len(reply.text)} chars equal to chat {reply.text == want_reply}; {len(pcm)} PCM "
+        f"samples in {sum(e.type == PipelineEventType.AUDIO_CHUNK for _, e in events)} chunks, "
+        f"equal to synthesize {np.array_equal(pcm, want_pcm)}")
+    log(f"agent: end of speech → final transcript {1e3 * (t_final - t_end):.1f} ms, → reply "
+        f"text {1e3 * (t_reply - t_end):.1f} ms, → first audio chunk "
+        f"{1e3 * (t_audio - t_end):.1f} ms; the direct calls on the main thread: transcribe "
+        f"{direct['transcribe'][0]:.3f} s, chat {direct['chat'][0]:.3f} s ({chat_steps} steps), "
+        f"synthesize {direct['synthesize'][0]:.3f} s ({tts_frames} frames); K1 launches "
+        f"{launches[0]}, from the code {sum(code)} (ASR {code[0]} as its direct call, chat "
+        f"{code[1]}, TTS {code[2]}), K3 {launches[1]} (direct {direct['transcribe'][2]}); on "
+        f"{dev_name} ({power})")
+    if final.text != want_text:
+        raise AssertionError(f"agent: transcript {final.text!r} != transcribe {want_text!r}")
+    if reply.text != want_reply or not reply.text:
+        raise AssertionError(f"agent: reply {reply.text!r} != chat {want_reply!r}")
+    if not np.array_equal(pcm, want_pcm):
+        raise AssertionError(f"agent: {len(pcm)} PCM samples, synthesize gives {len(want_pcm)}")
+    if (launches[0] != sum(code) or launches[1] != direct["transcribe"][2] or code[0] <= 0
+            or launches[1] <= 0 or (direct["chat"][1], direct["synthesize"][1]) != code[1:]):
+        raise AssertionError(f"agent: K1 {launches[0]} launches (the code {code}), K3 "
+                             f"{launches[1]} (direct {direct['transcribe'][2]})")
+    return launches
+
+
+def record_sampler(pp):
+    """Wrap ``pp._sample_topk`` to keep each call's fp32 logits and token on
+    the device (no host read): returns (the list, a function that undoes
+    the wrap)."""
+    calls = []
+    orig = pp._sample_topk
+
+    def rec(logits, *a, **kw):
+        tok = orig(logits, *a, **kw)
+        calls.append((logits.float(), tok))
+        return tok
+
+    pp._sample_topk = rec
+    return calls, lambda: setattr(pp, "_sample_topk", orig)
+
+
+def first_sampler_parting(got, want, row_got: int = 0, row_want: int = 0):
+    """Walk two runs' sampler calls in order: (index of the first call whose
+    tokens part or None, ``want``'s margin there between its token and
+    ``got``'s, the largest logit gap there, the largest relative L2 of the
+    logits before it)."""
+    import torch
+
+    worst = 0.0
+    for i, ((lg, tg), (lw, tw)) in enumerate(zip(got, want)):
+        a, b = lg[row_got], lw[row_want]
+        ta, tb = int(tg[row_got]), int(tw[row_want])
+        if ta != tb:
+            return i, float(b[tb] - b[ta]), float((a - b).abs().max()), worst
+        worst = max(worst, (torch.linalg.vector_norm(a - b)
+                            / torch.linalg.vector_norm(b)).item())
+    return None, 0.0, 0.0, worst
+
+
+def check_parting(label, parting):
+    i, margin, gap, worst = parting
+    log(f"duplex {label}: first parting at sampler call "
+        f"{'none' if i is None else f'{i} (frame {i // 17})'}; logits before it within rel L2 "
+        f"{worst:.3e} (tol {DUPLEX_TOL:g})"
+        + ("" if i is None else f"; margin {margin:.4f} against 2 x the largest gap {gap:.4f}"))
+    if not worst <= DUPLEX_TOL or (i is not None and not margin <= 2 * gap):
+        raise AssertionError(f"duplex {label}: parting {parting}")
+
+
+def duplex_split(model, user, sampling):
+    """4 frames of a session under the profiler, the streaming Mimi encode and
+    decode, the temporal step and the depformer in ranges: ({range: device
+    ms}, {kernel: µs}, wall s)."""
+    from torch.profiler import record_function
+
+    from qwen3_asr_swift_tpu_torch.models.personaplex import model as pp
+
+    def ranged(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    names = ("mimi_encode_frame", "temporal_step", "depformer_generate", "mimi_decode_frame")
+    saved = {k: getattr(pp, k) for k in names}
+    spf = model.cfg.mimi.samples_per_frame
+    s = model.realtime_session(sampling)
+    for k, fn in saved.items():
+        setattr(pp, k, ranged(f"pp.{k}", fn))
+    try:
+        ms, _, kernels, wall = range_device_ms(
+            lambda: [s.push_frame(user[i * spf:(i + 1) * spf])
+                     for i in range(DUPLEX_SPLIT_FRAMES)], "pp.")
+    finally:
+        for k, fn in saved.items():
+            setattr(pp, k, fn)
+    return ms, kernels, wall
+
+
+def phase_duplex(model, k1_counter, dev_name, power):
+    """PersonaPlex's full-duplex session over phase respond's 7B (bf16,
+    packed 4-bit) and its 4 s of user audio (50 frames), greedy with the
+    repetition penalties off (the offline loop's audio window wraps a
+    negative start, ROADMAP §3, so with them on the two loops read different
+    histories): each frame's streaming Mimi codes equal to the batch
+    ``mimi_encode``; the session's agent codes and text tokens equal to the
+    card's offline ``_converse`` of the same audio, or parting only at a
+    near-tie (every sampler call's logits up to the parting within
+    ``DUPLEX_TOL`` relative L2, and there the offline margin within twice
+    the largest logit gap), and token for token equal to it at the offline
+    loop's cache length; ``batch=2`` with two voice prompts against two
+    single sessions under the same rule; an int8-KV session of 50 frames
+    and its first parting from the bf16 one; K1's launches 128 + 129 a
+    frame; push p50/p90, frames/s, device ms a frame by range, idle share,
+    peak memory at batch 1 and 2. Returns K1's launches of the session."""
+    import dataclasses
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.personaplex import PersonaPlex, PersonaSampling
+    from qwen3_asr_swift_tpu_torch.models.personaplex import model as pp
+    from qwen3_asr_swift_tpu_torch.models.personaplex.mimi import mimi_encode
+
+    cfg = model.cfg
+    spf = cfg.mimi.samples_per_frame
+    user = respond_user_audio(RESPOND_USER_S)
+    n = len(user) // spf
+    greedy = PersonaSampling(audio_temperature=0.0, text_temperature=0.0,
+                             text_repetition_penalty=1.0, audio_repetition_penalty=1.0,
+                             silence_stop_frames=0, max_steps=n)
+    with torch.inference_mode():
+        batch_codes = mimi_encode(model.mimi_params, cfg.mimi,
+                                  torch.as_tensor(user[: n * spf], device=model.device)[None])
+
+    # the offline loop
+    off_calls, undo = record_sampler(pp)
+    try:
+        agent, n_frames, n_done, stats = model._run_converse(user, 24000, greedy, 0.0, None)
+    finally:
+        undo()
+
+    # the session, timed
+    enc_codes = []
+    enc_frame = pp.mimi_encode_frame
+
+    def rec_enc(*a, **kw):
+        codes, st = enc_frame(*a, **kw)
+        enc_codes.append(codes)
+        return codes, st
+
+    pp.mimi_encode_frame = rec_enc
+    sess_calls, undo = record_sampler(pp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1_counter.reset()
+    try:
+        t0 = time.perf_counter()
+        s = model.realtime_session(greedy)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        pushes, codes, texts = [], [], []
+        t_run = time.perf_counter()
+        for i in range(n):
+            t0 = time.perf_counter()
+            wav = s.push_frame(user[i * spf:(i + 1) * spf])
+            pushes.append(time.perf_counter() - t0)
+            codes.append(s.last_codes)
+            texts.append(s._text)
+            if wav.shape != (spf,) or not np.isfinite(wav).all():
+                raise AssertionError(f"duplex: frame {i} gave {wav.shape}")
+        wall = time.perf_counter() - t_run
+    finally:
+        undo()
+        pp.mimi_encode_frame = enc_frame
+    launches = k1_counter.value
+    peak1 = torch.cuda.max_memory_allocated() / 2**30
+    want = 4 * cfg.num_layers + n * (4 * cfg.num_layers + 1)
+    enc_equal = torch.equal(torch.cat(enc_codes, 2), batch_codes)
+    sess = torch.clamp(torch.stack(codes, 2), 0, cfg.mimi.codebook_size - 1)
+    same_codes = torch.equal(sess, agent)
+    same_text = torch.equal(torch.stack(texts, 1), stats["text_tokens"][:, :n])
+    p50, p90 = np.percentile(np.array(pushes) * 1e3, [50, 90])
+    log(f"duplex: session of {n} frames (prefill {t_prefill:.3f} s, cache "
+        f"{s._cache.valid.shape[1]} slots bf16): push p50 {p50:.1f} ms, p90 {p90:.1f} ms, "
+        f"{n / wall:.2f} frames/s against the 12.5 Hz real-time bar; K1 launches {launches}, "
+        f"from the code {want}; streaming Mimi codes equal to the batch encode {enc_equal}; "
+        f"agent codes equal to the offline loop's {same_codes}, text tokens {same_text}; peak "
+        f"device memory {peak1:.2f} GiB (batch 1); on {dev_name} ({power})")
+    if not enc_equal:
+        raise AssertionError("duplex: streaming Mimi codes differ from the batch encode")
+    if launches != want:
+        raise AssertionError(f"duplex: K1 launched {launches} times, the code says {want}")
+    check_parting("session vs offline", first_sampler_parting(sess_calls, off_calls))
+
+    # the same comparison at the offline loop's cache length: the context cut
+    # to the conversation's frames, so both read caches of one shape
+    full_cfg = model.cfg
+    model.cfg = dataclasses.replace(full_cfg, context=n)
+    try:
+        short = model.realtime_session(greedy)
+    finally:
+        model.cfg = full_cfg
+    short_codes, short_texts = [], []
+    for i in range(n):
+        short.push_frame(user[i * spf:(i + 1) * spf])
+        short_codes.append(short.last_codes)
+        short_texts.append(short._text)
+    del short
+    short_equal = (torch.equal(torch.clamp(torch.stack(short_codes, 2), 0,
+                                           cfg.mimi.codebook_size - 1), agent)
+                   and torch.equal(torch.stack(short_texts, 1), stats["text_tokens"][:, :n]))
+    log(f"duplex: a session whose cache is the offline loop's length "
+        f"({PersonaPlex.VOICE_PROMPT_CAP + PersonaPlex.PROMPT_CAP + n} slots): agent codes and "
+        f"text tokens equal to the offline loop's, all {n} frames: {short_equal}")
+    if not short_equal:
+        raise AssertionError("duplex: at one cache length the session differs from the offline "
+                             "loop")
+
+    # batch 2 with two voice prompts against two single sessions
+    vps = [model.make_voice_prompt(respond_user_audio(1.0, seed=s_, rate=24000), 24000)
+           for s_ in (21, 22)]
+    frames = DUPLEX_BATCH_FRAMES
+    two = np.stack([user[: frames * spf], respond_user_audio(frames / 12.5, seed=23)[: frames * spf]])
+    torch.cuda.reset_peak_memory_stats()
+    multi_calls, undo = record_sampler(pp)
+    try:
+        s2 = model.realtime_session(greedy, batch=2, voice_prompt=vps)
+        t0 = time.perf_counter()
+        for i in range(frames):
+            s2.push_frames(two[:, i * spf:(i + 1) * spf])
+        wall2 = time.perf_counter() - t0
+    finally:
+        undo()
+    peak2 = torch.cuda.max_memory_allocated() / 2**30
+    del s2
+    for row in (0, 1):
+        single_calls, undo = record_sampler(pp)
+        try:
+            s1 = model.realtime_session(greedy, voice_prompt=vps[row])
+            for i in range(frames):
+                s1.push_frame(two[row, i * spf:(i + 1) * spf])
+        finally:
+            undo()
+        del s1
+        check_parting(f"batch 2 row {row} vs single",
+                      first_sampler_parting(multi_calls, single_calls, row_got=row))
+    log(f"duplex: batch 2 with two voice prompts, {frames} frames in {wall2:.3f} s "
+        f"({2 * frames / wall2:.2f} session-frames/s); peak device memory {peak2:.2f} GiB")
+
+    # int8 KV
+    s8 = model.realtime_session(greedy, kv_dtype=torch.int8)
+    codes8 = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        s8.push_frame(user[i * spf:(i + 1) * spf])
+        codes8.append(s8.last_codes)
+    wall8 = time.perf_counter() - t0
+    diff = [i for i in range(n) if not torch.equal(codes8[i], codes[i])]
+    log(f"duplex: int8-KV session, {n} frames in {wall8:.3f} s ({n / wall8:.2f} frames/s); "
+        f"first frame whose codes part from the bf16 session's: "
+        f"{diff[0] if diff else 'none'} ({len(diff)} of {n} frames differ)")
+    del s8
+
+    ranges, kernels, prof_wall = duplex_split(model, user, greedy)
+    busy = sum(kernels.values()) / 1e3
+    f = DUPLEX_SPLIT_FRAMES
+    log(f"duplex under the profiler ({f} frames): wall {prof_wall:.3f} s, device busy "
+        f"{busy:.2f} ms (idle {100 * (1 - busy / 1e3 / prof_wall):.1f} %); device ms a frame: "
+        f"Mimi encode {ranges.get('mimi_encode_frame', 0.0) / f:.3f}, temporal step "
+        f"{ranges.get('temporal_step', 0.0) / f:.3f}, depformer "
+        f"{ranges.get('depformer_generate', 0.0) / f:.3f}, Mimi decode "
+        f"{ranges.get('mimi_decode_frame', 0.0) / f:.3f}, other (text head, sampling, "
+        f"embeddings) {ranges.get('other', 0.0) / f:.3f}; on {dev_name} ({power})")
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"  device {us / 1e3:9.2f} ms  {name[:100]}")
+    return launches
 
 
 def phase_cli(dev_name):
@@ -2591,13 +3233,21 @@ def main() -> int:
     phase_speak(model, tts, dev_name, power)
     mark("speak")
     phase_realtime(model, tts, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
-    del tts
     mark("realtime")
+    chat, k1["launches_chat"], k1["chat_token"] = phase_chat(dev, K1_LAUNCHES, dev_name, power)
+    mark("chat")
+    k1["launches_agent"], k3["launches_agent"] = phase_agent(
+        model, vad, chat, tts, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
+    del tts, chat
+    mark("agent")
     phase_enhance(dev_name, power)
     mark("enhance")
-    k1["launches_respond"], k1["respond_frame"] = phase_respond(dev, K1_LAUNCHES, dev_name,
-                                                                power)
+    k1["launches_respond"], k1["respond_frame"], s2s = phase_respond(dev, K1_LAUNCHES, dev_name,
+                                                                     power)
     mark("respond")
+    k1["launches_duplex"] = phase_duplex(s2s, K1_LAUNCHES, dev_name, power)
+    del s2s
+    mark("duplex")
     phase_cli(dev_name)
     mark("cli")
     if "jax" in sys.modules:

@@ -2,7 +2,8 @@
 subcommands of ``qwen3_asr_swift_tpu/cli.py`` whose models are ported:
 ``transcribe``, ``transcribe-batch``, ``align``, ``speak`` (and its aliases
 ``qwen3-tts`` and ``qwen3-tts-coreml``), ``respond`` (PersonaPlex),
-``vad``, ``vad-stream``, ``denoise`` (DeepFilterNet3) and ``serve``. The other families' subcommands are not in the parser yet
+``vad``, ``vad-stream``, ``denoise`` (DeepFilterNet3), ``chat`` (Qwen3.5)
+and ``serve``. The other families' subcommands are not in the parser yet
 (ROADMAP §1).
 
 Every model runs on ``--device`` (default ``cuda``, the first card; a
@@ -189,6 +190,30 @@ def cmd_vad_stream(args):
         print(f"{ev.time:8.2f}s {ev.type.value}")
 
 
+def chat_tokenizer(n_bytes: int = 200):
+    """The byte-level tokenizer of the random-weight chat model: the first
+    ``n_bytes`` byte tokens and the two chat-template specials after them
+    (the reference's CLI takes 200; 256 covers every byte)."""
+    from .tokenizers.bpe import BPETokenizer, _bytes_to_unicode
+
+    b2u = _bytes_to_unicode()
+    return BPETokenizer({b2u[b]: b for b in range(n_bytes)}, [],
+                        {"<|im_start|>": n_bytes, "<|im_end|>": n_bytes + 1})
+
+
+def cmd_chat(args):
+    from .models.chat import Qwen3Chat, config_tiny
+
+    if args.random_weights:
+        model = Qwen3Chat.init_random(config_tiny(), tokenizer=chat_tokenizer(),
+                                      device=args.device)
+    else:
+        model = Qwen3Chat.from_pretrained(args.model, device=args.device)
+    for piece in model.chat([{"role": "user", "content": args.message}]):
+        print(piece, end="", flush=True)
+    print()
+
+
 def cmd_serve(args):
     import asyncio
 
@@ -281,6 +306,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("vad-stream", cmd_vad_stream, audio={}, **{"--model": dict(default="silero-vad-v5")})
     add("denoise", cmd_denoise, audio={}, **{
         "--model": dict(default="deepfilternet3"), "--output": dict(default="denoised.wav")})
+    add("chat", cmd_chat, message={}, **{"--model": dict(default="Qwen/Qwen3.5-0.8B")})
     add("serve", cmd_serve, **{
         "--host": dict(default="127.0.0.1"), "--port": dict(type=int, default=8321),
         "--decode-chunk": dict(

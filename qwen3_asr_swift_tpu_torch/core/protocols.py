@@ -2,7 +2,7 @@
 ``qwen3_asr_swift_tpu/core/protocols.py``: ``SpeechRecognitionModel``,
 ``SpeechGenerationModel``, ``SpeechToSpeechModel``,
 ``VoiceActivityDetectionModel``, ``StreamingVADProvider``,
-``SpeechEnhancementModel`` and ``ForcedAlignmentModel``.
+``SpeechEnhancementModel``, ``ForcedAlignmentModel`` and ``PipelineLLM``.
 """
 
 from __future__ import annotations
@@ -120,3 +120,12 @@ class ForcedAlignmentModel(SpeechModel):
     @abc.abstractmethod
     def align(self, audio: np.ndarray, text: str, sample_rate: int = 16000, **kwargs) -> Sequence[AlignedWord]:
         ...
+
+
+class PipelineLLM(abc.ABC):
+    """LLM + tool calling interface for the voice pipeline
+    (reference: Sources/AudioCommon/PipelineLLM.swift)."""
+
+    @abc.abstractmethod
+    def chat(self, messages: Sequence[dict], tools: Sequence[dict] = ()) -> Iterator[str]:
+        """Stream response text chunks for a chat history."""

@@ -7,5 +7,6 @@ from .model import (  # noqa: F401
     PersonaPlex,
     PersonaPlexConfig,
     PersonaSampling,
+    RealtimeSession,
     config_tiny,
 )

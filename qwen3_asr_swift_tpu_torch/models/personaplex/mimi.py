@@ -1,5 +1,5 @@
-"""Mimi neural audio codec, 24 kHz ⇄ 16 codebooks at 12.5 Hz — port of the
-batch path of ``qwen3_asr_swift_tpu/models/personaplex/mimi.py``.
+"""Mimi neural audio codec, 24 kHz ⇄ 16 codebooks at 12.5 Hz — port of
+``qwen3_asr_swift_tpu/models/personaplex/mimi.py``, batch and streaming.
 
 The published topology over the reference's parameter tree (conv weights
 ``[K, in/groups, out]``, transposed-conv weights flipped, as
@@ -18,8 +18,10 @@ The published topology over the reference's parameter tree (conv weights
 
 Convs are matmuls over strided windows (``ops/nn.py::conv1d``) and
 transposed convs a matmul per tap with an overlap-add, so fp32 runs in full
-fp32 on the card as on the host. The carried-state streaming codec of the
-reference (its ``*_stream``/``*_frame`` functions) is not ported yet.
+fp32 on the card as on the host. The streaming codec
+(:func:`mimi_encode_frame`, :func:`mimi_decode_frame`) carries each conv's
+left context, each transposed conv's overlap tail and a KV ring of the
+transformers' window, and uses the same helpers.
 """
 
 from __future__ import annotations
@@ -122,6 +124,18 @@ def causal_conv_transpose(x: torch.Tensor, p, stride: int) -> torch.Tensor:
     reference's ``conv_transpose`` layout); the groups follow from the
     weight's shape (the 2x upsample is depthwise). Each tap is one product
     of the input, overlap-added at its offset."""
+    k = p["w"].shape[0]
+    y = _conv_transpose_full(x, p, stride)
+    if "b" in p:
+        y = y + p["b"]
+    trim = k - stride
+    return y[:, :-trim] if trim > 0 else y
+
+
+def _conv_transpose_full(x: torch.Tensor, p, stride: int) -> torch.Tensor:
+    """The untrimmed transposed conv without its bias: (T-1)·stride + K
+    samples, each tap one product of the input overlap-added at its
+    offset."""
     k, in_per, out_total = p["w"].shape
     b, t, c = x.shape
     g = c // in_per
@@ -132,10 +146,7 @@ def causal_conv_transpose(x: torch.Tensor, p, stride: int) -> torch.Tensor:
     y = x.new_zeros((b, n, out_total))
     for tap in range(k):
         y[:, tap: tap + (t - 1) * stride + 1: stride] += z[:, :, tap]
-    if "b" in p:
-        y = y + p["b"]
-    trim = k - stride
-    return y[:, :-trim] if trim > 0 else y
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -337,3 +348,194 @@ def mimi_decode(params, cfg: MimiConfig, codes):
     h = causal_conv_transpose(h, params["upsample"], 2)
     h = mimi_transformer(params["decoder_transformer"], cfg, h)
     return torch.clamp(seanet_decode(params["decoder"], cfg, h), -1.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Streaming (carried-state) encode/decode: every conv carries its left
+# context, every transposed conv its overlap-add tail, and both transformers
+# a KV ring of the last ``sliding_window`` positions. Frame by frame, the
+# stream equals the batch ``mimi_encode``/``mimi_decode`` of the whole clip:
+# the causal left pad is zeros, which is what the zero carries hold. A state
+# is a dict of tensors (the transformers' position a host int) that each
+# call replaces with a new one.
+# ---------------------------------------------------------------------------
+
+def _sconv_init(p, batch: int, dtype, device, stride: int = 1, dilation: int = 1):
+    """Carry for a streaming causal conv: the last eff_k - stride inputs."""
+    k, cin, _ = p["w"].shape
+    n = (k - 1) * dilation + 1 - stride
+    return torch.zeros((batch, n, cin), dtype=dtype, device=device)
+
+
+def _sconv(x, p, carry, stride: int = 1, dilation: int = 1):
+    """Streaming ``causal_conv``: x [B, L, C] with L % stride == 0 (no right
+    pad is needed). → (y, new carry)."""
+    xx = torch.cat([carry, x], dim=1)
+    conv = {"kernel": p["w"]}
+    if "b" in p:
+        conv["bias"] = p["b"]
+    return conv1d(xx, conv, stride=stride, dilation=dilation), xx[:, x.shape[1]:]
+
+
+def _sconv_edge(x, p, carry, first: bool, stride: int):
+    """Streaming conv with replicate ("edge") left padding: on the first
+    chunk the pad repeats the chunk's first element, as the batch op's
+    replicate pad does; afterwards the carry holds real history."""
+    if first:
+        carry = x[:, :1].expand(-1, carry.shape[1], -1)
+    return _sconv(x, p, carry, stride=stride)
+
+
+def _stconv_init(p, batch: int, dtype, device, stride: int):
+    """Carry for a streaming transposed conv: the k - stride output tail
+    (bias excluded) that overlap-adds into the next chunk's head."""
+    k = p["w"].shape[0]
+    return torch.zeros((batch, k - stride, p["w"].shape[2]), dtype=dtype, device=device)
+
+
+def _stconv(x, p, carry, stride: int):
+    """Streaming ``causal_conv_transpose``: emit L·stride samples and carry
+    the k - stride tail. The tail leaves out the bias (each output gets it
+    once); the last tail is never emitted — the batch op's right trim."""
+    k = p["w"].shape[0]
+    y = _conv_transpose_full(x, p, stride)
+    emit = x.shape[1] * stride
+    tail = y[:, emit:]
+    y = y[:, :emit].clone()
+    y[:, : k - stride] += carry
+    if "b" in p:
+        y = y + p["b"]
+    return y, tail
+
+
+def _sresblock(p, carry, x):
+    h, c1 = _sconv(F.elu(x), p["conv1"], carry)
+    h = causal_conv(F.elu(h), p["conv2"])  # k1: no carry
+    return x + h, c1
+
+
+def _xf_stream_init(cfg: MimiConfig, n_layers: int, batch: int, dtype, device):
+    shape = (batch, cfg.sliding_window, cfg.num_kv_heads * cfg.head_dim)
+    return {"k": [torch.zeros(shape, dtype=dtype, device=device) for _ in range(n_layers)],
+            "v": [torch.zeros(shape, dtype=dtype, device=device) for _ in range(n_layers)],
+            "pos": 0}
+
+
+def _xf_stream(layers, cfg: MimiConfig, st, x):
+    """Streaming ``mimi_transformer`` over t new positions with a ring of
+    the last ``sliding_window`` keys and values (keys stored RoPE'd at their
+    absolute positions, so the ring is exact). Slot j of the state holds
+    position pos0 - w + j; attention runs over [state || new], w + t keys,
+    so a chunk's first query still sees its whole window."""
+    b, t, _ = x.shape
+    w = cfg.sliding_window
+    pos0 = st["pos"]
+    dev = x.device
+    positions = (pos0 + torch.arange(t, device=dev))[None].expand(b, t)
+    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    cos, sin = cos[:, None], sin[:, None]
+    abs_key = pos0 - w + torch.arange(w + t, device=dev)
+    q_abs = pos0 + torch.arange(t, device=dev)
+    ok = ((abs_key[None, :] <= q_abs[:, None]) & (abs_key[None, :] > q_abs[:, None] - w)
+          & (abs_key[None, :] >= 0))
+    mask = torch.where(ok, 0.0, NEG_INF).to(torch.float32)[None, None]
+    new_k, new_v = [], []
+    for li, p in enumerate(layers):
+        h = layer_norm(x, p["ln1"]["weight"], p["ln1"]["bias"], eps=cfg.norm_eps)
+        q = linear(h, p["q"]).reshape(b, t, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+        k = linear(h, p["k"]).reshape(b, t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+        v = linear(h, p["v"])
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        kbuf = torch.cat([st["k"][li], k.transpose(1, 2).reshape(b, t, -1)], dim=1)
+        vbuf = torch.cat([st["v"][li], v], dim=1)
+        new_k.append(kbuf[:, t:])
+        new_v.append(vbuf[:, t:])
+        kh = kbuf.reshape(b, w + t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+        vh = vbuf.reshape(b, w + t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+        a = sdpa(q, kh, vh, 1.0 / np.sqrt(cfg.head_dim), mask)
+        a = a.transpose(1, 2).reshape(b, t, -1)
+        x = x + linear(a, p["o"]) * p["attn_scale"]
+        h = layer_norm(x, p["ln2"]["weight"], p["ln2"]["bias"], eps=cfg.norm_eps)
+        x = x + linear(F.gelu(linear(h, p["fc1"])), p["fc2"]) * p["mlp_scale"]
+    return x, {"k": new_k, "v": new_v, "pos": pos0 + t}
+
+
+def _mimi_dtype_device(params):
+    w = params["encoder"]["conv_in"]["w"]
+    return w.dtype, w.device
+
+
+def init_mimi_encoder_stream(params, cfg: MimiConfig, batch: int = 1) -> dict:
+    """The encoder's zero state, in the dtype and on the device of ``params``."""
+    dt, dev = _mimi_dtype_device(params)
+    enc = params["encoder"]
+    return {
+        "conv_in": _sconv_init(enc["conv_in"], batch, dt, dev),
+        "stages": [{
+            "res": _sconv_init(s["res"]["conv1"], batch, dt, dev),
+            "down": _sconv_init(s["down"], batch, dt, dev, stride=r),
+        } for s, r in zip(enc["stages"], reversed(cfg.ratios))],
+        "conv_out": _sconv_init(enc["conv_out"], batch, dt, dev),
+        "xf": _xf_stream_init(cfg, len(params["encoder_transformer"]), batch, dt, dev),
+        "down2": _sconv_init(params["downsample"], batch, dt, dev, stride=2),
+        "first": True,
+    }
+
+
+def mimi_encode_frame(params, cfg: MimiConfig, st, audio) -> tuple:
+    """One streaming step: audio [B, n·1920] → (codes [B, K, n] int64, new
+    state); the stream equals the batch ``mimi_encode`` of the whole clip."""
+    enc = params["encoder"]
+    st = dict(st)
+    h, st["conv_in"] = _sconv(audio[:, :, None], enc["conv_in"], st["conv_in"])
+    stages = []
+    for s_p, s_st, r in zip(enc["stages"], st["stages"], reversed(cfg.ratios)):
+        s_st = dict(s_st)
+        h, s_st["res"] = _sresblock(s_p["res"], s_st["res"], h)
+        h, s_st["down"] = _sconv(F.elu(h), s_p["down"], s_st["down"], stride=r)
+        stages.append(s_st)
+    st["stages"] = stages
+    h, st["conv_out"] = _sconv(F.elu(h), enc["conv_out"], st["conv_out"])
+    h, st["xf"] = _xf_stream(params["encoder_transformer"], cfg, st["xf"], h)
+    latent, st["down2"] = _sconv_edge(h, params["downsample"], st["down2"], st["first"],
+                                      stride=2)
+    st["first"] = False
+    sem = _rvq_encode(params["quantizer"]["semantic"], latent, 1)
+    aco = _rvq_encode(params["quantizer"]["acoustic"], latent, cfg.num_quantizers - 1)
+    return torch.cat([sem, aco], dim=1), st
+
+
+def init_mimi_decoder_stream(params, cfg: MimiConfig, batch: int = 1) -> dict:
+    """The decoder's zero state, in the dtype and on the device of ``params``."""
+    dt, dev = _mimi_dtype_device(params)
+    dec = params["decoder"]
+    return {
+        "up2": _stconv_init(params["upsample"], batch, dt, dev, stride=2),
+        "xf": _xf_stream_init(cfg, len(params["decoder_transformer"]), batch, dt, dev),
+        "conv_in": _sconv_init(dec["conv_in"], batch, dt, dev),
+        "stages": [{
+            "up": _stconv_init(s["up"], batch, dt, dev, stride=r),
+            "res": _sconv_init(s["res"]["conv1"], batch, dt, dev),
+        } for s, r in zip(dec["stages"], cfg.ratios)],
+        "conv_out": _sconv_init(dec["conv_out"], batch, dt, dev),
+    }
+
+
+def mimi_decode_frame(params, cfg: MimiConfig, st, codes) -> tuple:
+    """One streaming step: codes [B, K, n] → (audio [B, n·1920], new state);
+    the stream equals the batch ``mimi_decode`` of all the codes."""
+    dec = params["decoder"]
+    st = dict(st)
+    h = rvq_decode(params, cfg, codes)
+    h, st["up2"] = _stconv(h, params["upsample"], st["up2"], stride=2)
+    h, st["xf"] = _xf_stream(params["decoder_transformer"], cfg, st["xf"], h)
+    h, st["conv_in"] = _sconv(h, dec["conv_in"], st["conv_in"])
+    stages = []
+    for s_p, s_st, r in zip(dec["stages"], st["stages"], cfg.ratios):
+        s_st = dict(s_st)
+        h, s_st["up"] = _stconv(F.elu(h), s_p["up"], s_st["up"], stride=r)
+        h, s_st["res"] = _sresblock(s_p["res"], s_st["res"], h)
+        stages.append(s_st)
+    st["stages"] = stages
+    wav, st["conv_out"] = _sconv(F.elu(h), dec["conv_out"], st["conv_out"])
+    return torch.clamp(wav[..., 0], -1.0, 1.0), st

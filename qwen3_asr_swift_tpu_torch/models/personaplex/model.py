@@ -28,8 +28,11 @@ loop of device ops that reads the stop flag every
 the codes and ``n_steps`` do not depend on the cadence.
 ``model.last_loop`` holds the frames the loop ran and its host reads.
 
-Not ported yet: the full-duplex ``realtime_session`` (the streaming Mimi
-codec it needs) and ``shard``.
+The full-duplex :class:`RealtimeSession` (``PersonaPlex.realtime_session``)
+runs one 80 ms frame a call: streaming Mimi encode, the temporal step with
+the stream delays, the text sampler and the depformer over the session's
+rolling repetition histories, streaming Mimi decode; ``batch`` sessions
+step together. Not ported yet: ``shard``.
 """
 
 from __future__ import annotations
@@ -52,7 +55,9 @@ from ...ops.kv_cache import after_prefill, after_token, cache_kv, init_cache, wr
 from ...ops.nn import fuse_qkv_gate_up, linear, rms_norm, split_linear, swiglu_mlp
 from ...ops.quant import cast_tree, quantize_tree
 from ...ops.rope import apply_rope, rope_angles
-from .mimi import MimiConfig, init_mimi_params, mimi_decode, mimi_encode
+from .mimi import (MimiConfig, init_mimi_decoder_stream, init_mimi_encoder_stream,
+                   init_mimi_params, mimi_decode, mimi_decode_frame, mimi_encode,
+                   mimi_encode_frame)
 from .mimi import config_tiny as mimi_tiny
 
 #: the stop flag (silence or entropy) is read on the host every this many
@@ -814,22 +819,30 @@ class PersonaPlex(SpeechToSpeechModel):
     # the conversation loop
     # ------------------------------------------------------------------ #
 
-    def _prefill(self, user_codes, voice_embeds, n_voice: int, prompt_reads, n_prompt: int,
-                 max_steps: int):
-        """Phases 1-4: the voice embeddings and the spacer | prompt | spacer
-        reads ([1, 17, PROMPT_CAP] on the device) through the temporal stack
-        into a cache sized for the conversation. → cache."""
+    def _prefill(self, user_codes, voice_embeds, n_voice, prompt_reads, n_prompt,
+                 max_steps: int, kv_dtype=None):
+        """Phases 1-4: the voice embeddings [B, CAP, d] and the spacer |
+        prompt | spacer reads [B, 17, PROMPT_CAP] through the temporal stack
+        into a cache of ``CAP + PROMPT_CAP + max_steps`` slots in
+        ``kv_dtype`` (the model's dtype by default). ``n_voice`` and
+        ``n_prompt`` (ints, or [B] for rows of their own) mark each row's
+        valid slots; the block layout is shared and positions follow the
+        valid count, so a shorter prompt stays contiguous. → cache."""
         cfg, p, dev = self.cfg, self.params, self.device
         k = cfg.temporal_codebooks
-        v_cap, p_cap = voice_embeds.shape[1], prompt_reads.shape[2]
-        cache = init_cache(cfg.num_layers, 1, cfg.num_heads, v_cap + p_cap + max_steps,
-                           cfg.head_dim, self.dtype, device=dev)
-        reads = prompt_reads[0].T                                       # [P, 17]
+        b, v_cap = voice_embeds.shape[:2]
+        p_cap = prompt_reads.shape[2]
+        cache = init_cache(cfg.num_layers, b, cfg.num_heads, v_cap + p_cap + max_steps,
+                           cfg.head_dim, kv_dtype or self.dtype, device=dev)
+        reads = prompt_reads.transpose(1, 2).reshape(b * p_cap, -1)      # [B·P, 17]
         prompt_emb = embed_frame(p, cfg, reads[:, 0], reads[:, 1 + k:], reads[:, 1:1 + k])
-        embeds0 = torch.cat([voice_embeds.to(self.dtype), prompt_emb[None].to(self.dtype)], dim=1)
-        valid0 = torch.cat([torch.arange(v_cap, device=dev) < n_voice,
-                            torch.arange(p_cap, device=dev) < n_prompt])[None]
-        _, cache = temporal_prefill(p, cfg, embeds0, valid0, cache)
+        embeds = torch.cat([voice_embeds.to(self.dtype),
+                            prompt_emb.reshape(b, p_cap, -1).to(self.dtype)], dim=1)
+        n_voice = torch.as_tensor(n_voice, device=dev).reshape(-1, 1)
+        n_prompt = torch.as_tensor(n_prompt, device=dev).reshape(-1, 1)
+        valid = torch.cat([torch.arange(v_cap, device=dev)[None] < n_voice,
+                           torch.arange(p_cap, device=dev)[None] < n_prompt], dim=1)
+        _, cache = temporal_prefill(p, cfg, embeds, valid.expand(b, -1), cache)
         return cache
 
     def _frame_hidden(self, cache, text_prev, user_read, agent_prev):
@@ -1049,6 +1062,24 @@ class PersonaPlex(SpeechToSpeechModel):
             yield AudioChunk(wav[ctx * spf:], sr)
             emitted = end
 
+    def realtime_session(self, sampling: Optional[PersonaSampling] = None,
+                         context_frames: int = 8,
+                         voice_prompt: Optional[np.ndarray] = None,
+                         system_prompt=None,
+                         seed: int = 0, batch: int = 1,
+                         kv_dtype=None) -> "RealtimeSession":
+        """Full-duplex frame loop: one user frame in, one agent frame out, at
+        12.5 Hz (:class:`RealtimeSession`). ``batch`` > 1 steps that many
+        independent sessions together; ``voice_prompt``/``system_prompt``
+        may then be per-session lists. ``kv_dtype=torch.int8`` quantizes the
+        temporal cache (per-slot symmetric scales, ``ops/kv_cache.py``): at
+        the 7B config the bf16 cache of a session is 32 layers × K and V ×
+        3096 slots × 4096 × 2 B ≈ 1.62 GB, int8 about half of it.
+        ``context_frames`` is kept for the reference's signature; the
+        carried-state codec needs no window."""
+        return RealtimeSession(self, sampling or PersonaSampling(), voice_prompt, seed,
+                               system_prompt=system_prompt, batch=batch, kv_dtype=kv_dtype)
+
     def warm_up(self) -> None:
         spf = self.cfg.mimi.samples_per_frame
         self.respond(np.zeros(spf, np.float32), self.cfg.mimi.sample_rate,
@@ -1062,3 +1093,123 @@ class PersonaPlex(SpeechToSpeechModel):
     @property
     def is_loaded(self) -> bool:
         return self._loaded
+
+
+class RealtimeSession:
+    """The reference's full-duplex session: a frame is the streaming Mimi
+    encode of 80 ms of user audio, the temporal step (user codebook 0 read
+    from the previous frame, 1-7 from two frames back; the depformer's user
+    steps forced to codebook 0 of this frame and 1-7 of the previous one),
+    the text sampler and the depformer over the session's rolling repetition
+    histories, and the streaming Mimi decode of the agent's codes. Every
+    carry (the codec streams, the temporal cache, the code histories) stays
+    on the device; the noise comes from one ``torch.Generator`` seeded by
+    ``seed``. The cache holds ``VOICE_PROMPT_CAP + PROMPT_CAP +
+    cfg.context`` slots, filled by the 5-phase prefill, and every frame
+    reads all of them, as the reference does."""
+
+    def __init__(self, model: PersonaPlex, sampling: PersonaSampling, voice_prompt, seed: int,
+                 system_prompt=None, batch: int = 1, kv_dtype=None):
+        self.model = model
+        cfg = self.cfg = model.cfg
+        self.sampling = sampling
+        self.batch = batch
+        self.frames_done = 0
+        #: the last frame's 16-codebook agent codes [batch, 16] (device)
+        self.last_codes: Optional[torch.Tensor] = None
+        dev = model.device
+        k = cfg.temporal_codebooks
+
+        def per_session(prompt):
+            return prompt if isinstance(prompt, (list, tuple)) else [prompt] * batch
+
+        v_embeds, n_voices, all_reads, n_prompts = [], [], [], []
+        for vp, sp in zip(per_session(voice_prompt), per_session(system_prompt)):
+            embeds, n_voice, ring = model._voice_inputs(vp)
+            reads, n_prompt = model._prompt_reads(sp, n_voice, ring)
+            v_embeds.append(embeds[0])
+            n_voices.append(n_voice)
+            all_reads.append(reads)
+            n_prompts.append(n_prompt)
+        with torch.inference_mode():
+            self._cache = model._prefill(
+                None, torch.stack(v_embeds), n_voices,
+                torch.as_tensor(np.stack(all_reads), dtype=torch.long, device=dev), n_prompts,
+                cfg.context, kv_dtype)
+            # the generation-start reads: agent silence, the user history
+            # seeded with the sine tokens the prompt phases wrote
+            sine = torch.tensor(SINE_TOKENS[:k], device=dev)[None].expand(batch, k)
+            self._user1 = self._user2 = sine
+            self._agent = torch.tensor(SILENCE_TOKENS[:k], device=dev)[None].expand(batch, k)
+            self._text = torch.full((batch,), cfg.text_pad, dtype=torch.long, device=dev)
+            w = max(sampling.repetition_window, 1)
+            # out-of-range entries are empty slots (audio card 2048, text vocab)
+            self._audio_hist = torch.full((batch, cfg.num_codebooks, w), cfg.audio_pad,
+                                          dtype=torch.long, device=dev)
+            self._text_hist = torch.full((batch, w), cfg.text_vocab, dtype=torch.long,
+                                         device=dev)
+            self._enc = init_mimi_encoder_stream(model.mimi_params, cfg.mimi, batch=batch)
+            self._dec = init_mimi_decoder_stream(model.mimi_params, cfg.mimi, batch=batch)
+        self._generator = torch.Generator(device=dev).manual_seed(seed)
+
+    def _frame(self, samples: torch.Tensor) -> torch.Tensor:
+        model, cfg, sampling = self.model, self.cfg, self.sampling
+        p, k, b = model.params, cfg.temporal_codebooks, self.batch
+        if self._cache.cursor >= self._cache.valid.shape[1]:
+            raise ValueError(f"the session's context of {cfg.context} frames is full")
+        enc, self._enc = mimi_encode_frame(model.mimi_params, cfg.mimi, self._enc, samples)
+        enc = enc[:, :, 0]                                                  # [B, 16]
+        user_read = torch.cat([self._user1[:, :1], self._user2[:, 1:k]], dim=1)
+        provided = torch.cat([torch.full((b, cfg.num_codebooks - k), -1, dtype=torch.long,
+                                         device=enc.device),
+                              enc[:, :1], self._user1[:, 1:k]], dim=1)
+        embeds = embed_frame(p, cfg, self._text, user_read, self._agent)[:, None]
+        hidden, self._cache = temporal_step(p, cfg, embeds.to(model.dtype), self._cache)
+        # both repetition penalties run over the session's own rolling
+        # histories every frame (unlike respond(), whose text history starts
+        # after the user's turn)
+        rep_on = sampling.repetition_window > 0
+        text_tok = _sample_topk(linear(hidden, p["text_head"]).float(), self._generator,
+                                sampling.text_top_k, sampling.text_temperature,
+                                history=self._text_hist if rep_on else None,
+                                penalty=sampling.text_repetition_penalty)
+        codes = depformer_generate(p, cfg, hidden, text_tok, self._generator, sampling,
+                                   provided=provided,
+                                   history=self._audio_hist if rep_on else None)
+        self._audio_hist = torch.cat([self._audio_hist[:, :, 1:], codes[:, :, None]], dim=2)
+        self._text_hist = torch.cat([self._text_hist[:, 1:], text_tok[:, None]], dim=1)
+        wav, self._dec = mimi_decode_frame(
+            model.mimi_params, cfg.mimi, self._dec,
+            torch.clamp(codes, 0, cfg.mimi.codebook_size - 1)[:, :, None])
+        self._user2, self._user1 = self._user1, enc[:, :k]
+        self._agent, self._text = codes[:, :k], text_tok
+        self.last_codes = codes
+        self.frames_done += 1
+        return wav
+
+    def push_frame(self, samples: np.ndarray) -> np.ndarray:
+        """One 80 ms user frame (``samples_per_frame`` samples at 24 kHz) in,
+        one agent frame of audio out."""
+        spf = self.cfg.mimi.samples_per_frame
+        if self.batch != 1:
+            raise ValueError("batched session: use push_frames([B, spf])")
+        if len(samples) != spf:
+            raise ValueError(f"push_frame expects exactly {spf} samples")
+        return self.push_frames(np.asarray(samples, np.float32)[None])[0]
+
+    def push_frames(self, samples: np.ndarray) -> np.ndarray:
+        """One 80 ms frame a session in, one agent frame a session out:
+        ``samples`` [batch, samples_per_frame] → float32 [batch, spf]."""
+        return self.push_frames_async(samples).float().cpu().numpy()
+
+    @torch.inference_mode()
+    def push_frames_async(self, samples: np.ndarray) -> torch.Tensor:
+        """:meth:`push_frames` without the host fetch: the agent audio comes
+        back as a device tensor [batch, spf], its frame queued behind the
+        launches; the caller fetches when it needs the PCM."""
+        spf = self.cfg.mimi.samples_per_frame
+        samples = np.asarray(samples, np.float32)
+        if samples.shape != (self.batch, spf):
+            raise ValueError(
+                f"push_frames expects shape {(self.batch, spf)}, got {samples.shape}")
+        return self._frame(torch.from_numpy(samples).to(self.model.device))

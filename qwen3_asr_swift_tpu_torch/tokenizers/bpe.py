@@ -1,4 +1,4 @@
-"""The port's copy of ``BPETokenizer`` from
+"""The port's copy of ``BPETokenizer`` and ``StreamingDecoder`` from
 ``qwen3_asr_swift_tpu/tokenizers/bpe.py``.
 
 Byte-level BPE tokenizer for the Qwen vocabulary.
@@ -216,3 +216,54 @@ class BPETokenizer:
     @property
     def vocab_size(self) -> int:
         return max(len(self.vocab), (max(self.special_tokens.values(), default=-1) + 1))
+
+
+class StreamingDecoder:
+    """Incremental detokenizer that withholds bytes until they form complete
+    UTF-8 sequences — required for streaming CJK output."""
+
+    def __init__(self, tokenizer: BPETokenizer, skip_special: bool = True):
+        self.tok = tokenizer
+        self.skip_special = skip_special
+        self._pending = bytearray()
+
+    def push(self, token_id: int) -> str:
+        token = self.tok.id_to_token.get(int(token_id))
+        if token is None:
+            return ""
+        if token in self.tok.special_tokens:
+            out = self._drain(final=True)
+            return out if self.skip_special else out + token
+        for ch in token:
+            b = self.tok.byte_decoder.get(ch)
+            if b is not None:
+                self._pending.append(b)
+        return self._drain(final=False)
+
+    def _drain(self, final: bool) -> str:
+        if not self._pending:
+            return ""
+        if final:
+            out = self._pending.decode("utf-8", errors="replace")
+            self._pending.clear()
+            return out
+        # Find the longest prefix that is complete UTF-8.
+        cut = len(self._pending)
+        # A UTF-8 sequence is at most 4 bytes; check the tail.
+        for back in range(1, min(4, cut) + 1):
+            byte = self._pending[cut - back]
+            if byte & 0x80 == 0:  # ASCII — tail complete
+                break
+            if byte & 0xC0 == 0xC0:  # leading byte found `back` bytes in
+                need = 2 if byte & 0xE0 == 0xC0 else 3 if byte & 0xF0 == 0xE0 else 4
+                if back < need:
+                    cut -= back  # incomplete sequence — withhold it
+                break
+        if cut == 0:
+            return ""
+        out = bytes(self._pending[:cut]).decode("utf-8", errors="replace")
+        del self._pending[:cut]
+        return out
+
+    def finish(self) -> str:
+        return self._drain(final=True)

@@ -1,5 +1,5 @@
-"""The port's CLI (``python -m qwen3_asr_swift_tpu_torch.cli``), ``respond``
-and ``denoise`` included.
+"""The port's CLI (``python -m qwen3_asr_swift_tpu_torch.cli``), ``respond``,
+``denoise`` and ``chat`` included.
 
 Each ported subcommand runs through ``main([..., "--device", "cpu",
 "--random-weights"])``, prints the reference's JSON keys, and its result
@@ -26,7 +26,7 @@ from qwen3_asr_swift_tpu_torch.audio.io import load_audio, write_wav
 
 REPO = Path(__file__).resolve().parent.parent
 PORTED = ["transcribe", "transcribe-batch", "align", "speak", "qwen3-tts", "qwen3-tts-coreml",
-          "respond", "vad", "vad-stream", "denoise", "serve"]
+          "respond", "vad", "vad-stream", "denoise", "chat", "serve"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -169,6 +169,16 @@ def test_denoise(capsys, clips, tmp_path):
     got, rate = read_wav(open(path, "rb").read())
     assert rate == 48000 and len(got) == len(audio)
     np.testing.assert_array_equal(got, read_wav(wav_bytes(want.samples, 48000))[0])
+
+
+def test_chat(capsys):
+    from qwen3_asr_swift_tpu_torch.models.chat import Qwen3Chat, config_tiny
+
+    out = run(capsys, "chat", "hello there", "--random-weights")
+    model = Qwen3Chat.init_random(config_tiny(), tokenizer=cli.chat_tokenizer(), device="cpu")
+    want = "".join(model.chat([{"role": "user", "content": "hello there"}]))
+    assert out == want + "\n"
+    assert jcli.build_parser().parse_args(["chat", "hi"]).model == "Qwen/Qwen3.5-0.8B"
 
 
 @pytest.mark.parametrize("engine", ["pyannote", "firered"])

@@ -190,6 +190,52 @@ def test_family_modules_run_without_importing_jax():
     assert out.stdout.strip().endswith("OK")
 
 
+def test_conversational_paths_run_without_importing_jax():
+    """Qwen3.5 chat (dense and packed), a tiny full-duplex PersonaPlex
+    session (batch 2, int8 KV) and a ``VoicePipeline`` turn run without
+    importing jax or the JAX package."""
+    code = textwrap.dedent("""
+        import shutil, sys, time
+        import numpy as np, torch
+        from qwen3_asr_swift_tpu_torch.cli import chat_tokenizer
+        from qwen3_asr_swift_tpu_torch.models.chat import Qwen3Chat, config_tiny
+        from qwen3_asr_swift_tpu_torch.models.personaplex import (PersonaPlex, PersonaSampling,
+                                                                  config_tiny as pp_tiny)
+        from qwen3_asr_swift_tpu_torch.pipeline import PipelineEventType, VoicePipeline
+        chat = Qwen3Chat.init_random(config_tiny(), tokenizer=chat_tokenizer(), device="cpu")
+        chat.max_new = 4
+        reply = "".join(chat.chat([{"role": "user", "content": "hi"}]))
+        import dataclasses
+        wide = dataclasses.replace(config_tiny(), hidden_size=128, intermediate_size=256)
+        assert len(Qwen3Chat.init_random(wide, quant_bits=4, device="cpu").generate_ids(
+            [1, 2, 3], max_new=3)) == 3
+        pp = PersonaPlex.init_random(pp_tiny(), 0, device="cpu")
+        spf = pp.cfg.mimi.samples_per_frame
+        s = pp.realtime_session(PersonaSampling(audio_temperature=0.0, text_temperature=0.0),
+                                batch=2, kv_dtype=torch.int8)
+        assert s.push_frames(np.zeros((2, spf), np.float32)).shape == (2, spf)
+        if shutil.which("g++"):
+            with VoicePipeline(stt=lambda a: "x", llm=chat, tts=lambda t: np.zeros(64, np.int16),
+                               vad=lambda c: 0.0) as p:
+                p.push_text("hi")
+                deadline = time.time() + 60
+                seen = []
+                while time.time() < deadline and PipelineEventType.AUDIO_CHUNK not in seen:
+                    seen += [e.type for e in p.drain_events(timeout=0.5)]
+                assert PipelineEventType.RESPONSE_TEXT in seen, seen
+        assert "jax" not in sys.modules, [k for k in sys.modules if k.startswith("jax")]
+        ref = [k for k in sys.modules
+               if k == "qwen3_asr_swift_tpu" or k.startswith("qwen3_asr_swift_tpu.")]
+        assert not ref, ref
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=240, env=env, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("OK")
+
+
 def test_cpu_call_leaves_launch_counters_at_zero(monkeypatch):
     from qwen3_asr_swift_tpu_torch.models.qwen3_asr import Qwen3ASR, config_tiny
     from qwen3_asr_swift_tpu_torch.ops import quant

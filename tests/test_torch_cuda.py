@@ -440,3 +440,123 @@ def test_tiny_decoder_on_card_matches_host_and_launches_kernels(card):
     rel_l2 = (torch.linalg.vector_norm(logits["cuda"] - logits["cpu"])
               / torch.linalg.vector_norm(logits["cpu"])).item()
     assert rel_l2 <= 2e-2
+
+
+#: K1's products on the Qwen3.5 0.8B chat (hidden 1024): DeltaNet in_proj_qkv,
+#: in_proj_z and out_proj; gated attention q (with its gate), k/v and o; the
+#: MLP's gate/up and down; the tied LM head (out 151,936)
+CHAT_SHAPES = [(1024, 6144), (1024, 2048), (2048, 1024), (1024, 4096), (1024, 512),
+               (1024, 3072), (3072, 1024), (1024, 151936)]
+
+
+@pytest.mark.parametrize("xdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows", [1, 32])
+@pytest.mark.parametrize("in_dim,out_dim", CHAT_SHAPES)
+def test_k1_chat_shapes(card, xdt, rows, in_dim, out_dim):
+    p = packed(out_dim, in_dim, 4, card, seed=rows + out_dim)
+    x = torch.randn((rows, in_dim), device=card).to(getattr(torch, xdt))
+    before = k1.K1_LAUNCHES.value
+    got = k1.quant_matmul_cuda(x, p)
+    torch.cuda.synchronize()
+    assert k1.K1_LAUNCHES.value == before + 1
+    assert got.shape == (rows, out_dim) and torch.isfinite(got).all()
+    assert rel(got, k1.quant_matmul(x, p)) <= TOL
+
+
+def test_tiny_packed_chat_on_card_matches_host(card):
+    """A packed tiny chat (hidden 128: every linear of the MLP and the
+    attention, and the embedding table, pack) in fp32: the prompt's logits
+    card vs host within 2e-2 relative L2 (the packed table's rows are bf16,
+    so the activations are), K1 at every packed product, the stream's tokens
+    the monolithic decode's."""
+    from qwen3_asr_swift_tpu_torch.models.chat import Qwen3Chat
+    from qwen3_asr_swift_tpu_torch.models.chat import model as chat
+
+    cfg = dataclasses.replace(chat.config_tiny(), hidden_size=128, intermediate_size=256)
+    params = chat.init_chat_params(np.random.default_rng(0), cfg)
+    ids = torch.tensor([[3, 5, 7, 11, 13]])
+    logits = {}
+    for where in ("cpu", "cuda"):
+        m = Qwen3Chat(cfg, params, device=where, quant_bits=4)
+        with torch.inference_mode():
+            before = k1.K1_LAUNCHES.value
+            out, _ = chat.chat_forward(m.params, cfg, ids.to(m.device),
+                                       chat.init_states(cfg, 1, 8, device=m.device),
+                                       torch.arange(5, device=m.device)[None])
+            launches = k1.K1_LAUNCHES.value - before
+        logits[where] = out.cpu()
+        if where == "cuda":
+            assert launches == chat.packed_products(m.params)
+            before = k1.K1_LAUNCHES.value
+            toks = m.generate_ids([3, 5, 7], max_new=12)
+            assert k1.K1_LAUNCHES.value - before == \
+                m.last_loop["steps_run"] * chat.packed_products(m.params)
+            assert list(m.generate_ids_stream([3, 5, 7], max_new=12, chunk=5)) == toks
+    rel_l2 = (torch.linalg.vector_norm(logits["cuda"] - logits["cpu"])
+              / torch.linalg.vector_norm(logits["cpu"])).item()
+    assert rel_l2 <= 2e-2
+
+
+def test_tiny_realtime_session_on_card_matches_host(card):
+    """A packed tiny PersonaPlex session (widths 128, fp32, batch 2): the
+    streaming Mimi codes of each frame, the agent codes and text tokens card
+    vs host, K1 at 8 products of the prefill and 9 a frame, finite audio."""
+    from qwen3_asr_swift_tpu_torch.models.personaplex import PersonaPlex, PersonaSampling
+    from qwen3_asr_swift_tpu_torch.models.personaplex import model as pp
+
+    cfg = dataclasses.replace(pp.config_tiny(), d_model=128, num_heads=4, head_dim=32,
+                              intermediate_size=128, text_vocab=128)
+    rng = np.random.default_rng(0)
+    params = pp.init_personaplex_params(rng, cfg)
+    mimi = pp.init_mimi_params(rng, cfg.mimi)
+    spf = cfg.mimi.samples_per_frame
+    frames = (0.2 * rng.standard_normal((4, 2, spf))).astype(np.float32)
+    greedy = PersonaSampling(audio_temperature=0.0, text_temperature=0.0)
+    got = {}
+    for where in ("cpu", "cuda"):
+        m = PersonaPlex(cfg, params, mimi, device=where, dtype=torch.float32, quant_bits=4)
+        before = k1.K1_LAUNCHES.value
+        s = m.realtime_session(greedy, batch=2)
+        rows = []
+        for f in frames:
+            wav = s.push_frames(f)
+            assert wav.shape == (2, spf) and np.isfinite(wav).all()
+            rows.append((s.last_codes.cpu(), s._text.cpu(), s._user1.cpu()))
+        if where == "cuda":
+            assert k1.K1_LAUNCHES.value - before == 2 * 4 + 4 * (2 * 4 + 1)
+        got[where] = rows
+    for (cc, ct, cu), (hc, ht, hu) in zip(got["cuda"], got["cpu"]):
+        assert torch.equal(cu, hu)
+        assert torch.equal(cc, hc) and torch.equal(ct, ht)
+
+
+def test_pipeline_adapter_on_a_foreign_thread_runs_on_the_models_card(card):
+    """The engine calls the adapters from its own thread, which torch has
+    not seen: each runs under the model's card, and K1 launches there."""
+    from qwen3_asr_swift_tpu_torch.cli import chat_tokenizer
+    from qwen3_asr_swift_tpu_torch.models.chat import Qwen3Chat
+    from qwen3_asr_swift_tpu_torch.models.chat import model as chat
+    from qwen3_asr_swift_tpu_torch.pipeline import VoicePipeline
+    import threading
+
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    cfg = dataclasses.replace(chat.config_tiny(), hidden_size=128, intermediate_size=256)
+    model = Qwen3Chat.init_random(cfg, quant_bits=4, tokenizer=chat_tokenizer(), device=last)
+    model.max_new = 4
+    seen = {}
+    chat_fn = model.chat
+
+    def spying_chat(messages, tools=()):
+        seen["device"] = torch.cuda.current_device()
+        yield from chat_fn(messages, tools)
+
+    model.chat = spying_chat
+    p = VoicePipeline(llm=model, tts=lambda t: np.zeros(16, np.int16))
+    before = k1.K1_LAUNCHES.value
+    out = {}
+    t = threading.Thread(target=lambda: out.update(ptr=p._llm_cb(b"hello", None)))
+    t.start()
+    t.join(timeout=120)
+    p.close()
+    assert out.get("ptr") and seen["device"] == last.index
+    assert k1.K1_LAUNCHES.value > before

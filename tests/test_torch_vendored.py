@@ -50,6 +50,10 @@ from qwen3_asr_swift_tpu.ops import mel as j_mel
 from qwen3_asr_swift_tpu.serving import batching as j_batching
 from qwen3_asr_swift_tpu.serving import dispatch as j_dispatch
 from qwen3_asr_swift_tpu.tokenizers import bpe as j_bpe
+from qwen3_asr_swift_tpu.core import logging as j_logging
+from qwen3_asr_swift_tpu.models.chat import convert as j_chat_convert
+from qwen3_asr_swift_tpu.models.chat import model as j_chat
+from qwen3_asr_swift_tpu.pipeline import engine as j_engine
 from qwen3_asr_swift_tpu_torch.audio import companding as p_comp
 from qwen3_asr_swift_tpu_torch.audio import io as p_io
 from qwen3_asr_swift_tpu_torch.core import config as p_config
@@ -80,6 +84,10 @@ from qwen3_asr_swift_tpu_torch.ops import mel as p_mel
 from qwen3_asr_swift_tpu_torch.serving import batching as p_batching
 from qwen3_asr_swift_tpu_torch.serving import dispatch as p_dispatch
 from qwen3_asr_swift_tpu_torch.tokenizers import bpe as p_bpe
+from qwen3_asr_swift_tpu_torch.core import logging as p_logging
+from qwen3_asr_swift_tpu_torch.models.chat import convert as p_chat_convert
+from qwen3_asr_swift_tpu_torch.models.chat import model as p_chat
+from qwen3_asr_swift_tpu_torch.pipeline import engine as p_engine
 
 # the audio packages export the function ``resample`` over the module's name
 j_resample = importlib.import_module("qwen3_asr_swift_tpu.audio.resample")
@@ -248,6 +256,13 @@ def test_bpe_tokenizer_matches(text):
                                   "normalize_mimi_keys", "convert_mimi_tree"]),
     (p_mimi, j_mimi, ["MimiConfig", "config_tiny", "_causal_pad"]),
     (p_pp_model, j_pp_model, ["PersonaPlexConfig", "config_tiny", "PersonaSampling"]),
+    (p_bpe, j_bpe, ["StreamingDecoder"]),
+    (p_protocols, j_protocols, ["PipelineLLM"]),
+    (p_logging, j_logging, ["get_logger", "log_stage"]),
+    (p_chat, j_chat, ["ChatConfig", "ChatSamplingConfig", "config_tiny"]),
+    (p_chat_convert, j_chat_convert, ["convert_chat_checkpoint"]),
+    (p_engine, j_engine, ["_CEvent", "_CCallbacks", "_CConfig", "PipelineState",
+                          "PipelineEventType", "PipelineEvent", "PipelineConfig", "tool_call"]),
 ])
 def test_copied_code_is_the_original(port, ref, names):
     """Whole copies keep their originals' source, so a fix to one shows as
@@ -263,6 +278,11 @@ def test_copied_code_is_the_original(port, ref, names):
     (p_pp_model.PersonaPlex, j_pp_model.PersonaPlex,
      ["available_voices", "voice", "_build_voice_ring", "load_voice_prompt",
       "_silence_spacer_frames", "_prompt_tokens", "_prompt_reads"]),
+    (p_engine.VoicePipeline, j_engine.VoicePipeline,
+     ["_malloc_str", "_handle_event", "start", "stop", "push_audio", "push_text",
+      "resume_listening", "add_tool", "clear_tools", "state", "is_running", "drain_events",
+      "close", "__enter__", "__exit__"]),
+    (p_chat.Qwen3Chat, j_chat.Qwen3Chat, ["apply_chat_template"]),
 ])
 def test_copied_methods_are_the_originals(port, ref, names):
     for name in names:
@@ -438,6 +458,37 @@ def test_tts_paths_import_nothing_of_the_jax_package():
 def test_wire_codec_source_is_the_original():
     got = (REPO / "qwen3_asr_swift_tpu_torch" / "runtime" / "wire_codec.cpp").read_bytes()
     assert got == (REPO / "qwen3_asr_swift_tpu" / "runtime" / "wire_codec.cpp").read_bytes()
+
+
+@pytest.mark.parametrize("name", ["speech_core.cpp", "speech_core.h"])
+def test_engine_sources_are_the_originals(name):
+    got = (REPO / "qwen3_asr_swift_tpu_torch" / "runtime" / name).read_bytes()
+    assert got == (REPO / "qwen3_asr_swift_tpu" / "runtime" / name).read_bytes()
+
+
+def test_logging_categories_and_engine_marker_match():
+    for name in ("model_loading", "inference", "download", "pipeline", "serving"):
+        assert getattr(p_logging, name).name == getattr(j_logging, name).name, name
+    assert p_engine.TOOL_MARKER == j_engine.TOOL_MARKER
+    assert p_engine.tool_call("lights", "on") == j_engine.tool_call("lights", "on")
+    assert dataclasses.asdict(p_chat.CONFIG_08B) == dataclasses.asdict(j_chat.CONFIG_08B)
+
+
+@pytest.mark.parametrize("text", ["hello world", "héllo, 世界! 4567", "<|im_start|>wo<|im_end|>"])
+@pytest.mark.parametrize("skip_special", [True, False])
+def test_streaming_decoder_matches(text, skip_special):
+    """Token by token, the port's ``StreamingDecoder`` gives the reference's
+    pieces (multi-byte characters withheld until whole), and the joined
+    text is the tokenizer's decode."""
+    vocab, merges, special = _toy_vocab()
+    port, ref = p_bpe.BPETokenizer(vocab, merges, special), j_bpe.BPETokenizer(vocab, merges, special)
+    ids = ref.encode(text) + [9999]  # an unknown id yields nothing
+    p_dec = p_bpe.StreamingDecoder(port, skip_special=skip_special)
+    j_dec = j_bpe.StreamingDecoder(ref, skip_special=skip_special)
+    got = [p_dec.push(t) for t in ids] + [p_dec.finish()]
+    want = [j_dec.push(t) for t in ids] + [j_dec.finish()]
+    assert got == want
+    assert "".join(got) == ref.decode(ref.encode(text), skip_special=skip_special)
 
 
 def _imported_modules(path: Path):
