@@ -98,6 +98,33 @@ Then Qwen3-TTS, at the 1.7B widths (talker 2048 × 28, code predictor
              code where they part within 5e-2 relative L2, and the codes
              equal or parting at a near-tie (the solo margin within twice
              the largest logit gap); no text → 400, no ``tts`` → 503;
+
+Then the other TTS engines, fp32 at their published 0.5B widths (random,
+seed 0), each with K1's and K3's counters read before and after (they must
+not move: no packed product, no int8 cache):
+
+17a. cosyvoice — CosyVoice3 ``CONFIG_05B`` (LLM 24 × 896, DiT 22 × 1024,
+               HiFT 512), at most 150 speech tokens: cut to 2 LLM and 2 DiT
+               layers, card vs host CPU with the same draws (every step's
+               logits up to the first parting and the mel within 1e-4,
+               tokens equal or parting at a near-tie, waveform within 1e-3,
+               relative L2); the full model
+               drawn on the card: tokens/s, device ms a token by range, flow
+               and HiFT ms a second of audio, RTF, peak memory; one
+               ``synthesize_stream`` and one bf16 ``synthesize``;
+17b. vibevoice — VibeVoice ``CONFIG_05B`` (4 + 20 layers of 896, a 4-layer
+               diffusion head, 20 DPM steps with CFG, the σ-VAE), 24 frames
+               (EOS head biased off): at 2 + 2 layers, each frame's latent
+               card vs host on a float64 run's history within 1e-4, the
+               card no farther from float64 than 2x the host, the free run
+               no farther than 4x, EOS decisions equal, the decode within
+               1e-3; the
+               full model on the card: frames/s against 7.5 Hz, device ms a
+               frame (LM, diffusion, decode), RTF, peak memory;
+               ``encode_voice`` on 3 s, then a voiced ``synthesize``;
+17c. speak (engines) — ``POST /speak`` with ``engine`` ``cosyvoice`` and
+               ``vibevoice`` under both schedulers: each through a
+               ``TTSBatcher`` and equal to the direct ``synthesize``'s WAV;
 Then the server's last three routes:
 
 18. realtime — ``/v1/realtime`` on a server with the slice's ASR model and
@@ -128,8 +155,8 @@ Then the server's last three routes:
                the same seed, 503 without an ``s2s`` model;
 21. cli      — ``python -m qwen3_asr_swift_tpu_torch.cli`` on the card with
                ``--random-weights``: transcribe, transcribe-batch, align,
-               vad, vad-stream, speak, denoise and respond, in parallel, each
-               exit 0 with the reference's JSON keys.
+               vad, vad-stream, speak, denoise, respond and vibevoice, in
+               parallel, each exit 0 with the reference's JSON keys.
 
 Then the conversational paths (chat and agent run after realtime, while
 the TTS model is still built; duplex after respond, on its 7B):
@@ -161,9 +188,9 @@ the TTS model is still built; duplex after respond, on its 7B):
                device ms a frame by range, peak memory at batch 1 and 2.
 
 Weights are random (numpy, seed 0) at the full width of the 0.6B
-configuration (the ASR phases) and the 1.7B one (TTS); PersonaPlex's and
-the chat model's are drawn on the card (the 7B's numpy draw would take
-minutes). The line before the last is ``{"kernels": [...]}`` (each
+configuration (the ASR phases) and the 1.7B one (TTS); PersonaPlex's, the
+chat model's, CosyVoice's and VibeVoice's are drawn on the card (the 7B's
+numpy draw would take minutes). The line before the last is ``{"kernels": [...]}`` (each
 entry with its launches in the main path's run, its bound and its library
 time); the last line is ``{"ok": true, "device": {...}}``. Imports nothing
 of JAX nor of the JAX package, and checks so before the last lines.
@@ -176,6 +203,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest.mock import patch
 
 import numpy as np
 
@@ -721,13 +749,13 @@ def build_model(enc, dec, device, dtype, **kw):
 
 def phase_step(weights, label="step", **kw):
     """Full-width prefill + first decode step, card (kernels) vs host CPU
-    (plain versions), both fp32 with TF32 off; ``kw`` go to the model."""
+    (plain versions), both fp32 (matmuls in full fp32, cuDNN's TF32 flag at
+    its default: fp32 convs are tap matmuls); ``kw`` go to the model."""
     import torch
 
     from qwen3_asr_swift_tpu_torch.models.qwen3_asr.decoder import decode_step
     from qwen3_asr_swift_tpu_torch.ops.sampling import SamplingOptions
 
-    torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(2)
     clips = [(0.1 * rng.standard_normal(8 * 16000)).astype(np.float32) for _ in range(2)]
@@ -748,7 +776,6 @@ def phase_step(weights, label="step", **kw):
         out[where] = (audio_tokens.float().cpu(), logits.float().cpu())
         log(f"{label} on {where}: {time.perf_counter() - t0:.1f} s")
         del model
-    torch.backends.cudnn.allow_tf32 = True
     enc_rel = (torch.linalg.vector_norm(out["cuda"][0] - out["cpu"][0])
                / torch.linalg.vector_norm(out["cpu"][0])).item()
     rel = (torch.linalg.vector_norm(out["cuda"][1] - out["cpu"][1])
@@ -1531,6 +1558,16 @@ def tree_to(tree, device):
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
+def ranged(name, fn, when=None):
+    """``fn`` inside a profiler range ``name`` (or ``when(*args)``'s name)."""
+    from torch.profiler import record_function
+
+    def run(*a, **kw):
+        with record_function(when(*a) if when else name):
+            return fn(*a, **kw)
+    return run
+
+
 def range_device_ms(run, prefix: str, by_range=None):
     """Run ``run()`` once under the profiler. Each kernel's device time goes
     to the ``record_function`` range (named ``prefix...``) whose span on the
@@ -1577,30 +1614,16 @@ def tts_split(model, text, sampling):
     talker steps, the code predictor chains and the codec decode in ranges
     of their own: ({range: device ms}, {kernel: device µs}, wall s, frames
     run, frames decoded)."""
-    from torch.profiler import record_function
-
     from qwen3_asr_swift_tpu_torch.models.qwen3_tts import model as model_mod
 
-    def ranged(name, fn):
-        def run(*a, **kw):
-            with record_function(name):
-                return fn(*a, **kw)
-        return run
-
-    saved = {k: getattr(model_mod, k) for k in ("talker_prefill", "talker_step",
-                                                 "predict_codebooks")}
-    for k, fn in saved.items():
-        setattr(model_mod, k, ranged(f"tts.{k}", fn))
+    names = ("talker_prefill", "talker_step", "predict_codebooks")
     decoded = []
     decode = ranged("tts.codec", model.codec.decode_frames)
-    model.codec.decode_frames = lambda codes, n: decoded.append(n) or decode(codes, n)
-    try:
+    wrapped = {k: ranged(f"tts.{k}", getattr(model_mod, k)) for k in names}
+    with patch.multiple(model_mod, **wrapped), patch.object(
+            model.codec, "decode_frames", lambda codes, n: decoded.append(n) or decode(codes, n)):
         ms, _, kernels, wall = range_device_ms(lambda: model.synthesize(text, sampling=sampling),
                                                "tts.")
-    finally:
-        for k, fn in saved.items():
-            setattr(model_mod, k, fn)
-        del model.codec.decode_frames
     return ms, kernels, wall, model.last_loop["frames_run"], decoded[0]
 
 
@@ -2032,6 +2055,470 @@ def phase_speak(asr, tts, dev_name, power):
 
 
 # --------------------------------------------------------------------------- #
+# the other TTS engines on /speak's ``engine``: CosyVoice3 and VibeVoice at the
+# published 0.5B widths (random, seed 0), fp32 as the JAX package's default
+
+COSY_TOKENS = 150        # the LLM's speech-token cap (about 6 s of audio; depth cut)
+COSY_TEXT = "Hello from one card."    # 20 byte-level text tokens
+COSY_SPLIT_TOKENS = 8    # tokens under the profiler
+COSY_TOL = 1e-4          # each step's logits and the mel, relative L2, card vs host CPU (fp32)
+COSY_WAV_TOL = 1e-3      # the waveform, relative L2, card vs host CPU
+VIBE_FRAMES = 24         # the frame cap (3.2 s at 7.5 Hz; depth cut)
+VIBE_TEXT = "Hello from one card, spoken by the port."
+VIBE_SPLIT_FRAMES = 4    # frames under the profiler
+VIBE_TOL = 1e-4          # each frame's latent on one history, relative L2, card vs host CPU (fp32)
+VIBE_PREC_RATIO = 2.0    # those latents' distance from float64: the card's within 2 x the host's
+VIBE_DRIFT_RATIO = 4.0   # the free-running latents' distance from float64: card within 4 x host
+VIBE_WAV_TOL = 1e-3      # the waveform, relative L2, card vs host CPU
+VIBE_VOICE_S = 3.0       # seconds of reference audio for encode_voice
+#: the EOS head's bias in the random VibeVoice models: its sigmoid stays
+#: far below 0.5, so every synthesis runs its whole frame cap
+VIBE_EOS_BIAS = -30.0
+SPEAK_ENGINE_TEXTS = {"cosyvoice": "hi", "vibevoice": "Hello there."}
+
+
+def rel_l2(got, ref) -> float:
+    import torch
+
+    got, ref = torch.as_tensor(got).double().cpu(), torch.as_tensor(ref).double().cpu()
+    return (torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)).item()
+
+
+def check_counters_still(label, counters, before):
+    """K1's and K3's counts must not move on a path with no packed product
+    or int8 cache."""
+    after = [c.value for c in counters]
+    log(f"{label}: launch counters {', '.join(f'{c.name} {c.value}' for c in counters)} "
+        f"(before the phase {', '.join(str(b) for b in before)})")
+    if after != before:
+        raise AssertionError(f"{label}: K1/K3 launched on a path without them: {before} -> "
+                             f"{after}")
+
+
+def timed(log_to, name, fn):
+    """``fn`` with its wall time (synchronised) added to ``log_to[name]``."""
+    import torch
+
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        log_to[name] = log_to.get(name, 0.0) + time.perf_counter() - t0
+        return out
+    return run
+
+
+def cosy_logits_run(model, text, gumbel):
+    """The LLM loop of ``model`` on ``text`` with the draws ``gumbel``:
+    (tokens, n, the logits each step's sampler saw)."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.cosyvoice import model as cosy_mod
+
+    seen = []
+    sample = cosy_mod._sample_token
+
+    def record(lg, *a, **kw):
+        seen.append(lg.float().cpu())
+        return sample(lg, *a, **kw)
+
+    ids = model._encode_text(text)
+    bucket = max(16, ((len(ids) + 15) // 16) * 16)
+    arr = np.zeros(bucket, np.int32)
+    arr[:len(ids)] = ids
+    with patch.multiple(cosy_mod, _sample_token=record), torch.inference_mode():
+        out, n, _ = cosy_mod.llm_generate_tokens(model.params, model.cfg, arr, len(ids),
+                                                 gumbel.to(model.device), model.cfg.max_tokens)
+    return out.cpu().numpy(), int(n), seen
+
+
+def token_parting(label, card, host, card_logits, host_logits, gumbel):
+    """Check two token lists equal, or parting at a near-tie (ROADMAP §3
+    entry 9's rule, both halves): every step's logits up to and including
+    the first parting (all of them where none) within ``COSY_TOL`` relative
+    L2 of the host's, which bounds the gap there too; and at the parting the
+    host's Gumbel-max score margin between its token and the card's within
+    twice the largest card-vs-host logit gap."""
+    n = min(len(card), len(host))
+    part = next((i for i in range(n) if card[i] != host[i]), None)
+    last = n - 1 if part is None else part
+    rels = [rel_l2(card_logits[i], host_logits[i]) for i in range(last + 1)]
+    worst = max(rels)
+    log(f"{label}: the logits of steps 0..{last} card vs host, rel L2 at most {worst:.3e} "
+        f"(step {rels.index(worst)}; first {rels[0]:.3e}; tol {COSY_TOL:g})")
+    if not worst <= COSY_TOL:
+        raise AssertionError(f"{label}: logits rel L2 {worst} > {COSY_TOL} at step "
+                             f"{rels.index(worst)}")
+    if part is None:
+        log(f"{label}: speech tokens equal card vs host ({n} tokens)")
+        return
+    lh, lc, g = host_logits[part], card_logits[part], gumbel[part, 0].cpu()
+    a, b = int(host[part]), int(card[part])
+    margin = ((lh[a] + g[a]) - (lh[b] + g[b])).item()
+    gap = (lh - lc).abs().max().item()
+    log(f"{label}: speech tokens part at step {part}: host {a}, card {b}; host score margin "
+        f"{margin:.6g}, largest logit gap {gap:.6g} (near-tie if margin <= 2 x gap)")
+    if not margin <= 2 * gap:
+        raise AssertionError(f"{label}: tokens part at step {part} with margin {margin} > 2 x "
+                             f"{gap}")
+
+
+def phase_cosyvoice(dev, counters, dev_name, power):
+    """CosyVoice3 ``CONFIG_05B`` (LLM 24 x 896, DiT 22 x 1024, HiFT 512),
+    fp32, random weights (seed 0), ``COSY_TOKENS`` speech tokens at most:
+    (a) cut to 2 LLM and 2 DiT layers, card vs host CPU with the same
+    draws: every step's logits up to the first parting and the mel within
+    ``COSY_TOL``, the tokens equal or parting at a near-tie, the waveform
+    within
+    ``COSY_WAV_TOL`` (relative L2); (b) the full model drawn on the card:
+    tokens/s of the LLM loop, device ms a token by profiler range, ms of the
+    flow and of HiFT a second of audio, RTF, peak memory; one
+    ``synthesize_stream`` and one bf16 ``synthesize``, each finite audio of
+    960 samples a token. K1 and K3 must not run. Returns the fp32 model."""
+    import dataclasses
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.cosyvoice import CONFIG_05B, CosyVoiceTTS
+    from qwen3_asr_swift_tpu_torch.models.cosyvoice import model as cosy_mod
+    from qwen3_asr_swift_tpu_torch.models.cosyvoice.dit import flow_generate
+    from qwen3_asr_swift_tpu_torch.models.cosyvoice.hift import hift_generate, source_noise
+
+    before = [c.value for c in counters]
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(CONFIG_05B, max_tokens=COSY_TOKENS)
+    spt = cfg.flow.token_mel_ratio * cfg.hift.samples_per_frame        # samples a token
+
+    # (a) card vs host at 2 + 2 layers, the same numpy weights and draws
+    cut = dataclasses.replace(cfg, num_layers=2, flow=dataclasses.replace(
+        cfg.flow, dit=dataclasses.replace(cfg.flow.dit, depth=2)))
+    t0 = time.perf_counter()
+    tree = cosy_mod.init_cosyvoice_params(np.random.default_rng(0), cut)
+    host = CosyVoiceTTS(cut, tree, device="cpu")
+    card = CosyVoiceTTS(cut, tree, device=dev)
+    del tree
+    gumbel = cosy_mod.gumbel_draws(cut, cut.max_tokens, torch.Generator().manual_seed(0))
+    h_tok, h_n, h_logits = cosy_logits_run(host, COSY_TEXT, gumbel)
+    c_tok, c_n, c_logits = cosy_logits_run(card, COSY_TEXT, gumbel)
+    log(f"cosyvoice (2 + 2 layers, fp32): {c_n} tokens on the card, {h_n} on the host")
+    token_parting("cosyvoice", c_tok[:c_n], h_tok[:h_n], c_logits, h_logits, gumbel)
+    tokens = c_tok[:c_n]
+    bucket = max(8, ((len(tokens) + 7) // 8) * 8)
+    padded = np.concatenate([tokens, np.full(bucket - len(tokens), tokens[-1])])
+    noise = torch.randn((1, bucket * 2, cut.flow.output_size), generator=torch.Generator()
+                        .manual_seed(1))
+    src = source_noise(cut.hift, 1, bucket * 2 * cut.hift.samples_per_frame,
+                       torch.Generator().manual_seed(2))
+    out = {}
+    for where, m in (("host", host), ("card", card)):
+        with torch.inference_mode():
+            mel = flow_generate(m.params["flow"], cut.flow,
+                                torch.as_tensor(padded, device=m.device)[None], noise.to(m.device))
+            wav = hift_generate(m.params["hift"], cut.hift, mel,
+                                tuple(t.to(m.device) for t in src))
+        out[where] = (mel.cpu(), wav.cpu())
+    rel_mel = rel_l2(out["card"][0], out["host"][0])
+    rel_wav = rel_l2(out["card"][1], out["host"][1])
+    log(f"cosyvoice (2 + 2 layers): mel rel L2 {rel_mel:.3e} (tol {COSY_TOL:g}), waveform rel "
+        f"L2 {rel_wav:.3e} (tol {COSY_WAV_TOL:g}) over {out['host'][1].shape[1]} samples; "
+        f"{time.perf_counter() - t0:.1f} s with the host's share")
+    if not (rel_mel <= COSY_TOL and rel_wav <= COSY_WAV_TOL):
+        raise AssertionError(f"cosyvoice card vs host: mel {rel_mel}, waveform {rel_wav}")
+    del host, card, out
+
+    # (b) the full model, drawn on the card
+    t0 = time.perf_counter()
+    model = CosyVoiceTTS.init_random_on_device(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    log(f"cosyvoice weights: CONFIG_05B drawn on the card in {time.perf_counter() - t0:.1f} s")
+    model.synthesize("warm up")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    stages = {}
+    with patch.multiple(cosy_mod, flow_generate=timed(stages, "flow", cosy_mod.flow_generate),
+                        hift_generate=timed(stages, "hift", cosy_mod.hift_generate),
+                        llm_generate_tokens=timed(stages, "llm", cosy_mod.llm_generate_tokens)):
+        t0 = time.perf_counter()
+        chunk = model.synthesize(COSY_TEXT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = model.last_loop["steps_run"]
+    audio_s = len(chunk.samples) / chunk.sample_rate
+    n_tok = len(chunk.samples) // spt
+    log(f"cosyvoice (CONFIG_05B, fp32): {n_tok} tokens ({steps} run, "
+        f"{model.last_loop['done_reads']} host reads of done), {audio_s:.2f} s of audio in "
+        f"{wall:.3f} s: RTF {wall / audio_s:.3f}; LLM loop {stages['llm']:.3f} s = "
+        f"{steps / stages['llm']:.1f} tokens/s; flow {1e3 * stages['flow'] / audio_s:.1f} ms and "
+        f"HiFT {1e3 * stages['hift'] / audio_s:.1f} ms a second of audio; peak memory "
+        f"{peak:.2f} GiB ({resident:.2f} resident before it, this model's weights and the "
+        f"earlier phases' models); on {dev_name} ({power})")
+    if (len(chunk.samples) == 0 or len(chunk.samples) % spt
+            or not np.isfinite(chunk.samples).all()):
+        raise AssertionError(f"cosyvoice: {len(chunk.samples)} samples, finite "
+                             f"{np.isfinite(chunk.samples).all()}")
+
+    # device ms a token by range: a short loop under the profiler
+    def is_prefill(lp, x, *a, **kw):
+        return "cosy.prefill" if x.shape[1] > 1 else "cosy.step"
+
+    ids = model._encode_text(COSY_TEXT)
+    arr = np.zeros(max(16, ((len(ids) + 15) // 16) * 16), np.int32)
+    arr[:len(ids)] = ids
+    g = model._gumbel(0)[:COSY_SPLIT_TOKENS]
+    with patch.multiple(cosy_mod,
+                        qwen2_decoder_layer=ranged("", cosy_mod.qwen2_decoder_layer, is_prefill),
+                        _sample_token=ranged("cosy.sample", cosy_mod._sample_token)):
+        def run():
+            with torch.inference_mode():
+                cosy_mod.llm_generate_tokens(model.params, cfg, arr, len(ids), g,
+                                             COSY_SPLIT_TOKENS)
+        ranges, _, kernels, prof_wall = range_device_ms(run, "cosy.")
+    busy = sum(kernels.values()) / 1e3
+    n = COSY_SPLIT_TOKENS
+    log(f"cosyvoice LLM under the profiler ({n} tokens): wall {prof_wall:.3f} s, device busy "
+        f"{busy:.2f} ms (idle {100 * (1 - busy / 1e3 / prof_wall):.1f} %); prefill "
+        f"{ranges.get('prefill', 0.0):.3f} ms once; device ms a token: layers "
+        f"{ranges.get('step', 0.0) / (n - 1):.3f}, sampler {ranges.get('sample', 0.0) / n:.3f}, "
+        f"other (embeddings, head, masks) {ranges.get('other', 0.0) / n:.3f}; on {dev_name} "
+        f"({power})")
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:5]:
+        log(f"  device {us / 1e3:9.2f} ms  {name[:100]}")
+
+    chunks = list(model.synthesize_stream(COSY_TEXT))
+    streamed = np.concatenate([c.samples for c in chunks])
+    bf16 = CosyVoiceTTS.init_random_on_device(cfg, 0, device=dev, dtype=torch.bfloat16)
+    half = bf16.synthesize(COSY_TEXT).samples
+    del bf16
+    n_half = len(half) // spt
+    log(f"cosyvoice synthesize_stream: {len(chunks)} chunks, {len(streamed)} samples "
+        f"({len(streamed) // spt} tokens); bf16 synthesize: {len(half)} samples "
+        f"({n_half} tokens); both finite: {np.isfinite(streamed).all()} "
+        f"{np.isfinite(half).all()}")
+    if not (len(streamed) == n_tok * spt and np.isfinite(streamed).all()
+            and n_half and len(half) == n_half * spt and np.isfinite(half).all()):
+        raise AssertionError(f"cosyvoice stream {len(streamed)} samples for {n_tok} tokens, "
+                             f"bf16 {len(half)} samples")
+    check_counters_still("cosyvoice", counters, before)
+    log(f"cosyvoice: phase {time.perf_counter() - t_phase:.1f} s")
+    return model
+
+
+def phase_vibevoice(dev, counters, dev_name, power):
+    """VibeVoice ``CONFIG_05B`` (base LM 4 x 896 + TTS LM 20 x 896,
+    diffusion head 4 layers, 20 DPM steps with CFG, σ-VAE decoder ×3200),
+    fp32, random weights (seed 0) with the EOS head biased off
+    (``VIBE_EOS_BIAS``), ``VIBE_FRAMES`` frames: (a) cut to 2 + 2 layers,
+    card vs host CPU with the same draws, and a float64 run on the card:
+    on the float64 run's history, each frame's latent of the card within
+    ``VIBE_TOL`` of the host's and their distance from float64 within
+    ``VIBE_PREC_RATIO`` times the host's; free running (the loop feeds
+    each latent back, and with random weights amplifies rounding frame by
+    frame), the card's latents no farther from float64 than
+    ``VIBE_DRIFT_RATIO`` times the host's; every frame's EOS decision and
+    the frame count equal, the card's latents decoded on both within
+    ``VIBE_WAV_TOL`` (relative L2); (b) the full model drawn on the
+    card: frames/s against 7.5 Hz, device ms a frame split into LM,
+    diffusion and decode by profiler range, RTF, peak memory; then
+    ``encode_voice`` on ``VIBE_VOICE_S`` s of audio and a ``synthesize``
+    with that voice. K1 and K3 must not run. Returns the model."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.vibevoice import CONFIG_05B, VibeVoiceTTS
+    from qwen3_asr_swift_tpu_torch.models.vibevoice import model as vibe_mod
+
+    before = [c.value for c in counters]
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(CONFIG_05B, max_frames=VIBE_FRAMES)
+    spf = cfg.vae_upsample
+
+    # (a) card vs host at 2 + 2 layers, the same numpy weights and starts
+    cut = dataclasses.replace(cfg, num_layers=4, tts_backbone_layers=2)
+    t0 = time.perf_counter()
+    tree = vibe_mod.init_vibevoice_params(np.random.default_rng(0), cut)
+    tree["eos_classifier"]["fc2"]["bias"][:] = VIBE_EOS_BIAS
+    starts = vibe_mod.frame_starts(cut, VIBE_FRAMES, torch.Generator().manual_seed(0))
+
+    def run(m, forced=None):
+        """(latents, frames, EOS probabilities, each frame's own solve);
+        with ``forced`` [frames, latent] each frame's solve is recorded but
+        ``forced``'s latent goes on, so the loop follows that history."""
+        # the draws' device bound as a default: a closure over ``m`` would be
+        # a cycle that keeps a deleted model on the card until gc runs
+        m._starts = lambda seed, max_frames, to=m.device: starts[:max_frames].to(to)
+        probs, own = [], []
+        eos, solve = vibe_mod.eos_probability, vibe_mod.dpm_solve
+
+        def solve_(*a, **kw):
+            own.append(solve(*a, **kw))
+            if forced is None:
+                return own[-1]
+            return torch.as_tensor(forced[len(own) - 1:len(own)]).to(own[-1])
+
+        with patch.multiple(vibe_mod, dpm_solve=solve_,
+                            eos_probability=lambda p, h: probs.append(eos(p, h)) or probs[-1]):
+            lat, n = m._run(VIBE_TEXT, np.zeros((0, cut.latent_dim), np.float32), VIBE_FRAMES, 0)
+        return (lat[:n], n, torch.cat([q.double().cpu().reshape(-1) for q in probs]),
+                torch.cat([o.double().cpu() for o in own]))
+
+    card = VibeVoiceTTS(cut, tree, device=dev)
+    host = VibeVoiceTTS(cut, tree, device="cpu")
+    # float64 on the card: it agrees with the host's float64 run to 2e-12
+    # (ROADMAP §3 entry 3) and spares the host a third run
+    exact = VibeVoiceTTS(cut, tree, device=dev, dtype=torch.float64)
+    del tree
+    cl, cn, cp, _ = run(card)                       # free running
+    hl, hn, hp, _ = run(host)
+    el, en, ep, _ = run(exact)
+    _, _, cfp, c_own = run(card, forced=el)         # each frame on the float64 history
+    _, _, hfp, h_own = run(host, forced=el)
+    per_frame = [rel_l2(c_own[i], h_own[i]) for i in range(en)]
+    card_prec, host_prec = rel_l2(c_own, el), rel_l2(h_own, el)
+    card_drift, host_drift = rel_l2(cl, el), rel_l2(hl, el)
+    ce, he = (cfp > 0.5).tolist(), (hfp > 0.5).tolist()
+    # with the EOS bias at -30 the probabilities are e^(logit): their
+    # relative gap is the EOS logits' absolute gap
+    p_gap = ((cfp - hfp).abs() / hfp).max().item()
+    with torch.inference_mode():
+        cw = card._latents_to_audio(cl)
+        hw = host._latents_to_audio(cl)
+    rel_wav = rel_l2(cw, hw)
+    del card, host, exact
+    log(f"vibevoice (2 + 2 layers, fp32): {cn} frames on the card, {hn} on the host, {en} in "
+        f"float64; each frame on the float64 run's history, card vs host: rel L2 at most "
+        f"{max(per_frame):.3e} (tol {VIBE_TOL:g}; first {per_frame[0]:.3e}), and from float64 "
+        f"card {card_prec:.3e}, host {host_prec:.3e} (card tol {VIBE_PREC_RATIO:g} x host); "
+        f"EOS decisions equal {ce == he} over {len(ce)} frames (probabilities' largest "
+        f"relative gap {p_gap:.3e}); the card's latents decoded on both, rel L2 {rel_wav:.3e} "
+        f"(tol {VIBE_WAV_TOL:g}); {time.perf_counter() - t0:.1f} s with the host's share")
+    log(f"vibevoice free running: latents from float64 card {card_drift:.3e}, host "
+        f"{host_drift:.3e} (card tol {VIBE_DRIFT_RATIO:g} x host); card vs host up to frames "
+        f"1, {cn // 2 + 1}, {cn}: "
+        + ", ".join(f"{rel_l2(cl[:i + 1], hl[:i + 1]):.3e}" for i in (0, cn // 2, cn - 1)))
+    if not (cn == hn == en and ce == he and max(per_frame) <= VIBE_TOL
+            and card_prec <= VIBE_PREC_RATIO * host_prec
+            and card_drift <= VIBE_DRIFT_RATIO * host_drift and rel_wav <= VIBE_WAV_TOL):
+        raise AssertionError(f"vibevoice card vs host: frames {cn}/{hn}/{en}, EOS equal "
+                             f"{ce == he}, latents {max(per_frame)}, from float64 {card_prec} "
+                             f"vs {host_prec}, free run {card_drift} vs {host_drift}, "
+                             f"waveform {rel_wav}")
+
+    # (b) the full model, drawn on the card
+    t0 = time.perf_counter()
+    model = VibeVoiceTTS.init_random_on_device(cfg, 0, device=dev)
+    model.params["eos_classifier"]["fc2"]["bias"].fill_(VIBE_EOS_BIAS)
+    torch.cuda.synchronize()
+    log(f"vibevoice weights: CONFIG_05B drawn on the card in {time.perf_counter() - t0:.1f} s")
+    model.synthesize("warm up", max_frames=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    stages = {}
+    with patch.multiple(vibe_mod,
+                        generate_frames=timed(stages, "frames", vibe_mod.generate_frames),
+                        decode_chunked=timed(stages, "decode", vibe_mod.decode_chunked)):
+        t0 = time.perf_counter()
+        chunk = model.synthesize(VIBE_TEXT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = len(chunk.samples) // spf
+    audio_s = len(chunk.samples) / chunk.sample_rate
+    log(f"vibevoice (CONFIG_05B, fp32): {n} frames ({model.last_loop['frames_run']} run, "
+        f"{model.last_loop['eos_reads']} host reads of the EOS flag), {audio_s:.2f} s of audio "
+        f"in {wall:.3f} s: RTF {wall / audio_s:.3f}; frame loop {stages['frames']:.3f} s = "
+        f"{n / stages['frames']:.2f} frames/s (real time 7.5); decode "
+        f"{1e3 * stages['decode'] / audio_s:.1f} ms a second of audio; peak memory {peak:.2f} "
+        f"GiB ({resident:.2f} resident before it); on {dev_name} ({power})")
+    if not (n == VIBE_FRAMES and len(chunk.samples) == n * spf
+            and np.isfinite(chunk.samples).all()):
+        raise AssertionError(f"vibevoice: {len(chunk.samples)} samples, finite "
+                             f"{np.isfinite(chunk.samples).all()}")
+
+    def lm_range(lp, x, *a, **kw):
+        return "vibe.prefill" if x.shape[1] > 1 else "vibe.lm"
+
+    with patch.multiple(vibe_mod, _layer_forward=ranged("", vibe_mod._layer_forward, lm_range),
+                        dpm_solve=ranged("vibe.diffusion", vibe_mod.dpm_solve),
+                        decode_chunked=ranged("vibe.decode", vibe_mod.decode_chunked)):
+        ranges, _, kernels, prof_wall = range_device_ms(
+            lambda: model.synthesize(VIBE_TEXT, max_frames=VIBE_SPLIT_FRAMES), "vibe.")
+    busy = sum(kernels.values()) / 1e3
+    f = VIBE_SPLIT_FRAMES
+    log(f"vibevoice under the profiler ({f} frames): wall {prof_wall:.3f} s, device busy "
+        f"{busy:.2f} ms (idle {100 * (1 - busy / 1e3 / prof_wall):.1f} %); prefill "
+        f"{ranges.get('prefill', 0.0):.3f} ms once; device ms a frame: LM (both streams) "
+        f"{ranges.get('lm', 0.0) / f:.3f}, diffusion {ranges.get('diffusion', 0.0) / f:.3f}, "
+        f"decode {ranges.get('decode', 0.0) / f:.3f}, other "
+        f"{ranges.get('other', 0.0) / f:.3f}; on {dev_name} ({power})")
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:5]:
+        log(f"  device {us / 1e3:9.2f} ms  {name[:100]}")
+
+    t = np.arange(int(VIBE_VOICE_S * cfg.sample_rate)) / cfg.sample_rate
+    ref_audio = (0.3 * np.sin(2 * np.pi * 180 * t)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = model.encode_voice(ref_audio, "a reference voice", os.path.join(d, "voice.npz"))
+        enc_s = time.perf_counter() - t0
+        lat = np.load(path)["latents"]
+        voiced = model.synthesize(VIBE_TEXT, voice=str(path)).samples
+    log(f"vibevoice encode_voice: {VIBE_VOICE_S:g} s -> {lat.shape[0]} latents in {enc_s:.3f} s; "
+        f"synthesize with that voice: {len(voiced) // spf} frames, finite "
+        f"{np.isfinite(voiced).all()}")
+    if not (lat.shape == (min(64, int(VIBE_VOICE_S * cfg.sample_rate) // spf), cfg.latent_dim)
+            and np.isfinite(lat).all() and len(voiced) == VIBE_FRAMES * spf
+            and np.isfinite(voiced).all()):
+        raise AssertionError(f"vibevoice voice: latents {lat.shape}, {len(voiced)} samples")
+    check_counters_still("vibevoice", counters, before)
+    log(f"vibevoice: phase {time.perf_counter() - t_phase:.1f} s")
+    return model
+
+
+def phase_speak_engines(asr, engines, counters, dev_name, power):
+    """``POST /speak`` with ``engine`` set to each of ``engines`` (the
+    registry entries ``tts:<engine>``) under the group scheduler and the
+    slot pool: each answer through a ``TTSBatcher`` (the pool is only for
+    models with a talker and a code predictor) and equal, byte for byte, to
+    the WAV of a direct ``synthesize`` of the same text and seed."""
+    from qwen3_asr_swift_tpu_torch.audio.io import wav_bytes
+    from qwen3_asr_swift_tpu_torch.serving import SpeechServer, TTSBatcher, build_registry
+
+    before = [c.value for c in counters]
+    t_phase = time.perf_counter()
+    want = {}
+    for name, model in engines.items():
+        chunk = model.synthesize(SPEAK_ENGINE_TEXTS[name])
+        want[name] = wav_bytes(chunk.samples, chunk.sample_rate)
+    for scheduler in ("group", "slotpool"):
+        registry = build_registry(asr)
+        for name, model in engines.items():
+            registry.register_instance(f"tts:{name}", model)
+        server = SpeechServer(registry, port=0, scheduler=scheduler, max_batch=4)
+        with Serving(server) as port:
+            for name, model in engines.items():
+                t0 = time.perf_counter()
+                status, ctype, body = post(port, "/speak", json.dumps(
+                    {"text": SPEAK_ENGINE_TEXTS[name], "engine": name}).encode(),
+                    "application/json")
+                wall = time.perf_counter() - t0
+                batcher = server._tts_batcher_for(model)
+                log(f"speak ({scheduler}, engine {name}): {status} {ctype}, {len(body)} bytes in "
+                    f"{wall:.2f} s through {type(batcher).__name__} "
+                    f"{json.dumps(batcher.stats)}; equal to the direct synthesize "
+                    f"{body == want[name]}; on {dev_name} ({power})")
+                if not (status == 200 and type(batcher) is TTSBatcher and body == want[name]):
+                    raise AssertionError(f"speak ({scheduler}, {name}): {status}, "
+                                         f"{type(batcher).__name__}, equal {body == want[name]}")
+    check_counters_still("speak (engines)", counters, before)
+    log(f"speak (engines): phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# --------------------------------------------------------------------------- #
 # the server's last routes: /v1/realtime over the ASR and TTS models,
 # /enhance (DeepFilterNet3) and /respond (PersonaPlex 7B with Mimi)
 
@@ -2316,28 +2803,14 @@ def respond_split(model, user, sampling):
     own: ({range: device ms}, {kernel: device µs}, wall s, frames run, K1's
     device ms in the frames (temporal steps and text heads), K1's in the
     prefill)."""
-    from torch.profiler import record_function
-
     from qwen3_asr_swift_tpu_torch.models.personaplex import model as pp
-
-    def ranged(name, fn):
-        def run(*a, **kw):
-            with record_function(name):
-                return fn(*a, **kw)
-        return run
 
     names = ("temporal_prefill", "temporal_step", "depformer_generate", "mimi_encode",
              "mimi_decode")
-    saved = {k: getattr(pp, k) for k in names}
-    for k, fn in saved.items():
-        setattr(pp, k, ranged(f"pp.{k}", fn))
     by_range = {}
-    try:
+    with patch.multiple(pp, **{k: ranged(f"pp.{k}", getattr(pp, k)) for k in names}):
         ms, _, kernels, wall = range_device_ms(
             lambda: model.respond(user, 24000, sampling=sampling), "pp.", by_range)
-    finally:
-        for k, fn in saved.items():
-            setattr(pp, k, fn)
 
     def k1_ms(*ranges):
         return sum(us for r in ranges for name, us in by_range.get(r, {}).items()
@@ -2552,33 +3025,19 @@ def chat_split(model, ids, tokens: int):
     head in ranges of their own: ((prefill device ms, prefill wall s),
     {range: device ms of the decode}, {kernel: µs of the decode}, decode
     wall s)."""
-    from torch.profiler import record_function
-
     from qwen3_asr_swift_tpu_torch.models.chat import model as chat
 
-    def ranged(name, fn):
-        def run(*a, **kw):
-            with record_function(name):
-                return fn(*a, **kw)
-        return run
-
     names = ("deltanet_forward", "gated_attention_forward", "_swiglu_mlp", "tied_lm_head")
-    saved = {k: getattr(chat, k) for k in names}
-    for k, fn in saved.items():
-        setattr(chat, k, ranged(f"chat.{k}", fn))
     x, n_valid, t_bucket = model._prompt(ids)
     state = {}
 
     def prefill():
         state["s"] = model._gen_start(x, n_valid, tokens + 1, t_bucket + tokens + 1, None, None)
 
-    try:
+    with patch.multiple(chat, **{k: ranged(f"chat.{k}", getattr(chat, k)) for k in names}):
         pre_ms, _, _, pre_wall = range_device_ms(prefill, "chat.")
         ms, _, kernels, wall = range_device_ms(
             lambda: model._gen_chunk(state["s"], n_valid, tokens + 1), "chat.")
-    finally:
-        for k, fn in saved.items():
-            setattr(chat, k, fn)
     return (sum(pre_ms.values()), pre_wall), ms, kernels, wall
 
 
@@ -2905,29 +3364,15 @@ def duplex_split(model, user, sampling):
     """4 frames of a session under the profiler, the streaming Mimi encode and
     decode, the temporal step and the depformer in ranges: ({range: device
     ms}, {kernel: µs}, wall s)."""
-    from torch.profiler import record_function
-
     from qwen3_asr_swift_tpu_torch.models.personaplex import model as pp
 
-    def ranged(name, fn):
-        def run(*a, **kw):
-            with record_function(name):
-                return fn(*a, **kw)
-        return run
-
     names = ("mimi_encode_frame", "temporal_step", "depformer_generate", "mimi_decode_frame")
-    saved = {k: getattr(pp, k) for k in names}
     spf = model.cfg.mimi.samples_per_frame
     s = model.realtime_session(sampling)
-    for k, fn in saved.items():
-        setattr(pp, k, ranged(f"pp.{k}", fn))
-    try:
+    with patch.multiple(pp, **{k: ranged(f"pp.{k}", getattr(pp, k)) for k in names}):
         ms, _, kernels, wall = range_device_ms(
             lambda: [s.push_frame(user[i * spf:(i + 1) * spf])
                      for i in range(DUPLEX_SPLIT_FRAMES)], "pp.")
-    finally:
-        for k, fn in saved.items():
-            setattr(pp, k, fn)
     return ms, kernels, wall
 
 
@@ -3113,8 +3558,8 @@ def phase_duplex(model, k1_counter, dev_name, power):
 def phase_cli(dev_name):
     """``python -m qwen3_asr_swift_tpu_torch.cli`` on the card (its default
     device) with ``--random-weights``: transcribe, transcribe-batch, align,
-    vad, vad-stream, speak, denoise and respond, one process each, all
-    started together; each
+    vad, vad-stream, speak, denoise, respond and vibevoice, one process
+    each, all started together; each
     must exit 0 and print the reference's JSON keys (vad-stream: its event
     lines)."""
     import tempfile
@@ -3125,7 +3570,7 @@ def phase_cli(dev_name):
             "transcribe-batch": {"file", "text", "confidence"},
             "align": {"word", "start", "end"}, "vad": {"start", "end"},
             "speak": {"output", "seconds"}, "denoise": {"output"},
-            "respond": {"output", "seconds"}}
+            "respond": {"output", "seconds"}, "vibevoice": {"output", "seconds"}}
     with tempfile.TemporaryDirectory() as d:
         rng = np.random.default_rng(4)
         t = np.arange(3 * 16000) / 16000
@@ -3137,7 +3582,8 @@ def phase_cli(dev_name):
                 "align": [clip, "hello big world"], "vad": [clip], "vad-stream": [clip],
                 "speak": ["hello", "--output", os.path.join(d, "out.wav")],
                 "denoise": [clip, "--output", os.path.join(d, "denoised.wav")],
-                "respond": [clip, "--output", os.path.join(d, "response.wav")]}
+                "respond": [clip, "--output", os.path.join(d, "response.wav")],
+                "vibevoice": ["hello", "--output", os.path.join(d, "vibevoice.wav")]}
         t0 = time.perf_counter()
         procs = {name: subprocess.Popen(
             [sys.executable, "-m", "qwen3_asr_swift_tpu_torch.cli", name, "--random-weights",
@@ -3232,6 +3678,14 @@ def main() -> int:
     mark("tts")
     phase_speak(model, tts, dev_name, power)
     mark("speak")
+    cosy = phase_cosyvoice(dev, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
+    mark("cosyvoice")
+    vibe = phase_vibevoice(dev, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
+    mark("vibevoice")
+    phase_speak_engines(model, {"cosyvoice": cosy, "vibevoice": vibe},
+                        (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
+    del cosy, vibe
+    mark("speak (engines)")
     phase_realtime(model, tts, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
     mark("realtime")
     chat, k1["launches_chat"], k1["chat_token"] = phase_chat(dev, K1_LAUNCHES, dev_name, power)

@@ -2,8 +2,8 @@
 subcommands of ``qwen3_asr_swift_tpu/cli.py`` whose models are ported:
 ``transcribe``, ``transcribe-batch``, ``align``, ``speak`` (and its aliases
 ``qwen3-tts`` and ``qwen3-tts-coreml``), ``respond`` (PersonaPlex),
-``vad``, ``vad-stream``, ``denoise`` (DeepFilterNet3), ``chat`` (Qwen3.5)
-and ``serve``. The other families' subcommands are not in the parser yet
+``vad``, ``vad-stream``, ``denoise`` (DeepFilterNet3), ``chat`` (Qwen3.5),
+``vibevoice`` and ``vibevoice-encode-voice`` (VibeVoice) and ``serve``. The other families' subcommands are not in the parser yet
 (ROADMAP §1).
 
 Every model runs on ``--device`` (default ``cuda``, the first card; a
@@ -214,6 +214,29 @@ def cmd_chat(args):
     print()
 
 
+def _vibevoice(args):
+    from .models.vibevoice import VibeVoiceTTS, config_tiny
+
+    if args.random_weights:
+        return VibeVoiceTTS.init_random(config_tiny(), device=args.device)
+    return VibeVoiceTTS.from_pretrained(args.model, device=args.device)
+
+
+def cmd_vibevoice(args):
+    from .audio.io import write_wav
+
+    chunk = _vibevoice(args).synthesize(args.text, voice=args.voice)
+    write_wav(args.output, chunk.samples, chunk.sample_rate)
+    _print({"output": args.output, "seconds": len(chunk.samples) / chunk.sample_rate})
+
+
+def cmd_vibevoice_encode_voice(args):
+    model = _vibevoice(args)
+    audio, _ = _load_audio(args.audio, rate=24000)
+    path = model.encode_voice(audio, args.transcript or "", args.output)
+    _print({"voice_cache": str(path)})
+
+
 def cmd_serve(args):
     import asyncio
 
@@ -307,6 +330,12 @@ def build_parser() -> argparse.ArgumentParser:
     add("denoise", cmd_denoise, audio={}, **{
         "--model": dict(default="deepfilternet3"), "--output": dict(default="denoised.wav")})
     add("chat", cmd_chat, message={}, **{"--model": dict(default="Qwen/Qwen3.5-0.8B")})
+    add("vibevoice", cmd_vibevoice, text={}, **{
+        "--model": dict(default="microsoft/VibeVoice-Realtime-0.5B"),
+        "--voice": dict(default=None), "--output": dict(default="out.wav")})
+    add("vibevoice-encode-voice", cmd_vibevoice_encode_voice, audio={}, **{
+        "--model": dict(default="microsoft/VibeVoice-Realtime-0.5B"),
+        "--transcript": dict(default=None), "--output": dict(default="voice_cache.npz")})
     add("serve", cmd_serve, **{
         "--host": dict(default="127.0.0.1"), "--port": dict(type=int, default=8321),
         "--decode-chunk": dict(

@@ -6,7 +6,8 @@
 ``ml_dtypes``: numpy has no bfloat16, so a bf16 tensor is read through
 safetensors' torch reader and handed back as float32 (bf16 is a subset of
 fp32, so the values are the same). ``dequantize_mlx`` and ``quantize_mlx``
-are copies.
+are copies, and so are ``unflatten``, ``flatten`` and ``fuse_weight_norm``
+(the CosyVoice converter's weight-norm fusion).
 """
 
 from __future__ import annotations
@@ -122,3 +123,57 @@ def quantize_mlx(w: np.ndarray, bits: int, group_size: int = 64):
     for j in range(per_word):
         packed |= codes[:, j::per_word] << np.uint32(j * bits)
     return packed, scales, biases
+
+
+def unflatten(flat: Dict[str, np.ndarray], sep: str = ".") -> dict:
+    """Turn {'a.b.c': x} into {'a': {'b': {'c': x}}}."""
+    tree: dict = {}
+    for name, value in flat.items():
+        node = tree
+        parts = name.split(sep)
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return tree
+
+
+def fuse_weight_norm(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Collapse torch weight-norm parameter pairs into plain ``X.weight``.
+
+    Handles both the legacy ``weight_g``/``weight_v`` naming and the
+    parametrize-era ``parametrizations.weight.original0/1`` naming, for
+    ``dim=0`` weight norm (torch's default for conv/linear). Shared by the
+    CosyVoice, Kokoro, and VoxCPM2 converters; pinned against torch's own
+    materialized weights in tests/test_cosyvoice_vibevoice.py."""
+    out = dict(flat)
+    for key in list(flat):
+        base = None
+        if key.endswith(".weight_v"):
+            base = key[: -len(".weight_v")]
+            g, v = flat.get(base + ".weight_g"), flat[key]
+        elif key.endswith(".parametrizations.weight.original1"):
+            base = key[: -len(".parametrizations.weight.original1")]
+            g = flat.get(base + ".parametrizations.weight.original0")
+            v = flat[key]
+        if base is None or g is None:
+            continue
+        norm = np.sqrt(np.sum(np.square(v.astype(np.float64)),
+                              axis=tuple(range(1, v.ndim)), keepdims=True))
+        g = g.astype(np.float64).reshape(norm.shape)
+        out[base + ".weight"] = (g * v.astype(np.float64)
+                                 / np.maximum(norm, 1e-12)).astype(np.float32)
+        for suffix in (".weight_g", ".weight_v", ".parametrizations.weight.original0",
+                       ".parametrizations.weight.original1"):
+            out.pop(base + suffix, None)
+    return out
+
+
+def flatten(tree: dict, prefix: str = "", sep: str = ".") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for key, value in tree.items():
+        name = f"{prefix}{sep}{key}" if prefix else key
+        if isinstance(value, dict):
+            out.update(flatten(value, name, sep))
+        else:
+            out[name] = value
+    return out

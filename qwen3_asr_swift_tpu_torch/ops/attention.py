@@ -3,12 +3,14 @@
 Plain tensor math, as the reference's ``sdpa`` is plain XLA: query heads
 reshape to ``[kv_heads, group]`` (no materialized KV repeat), scores and
 softmax are fp32, probabilities are cast to v's dtype before the value
-product, which accumulates in fp32.
+product, which accumulates in fp32 (float64 throughout in a float64 run).
 """
 
 from __future__ import annotations
 
 import torch
+
+from .nn import acc_dtype
 
 NEG_INF = -1e9
 
@@ -22,9 +24,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, mask=N
     qg = q.reshape(b, hkv, group, tq, d)
     # bf16 × bf16 products are exact in fp32: upcasting the operands gives
     # the reference's bf16-in / fp32-accumulate scores
-    scores = torch.matmul(qg.float(), k.float()[:, :, None].transpose(-1, -2)) * scale
+    ct = acc_dtype(q.dtype)
+    scores = torch.matmul(qg.to(ct), k.to(ct)[:, :, None].transpose(-1, -2)) * scale
     if mask is not None:
-        mb = mask.float()
+        mb = mask.to(scores.dtype)
         if mb.dim() == 4:
             if mb.shape[1] == 1:
                 mb = mb[:, :, None]
@@ -32,5 +35,5 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, mask=N
                 mb = mb.reshape(b, hkv, group, tq, mb.shape[-1])
         scores = scores + mb
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.matmul(probs.float(), v.float()[:, :, None])
+    out = torch.matmul(probs.to(ct), v.to(ct)[:, :, None])
     return out.reshape(b, hq, tq, d).to(q.dtype)

@@ -4,7 +4,8 @@ Params are plain dicts of tensors in the reference's layouts: dense
 kernels ``[in, out]``, conv kernels HWIO with NHWC activations at the
 public :func:`conv2d`, HIO with NLC activations at :func:`conv1d`.
 Matmuls run in the params' dtype and accumulate in fp32 (PyTorch's bf16
-GEMMs do); normalization statistics are fp32.
+GEMMs do); normalization statistics are fp32 (float64 in a float64 run,
+the port's own precision reference).
 """
 
 from __future__ import annotations
@@ -13,6 +14,17 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype that statistics, biases and attention are computed in:
+    fp32, or float64 in a float64 run."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in :func:`acc_dtype` of its dtype."""
+    return x.to(acc_dtype(x.dtype))
 
 
 def linear(x: torch.Tensor, p) -> torch.Tensor:
@@ -36,22 +48,22 @@ def linear(x: torch.Tensor, p) -> torch.Tensor:
     else:
         y = torch.matmul(x, w)
     if "bias" in p:
-        y = y.float() + p["bias"].float()
+        y = upcast(y) + upcast(p["bias"])
     return y.to(x.dtype)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = upcast(x)
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * upcast(weight)).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, weight, bias, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = upcast(x)
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     normed = (xf - mean) * torch.rsqrt(var + eps)
-    return (normed * weight.float() + bias.float()).to(x.dtype)
+    return (normed * upcast(weight) + upcast(bias)).to(x.dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -169,17 +181,39 @@ def conv1d(x: torch.Tensor, p, stride: int = 1, padding=0, groups: int = 1,
         groups, width * cin_g, cout // groups)
     y = torch.einsum("blgk,gko->blgo", win, kg).reshape(b, n, cout)
     if "bias" in p:
-        y = y.float() + p["bias"].float()
+        y = upcast(y) + upcast(p["bias"])
     return y.to(x.dtype)
 
 
+def _conv2d_taps(x: torch.Tensor, w: torch.Tensor, stride, padding) -> torch.Tensor:
+    """NCHW conv as a sum over the kh·kw taps of shifted 1×1 products (one
+    matmul per tap into one output buffer), w HWIO: full-precision matmuls,
+    with no window matrix (kh·kw times the input) ever built."""
+    kh, kw, cin, cout = w.shape
+    (sh, sw), (ph, pw) = stride, padding
+    b, _, h, wd = x.shape
+    ho, wo = (h + 2 * ph - kh) // sh + 1, (wd + 2 * pw - kw) // sw + 1
+    xp = F.pad(x, (pw, pw, ph, ph)).permute(0, 2, 3, 1)           # [B, Hp, Wp, C]
+    y = torch.zeros((b * ho * wo, cout), dtype=x.dtype, device=x.device)
+    for i in range(kh):
+        for j in range(kw):
+            tap = xp[:, i:i + sh * (ho - 1) + 1:sh, j:j + sw * (wo - 1) + 1:sw]
+            y.addmm_(tap.reshape(b * ho * wo, cin), w[i, j])
+    return y.reshape(b, ho, wo, cout).permute(0, 3, 1, 2)
+
+
 def conv2d_nchw(x: torch.Tensor, p, stride=(2, 2), padding=(1, 1)) -> torch.Tensor:
-    """NCHW conv with the reference's HWIO kernel (permuted per call — the
-    kernels are small) and fp32 bias."""
-    w = p["kernel"].permute(3, 2, 0, 1)  # HWIO → OIHW
-    y = F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding)
+    """NCHW conv with the reference's HWIO kernel and fp32 bias. bf16 and
+    fp16 go to ``F.conv2d``; fp32 is a sum of tap matmuls
+    (:func:`_conv2d_taps`), because cuDNN's fp32 convs default to TF32 and
+    fp32 matmuls do not, so no process-wide flag is set."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        w = p["kernel"].permute(3, 2, 0, 1)  # HWIO → OIHW
+        y = F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding)
+    else:
+        y = _conv2d_taps(x, p["kernel"].to(x.dtype), stride, padding)
     if "bias" in p:
-        y = (y.float() + p["bias"].float()[:, None, None]).to(x.dtype)
+        y = (upcast(y) + upcast(p["bias"])[:, None, None]).to(x.dtype)
     return y
 
 

@@ -140,10 +140,12 @@ class SpeechServer:
     def _tts_batcher_for(self, model):
         key = id(model)
         if key not in self._tts_batchers:
-            if self.scheduler == "slotpool":
+            if (self.scheduler == "slotpool" and hasattr(model, "talker_params")
+                    and hasattr(model, "cp_params")):
                 # frame-level continuous batching: syntheses join the running
                 # talker batch at frame boundaries; oversize and clone prompts
-                # divert to the serial fallback
+                # divert to the serial fallback. Engines without a talker and
+                # a code predictor take the group batcher.
                 from .ttspool import SlotPoolTTS
 
                 self._tts_batchers[key] = SlotPoolTTS(

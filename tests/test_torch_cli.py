@@ -1,5 +1,6 @@
 """The port's CLI (``python -m qwen3_asr_swift_tpu_torch.cli``), ``respond``,
-``denoise`` and ``chat`` included.
+``denoise``, ``chat``, ``vibevoice`` and ``vibevoice-encode-voice``
+included.
 
 Each ported subcommand runs through ``main([..., "--device", "cpu",
 "--random-weights"])``, prints the reference's JSON keys, and its result
@@ -26,7 +27,8 @@ from qwen3_asr_swift_tpu_torch.audio.io import load_audio, write_wav
 
 REPO = Path(__file__).resolve().parent.parent
 PORTED = ["transcribe", "transcribe-batch", "align", "speak", "qwen3-tts", "qwen3-tts-coreml",
-          "respond", "vad", "vad-stream", "denoise", "chat", "serve"]
+          "respond", "vad", "vad-stream", "denoise", "chat", "vibevoice",
+          "vibevoice-encode-voice", "serve"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -179,6 +181,32 @@ def test_chat(capsys):
     want = "".join(model.chat([{"role": "user", "content": "hello there"}]))
     assert out == want + "\n"
     assert jcli.build_parser().parse_args(["chat", "hi"]).model == "Qwen/Qwen3.5-0.8B"
+
+
+def test_vibevoice_and_encode_voice(capsys, clips, tmp_path):
+    from qwen3_asr_swift_tpu_torch.audio.io import read_wav, wav_bytes
+    from qwen3_asr_swift_tpu_torch.models.vibevoice import VibeVoiceTTS, config_tiny
+
+    model = VibeVoiceTTS.init_random(config_tiny(), device="cpu")
+    cache = str(tmp_path / "voice_cache.npz")
+    out = json.loads(run(capsys, "vibevoice-encode-voice", clips[1], "--random-weights",
+                         "--transcript", "hello", "--output", cache))
+    assert out == {"voice_cache": cache}
+    want = np.load(model.encode_voice(load_audio(clips[1], 24000)[0], "hello",
+                                      str(tmp_path / "direct.npz")))
+    got = np.load(cache)
+    np.testing.assert_array_equal(got["latents"], want["latents"])
+    assert str(got["transcript"]) == "hello"
+
+    path = str(tmp_path / "out.wav")
+    out = json.loads(run(capsys, "vibevoice", "hello there", "--random-weights", "--output", path,
+                         "--voice", cache))
+    want = model.synthesize("hello there", voice=cache)
+    assert set(out) == {"output", "seconds"} and out["output"] == path
+    assert out["seconds"] == len(want.samples) / 24000
+    heard, rate = read_wav(open(path, "rb").read())
+    assert rate == 24000
+    np.testing.assert_array_equal(heard, read_wav(wav_bytes(want.samples, 24000))[0])
 
 
 @pytest.mark.parametrize("engine", ["pyannote", "firered"])

@@ -236,6 +236,70 @@ def test_conversational_paths_run_without_importing_jax():
     assert out.stdout.strip().endswith("OK")
 
 
+def test_cosyvoice_and_vibevoice_run_without_importing_jax():
+    """CosyVoice (synthesize, a stream chunk, a dialogue), VibeVoice
+    (encode_voice, a voiced synthesize, generate_long), both converters on
+    a checkpoint in memory, the CLI's ``vibevoice`` subcommands and
+    ``/speak`` with ``engine`` under the slot pool run without importing
+    jax or the JAX package."""
+    code = textwrap.dedent("""
+        import asyncio, contextlib, http.client, io, json, os, sys, tempfile, threading
+        import numpy as np, torch
+        from qwen3_asr_swift_tpu_torch import cli
+        from qwen3_asr_swift_tpu_torch.models.cosyvoice import CosyVoiceTTS
+        from qwen3_asr_swift_tpu_torch.models.cosyvoice import config_tiny as cosy_tiny
+        from qwen3_asr_swift_tpu_torch.models.cosyvoice.convert import convert_flow
+        from qwen3_asr_swift_tpu_torch.models.vibevoice import VibeVoiceTTS
+        from qwen3_asr_swift_tpu_torch.models.vibevoice import config_tiny as vibe_tiny
+        from qwen3_asr_swift_tpu_torch.models.vibevoice.convert import _Keys
+        from qwen3_asr_swift_tpu_torch.serving import SpeechServer, build_registry
+        cosy = CosyVoiceTTS.init_random(cosy_tiny(), device="cpu")
+        assert len(cosy.synthesize("hi").samples) > 0
+        assert len(next(cosy.synthesize_stream("hi", chunk_tokens=2)).samples) > 0
+        assert len(cosy.synthesize_dialogue("A: hi\\nB: yo").samples) > 0
+        vibe = VibeVoiceTTS.init_random(vibe_tiny(), device="cpu")
+        with tempfile.TemporaryDirectory() as d:
+            voice = str(vibe.encode_voice(np.zeros(48, np.float32), "hi", os.path.join(d, "v.npz")))
+            assert len(vibe.synthesize("hi", voice=voice, max_frames=2).samples) > 0
+            assert len(vibe.generate_long("One. Two.", max_chars_per_chunk=4,
+                                          max_frames=2).samples) > 0
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["--device", "cpu", "vibevoice", "hi", "--random-weights", "--output",
+                          os.path.join(d, "o.wav")])
+                cli.main(["--device", "cpu", "vibevoice-encode-voice", os.path.join(d, "o.wav"),
+                          "--random-weights", "--output", os.path.join(d, "c.npz")])
+        w = np.ones((6, 1, 3), np.float32)
+        assert _Keys({"a.conv.conv.weight": w}).conv("a")["kernel"].shape == (3, 1, 6)
+        assert callable(convert_flow)
+        registry = build_registry()
+        registry.register_instance("tts:cosyvoice", cosy)
+        server = SpeechServer(registry, port=0, scheduler="slotpool")
+        loop = asyncio.new_event_loop()
+        t = threading.Thread(target=loop.run_forever, daemon=True)
+        t.start()
+        asyncio.run_coroutine_threadsafe(server.start(), loop).result(timeout=30)
+        conn = http.client.HTTPConnection("127.0.0.1", server._server.sockets[0].getsockname()[1],
+                                          timeout=120)
+        conn.request("POST", "/speak", body=json.dumps({"text": "hi", "engine": "cosyvoice"}))
+        assert conn.getresponse().status == 200
+        conn.close()
+        asyncio.run_coroutine_threadsafe(server.stop(), loop).result(timeout=60)
+        loop.call_soon_threadsafe(loop.stop)
+        t.join(timeout=30)
+        assert "jax" not in sys.modules, [k for k in sys.modules if k.startswith("jax")]
+        ref = [k for k in sys.modules
+               if k == "qwen3_asr_swift_tpu" or k.startswith("qwen3_asr_swift_tpu.")]
+        assert not ref, ref
+        print("OK")
+    """)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=240, env=env, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("OK")
+
+
 def test_cpu_call_leaves_launch_counters_at_zero(monkeypatch):
     from qwen3_asr_swift_tpu_torch.models.qwen3_asr import Qwen3ASR, config_tiny
     from qwen3_asr_swift_tpu_torch.ops import quant

@@ -560,3 +560,26 @@ def test_pipeline_adapter_on_a_foreign_thread_runs_on_the_models_card(card):
     p.close()
     assert out.get("ptr") and seen["device"] == last.index
     assert k1.K1_LAUNCHES.value > before
+
+
+@pytest.mark.parametrize("cin,h,w", [(1, 128, 100), (480, 64, 50), (480, 32, 25)])
+def test_fp32_conv2d_is_full_precision_with_cudnn_defaults(card, cin, h, w):
+    """fp32 ``conv2d_nchw`` at the encoder's three stride-2 shapes (16
+    chunks of 1 s) within 1e-5 of max |host| with cuDNN's TF32 flag at its
+    default (True): fp32 convs are tap matmuls, never cuDNN's TF32."""
+    from qwen3_asr_swift_tpu_torch.ops.nn import conv2d_nchw
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True   # the default; the fixture turns it off
+    try:
+        g = torch.Generator().manual_seed(cin + h)
+        x = torch.randn((16, cin, h, w), generator=g)
+        p = {"kernel": torch.randn((3, 3, cin, 480), generator=g) / (9 * cin) ** 0.5,
+             "bias": torch.randn((480,), generator=g) * 0.1}
+        want = conv2d_nchw(x, p)
+        got = conv2d_nchw(x.to(card), {k: v.to(card) for k, v in p.items()})
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert rel(got.cpu(), want) <= TOL

@@ -9,7 +9,9 @@ of ``tests/test_ttspool.py`` for the JAX package's pool, on a dense fp32
 tiny model; one case is held against the JAX package's solo
 ``synthesize`` on the same weights (codes identical; the waveform as
 ``tests/test_torch_qwen3_tts.py`` holds the decoder), and one runs the
-pool over a packed model under ``quant_compute="fused"``.
+pool over a packed model under ``quant_compute="fused"``. ``/speak`` with
+``engine`` reaches the other TTS engines (CosyVoice, VibeVoice) through a
+``TTSBatcher`` under either scheduler, as the reference routes them.
 """
 
 import asyncio
@@ -357,3 +359,36 @@ def test_concurrent_synthesize_matches_sequential(model):
         sys.setswitchinterval(old)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def other_engines():
+    """Tiny CosyVoice and VibeVoice on the CPU, each with a short cap."""
+    from qwen3_asr_swift_tpu_torch.models.cosyvoice import CosyVoiceTTS
+    from qwen3_asr_swift_tpu_torch.models.cosyvoice import config_tiny as cosy_tiny
+    from qwen3_asr_swift_tpu_torch.models.vibevoice import VibeVoiceTTS
+    from qwen3_asr_swift_tpu_torch.models.vibevoice import config_tiny as vibe_tiny
+
+    return {"cosyvoice": CosyVoiceTTS.init_random(cosy_tiny(), device="cpu"),
+            "vibevoice": VibeVoiceTTS.init_random(vibe_tiny(), device="cpu")}
+
+
+@pytest.mark.parametrize("engine", ["cosyvoice", "vibevoice"])
+@pytest.mark.parametrize("scheduler", ["group", "slotpool"])
+def test_speak_engine_without_a_talker_takes_the_group_batcher(model, other_engines, engine,
+                                                                scheduler):
+    """``/speak`` with ``engine`` reaches ``tts:<engine>``. Under the slot pool
+    only a model with a talker and a code predictor gets ``SlotPoolTTS``; the
+    other engines get a ``TTSBatcher``, as in the reference, and answer the
+    direct ``synthesize``'s samples."""
+    tts = other_engines[engine]
+    registry = build_registry(tts=model)
+    registry.register_instance(f"tts:{engine}", tts)
+    server = SpeechServer(registry, port=0, scheduler=scheduler, max_batch=2)
+    (status, ctype, body), = _serve(server, [json.dumps({"text": "hello there",
+                                                         "engine": engine}).encode()])
+    assert status == 200 and ctype.startswith("audio/wav"), (status, body[:300])
+    batcher = server._tts_batcher_for(tts)
+    assert type(batcher) is TTSBatcher and batcher.stats["requests_served"] == 1
+    want = tts.synthesize("hello there")
+    assert len(want.samples) > 0 and body == wav_bytes(want.samples, want.sample_rate)

@@ -54,6 +54,15 @@ from qwen3_asr_swift_tpu.core import logging as j_logging
 from qwen3_asr_swift_tpu.models.chat import convert as j_chat_convert
 from qwen3_asr_swift_tpu.models.chat import model as j_chat
 from qwen3_asr_swift_tpu.pipeline import engine as j_engine
+from qwen3_asr_swift_tpu.core import text_chunker as j_chunker
+from qwen3_asr_swift_tpu.models.cosyvoice import convert as j_cosy_convert
+from qwen3_asr_swift_tpu.models.cosyvoice import dit as j_cosy_dit
+from qwen3_asr_swift_tpu.models.cosyvoice import hift as j_cosy_hift
+from qwen3_asr_swift_tpu.models.cosyvoice import model as j_cosy
+from qwen3_asr_swift_tpu.models.vibevoice import convert as j_vibe_convert
+from qwen3_asr_swift_tpu.models.vibevoice import diffusion as j_vibe_diff
+from qwen3_asr_swift_tpu.models.vibevoice import model as j_vibe
+from qwen3_asr_swift_tpu.models.vibevoice import tokenizer as j_vibe_tok
 from qwen3_asr_swift_tpu_torch.audio import companding as p_comp
 from qwen3_asr_swift_tpu_torch.audio import io as p_io
 from qwen3_asr_swift_tpu_torch.core import config as p_config
@@ -87,6 +96,15 @@ from qwen3_asr_swift_tpu_torch.tokenizers import bpe as p_bpe
 from qwen3_asr_swift_tpu_torch.core import logging as p_logging
 from qwen3_asr_swift_tpu_torch.models.chat import convert as p_chat_convert
 from qwen3_asr_swift_tpu_torch.models.chat import model as p_chat
+from qwen3_asr_swift_tpu_torch.core import text_chunker as p_chunker
+from qwen3_asr_swift_tpu_torch.models.cosyvoice import convert as p_cosy_convert
+from qwen3_asr_swift_tpu_torch.models.cosyvoice import dit as p_cosy_dit
+from qwen3_asr_swift_tpu_torch.models.cosyvoice import hift as p_cosy_hift
+from qwen3_asr_swift_tpu_torch.models.cosyvoice import model as p_cosy
+from qwen3_asr_swift_tpu_torch.models.vibevoice import convert as p_vibe_convert
+from qwen3_asr_swift_tpu_torch.models.vibevoice import diffusion as p_vibe_diff
+from qwen3_asr_swift_tpu_torch.models.vibevoice import model as p_vibe
+from qwen3_asr_swift_tpu_torch.models.vibevoice import tokenizer as p_vibe_tok
 from qwen3_asr_swift_tpu_torch.pipeline import engine as p_engine
 
 # the audio packages export the function ``resample`` over the module's name
@@ -263,6 +281,21 @@ def test_bpe_tokenizer_matches(text):
     (p_chat_convert, j_chat_convert, ["convert_chat_checkpoint"]),
     (p_engine, j_engine, ["_CEvent", "_CCallbacks", "_CConfig", "PipelineState",
                           "PipelineEventType", "PipelineEvent", "PipelineConfig", "tool_call"]),
+    (p_chunker, j_chunker, ["chunk_text", "_joiner", "_flush"]),
+    (p_weights, j_weights, ["unflatten", "fuse_weight_norm", "flatten"]),
+    (p_cosy_convert, j_cosy_convert, ["_strip_prefixes", "_Keys", "convert_llm", "convert_flow",
+                                      "convert_hift", "convert_checkpoint", "load_or_convert",
+                                      "_tree_from_flat", "save_converted"]),
+    (p_cosy, j_cosy, ["CosyVoiceConfig", "config_tiny", "parse_dialogue", "Voice"]),
+    (p_cosy_dit, j_cosy_dit, ["CosyDiTConfig", "CosyFlowConfig", "flow_config_tiny"]),
+    (p_cosy_hift, j_cosy_hift, ["CosyHiFTConfig", "hift_config_tiny"]),
+    (p_vibe_convert, j_vibe_convert, ["_Keys", "_qwen2_layer", "_connector",
+                                      "convert_diffusion_head", "_tokenizer_block",
+                                      "convert_tokenizer_side", "convert_checkpoint"]),
+    (p_vibe_diff, j_vibe_diff, ["DiffusionConfig", "diffusion_config_tiny", "_alphas_cumprod",
+                                "solver_coefficients"]),
+    (p_vibe_tok, j_vibe_tok, ["TokenizerConfig", "tokenizer_config_tiny"]),
+    (p_vibe, j_vibe, ["VibeVoiceConfig", "config_tiny"]),
 ])
 def test_copied_code_is_the_original(port, ref, names):
     """Whole copies keep their originals' source, so a fix to one shows as
@@ -283,6 +316,10 @@ def test_copied_code_is_the_original(port, ref, names):
       "resume_listening", "add_tool", "clear_tools", "state", "is_running", "drain_events",
       "close", "__enter__", "__exit__"]),
     (p_chat.Qwen3Chat, j_chat.Qwen3Chat, ["apply_chat_template"]),
+    (p_vibe.VibeVoiceTTS, j_vibe.VibeVoiceTTS, ["_load_voice", "_enc", "_build_prompt"]),
+    (p_cosy.CosyVoiceTTS, j_cosy.CosyVoiceTTS, ["register_voice", "_encode_text",
+                                                "synthesize", "synthesize_stream",
+                                                "synthesize_dialogue"]),
 ])
 def test_copied_methods_are_the_originals(port, ref, names):
     for name in names:
@@ -514,3 +551,27 @@ def test_port_imports_nothing_of_the_jax_package():
         if mods:
             bad[os.path.relpath(f, REPO)] = mods
     assert not bad, bad
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_text_chunker_matches(seed):
+    rng = np.random.default_rng(seed)
+    words = ["alpha", "beta,", "gamma.", "delta!", "3.14", "你好。", "世界，", "x" * 40, "why?"]
+    text = " ".join(rng.choice(words, size=int(rng.integers(1, 60))))
+    for max_chars in (12, 40, 300):
+        assert p_chunker.chunk_text(text, max_chars) == j_chunker.chunk_text(text, max_chars)
+
+
+def test_cosyvoice_vibevoice_constants_and_solver_match():
+    for name in ("NEGATIVE_TEXT_ID", "SPEECH_START_ID", "SPEECH_END_ID", "SPEECH_DIFFUSION_ID",
+                 "SYSTEM_PROMPT"):
+        assert getattr(p_vibe, name) == getattr(j_vibe, name), name
+    for cls in ("CONFIG_05B",):
+        assert dataclasses.asdict(getattr(p_cosy, cls)) == dataclasses.asdict(getattr(j_cosy, cls))
+        assert dataclasses.asdict(getattr(p_vibe, cls)) == dataclasses.asdict(getattr(j_vibe, cls))
+    for steps in (4, 20):
+        for got, want in zip(p_vibe_diff.solver_coefficients(p_vibe_diff.DiffusionConfig(), steps),
+                             j_vibe_diff.solver_coefficients(j_vibe_diff.DiffusionConfig(), steps)):
+            np.testing.assert_array_equal(got, want)
+    script = "A: hi there\nB: hello!\ncontinued\nnoise\nC_1 : bye"
+    assert p_cosy.parse_dialogue(script) == j_cosy.parse_dialogue(script)
