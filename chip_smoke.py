@@ -64,8 +64,11 @@ host_prep. After serve, the rest of the Qwen3-ASR family:
                to a temporary directory and loaded with
                ``Qwen3ASR.from_pretrained``: greedy tokens equal to the model
                built in memory from the same arrays;
-12. groupdot — ``quant_compute="groupdot"``: the decode-step logits card vs
-               host (as in step), 8 × 8 s clips at 32 tokens, K1 once a step
+12. groupdot — ``quant_compute="groupdot"``: the decode step card vs host
+               with every group-dot product teacher-forced (each product
+               on the host's input within 1e-5, each input within 2^-6 of
+               max |host|, the logits as in step; the free-running logits
+               printed), 8 × 8 s clips at 32 tokens, K1 once a step
                (the packed LM head) and K3 every layer;
 13. vad      — Silero VAD (random, seed 0) over a 60 s stream: card vs host
                within 1e-4, chunk-by-chunk streaming within 1e-5 of the batch;
@@ -99,9 +102,9 @@ Then Qwen3-TTS, at the 1.7B widths (talker 2048 × 28, code predictor
              equal or parting at a near-tie (the solo margin within twice
              the largest logit gap); no text → 400, no ``tts`` → 503;
 
-Then the other TTS engines, fp32 at their published 0.5B widths (random,
-seed 0), each with K1's and K3's counters read before and after (they must
-not move: no packed product, no int8 cache):
+Then the other TTS engines at their published widths (random, seed 0),
+each with K1's and K3's counters read before and after (they must not
+move: no packed product, no int8 cache):
 
 17a. cosyvoice — CosyVoice3 ``CONFIG_05B`` (LLM 24 × 896, DiT 22 × 1024,
                HiFT 512), at most 150 speech tokens: cut to 2 LLM and 2 DiT
@@ -122,9 +125,31 @@ not move: no packed product, no int8 cache):
                full model on the card: frames/s against 7.5 Hz, device ms a
                frame (LM, diffusion, decode), RTF, peak memory;
                ``encode_voice`` on 3 s, then a voiced ``synthesize``;
-17c. speak (engines) — ``POST /speak`` with ``engine`` ``cosyvoice`` and
-               ``vibevoice`` under both schedulers: each through a
-               ``TTSBatcher`` and equal to the direct ``synthesize``'s WAV;
+17c. kokoro  — Kokoro ``CONFIG_82M`` (ALBERT 768 x 12 shared, hidden 512,
+               decoder 1024, iSTFTNet 10·6 x hop 5), fp32, drawn on the card:
+               card vs host CPU stage by stage with the same source noise
+               (durations equal or parting at a half-integer near-tie; F0/N
+               and the decoder's input within 1e-4 relative L2; the
+               waveform no farther from a float64 run than 2x the host's);
+               a timed ``synthesize`` of a 55-id text (bucket 64): RTF,
+               device ms by range, the frame budget against the spoken
+               frames, idle share, peak memory and the largest blocks live
+               at it;
+17d. voxcpm2 — VoxCPM2 ``CONFIG_2B`` (base LM 2048 x 28, residual 8, LocEnc
+               and DiT 1024 x 12, the AudioVAE at 48 kHz), drawn on the
+               card, stop head biased off, 32 patches (5.12 s): cut to 2 + 1
+               + 1 + 1 layers at the published widths, card vs host CPU in
+               fp32 (each step's patch within 1e-4 of max |host| up to the
+               first FSQ parting, which must be a near-tie; ``n_steps``
+               equal with the stop head live; the VAE decode within 1e-3 and
+               no farther from a float64 decode than 2x the host's);
+               the full model in bf16: patches/s against 6.25 Hz, device ms a
+               patch by range, prefill, VAE ms a second of audio, RTF, idle
+               share, peak memory; one cloned and one ``instruct`` synthesis;
+17e. speak (engines) — ``POST /speak`` with ``engine`` ``cosyvoice``,
+               ``vibevoice``, ``kokoro`` and ``voxcpm2`` under both
+               schedulers: each through a ``TTSBatcher`` and equal to the
+               direct ``synthesize``'s WAV;
 Then the server's last three routes:
 
 18. realtime — ``/v1/realtime`` on a server with the slice's ASR model and
@@ -155,8 +180,9 @@ Then the server's last three routes:
                the same seed, 503 without an ``s2s`` model;
 21. cli      — ``python -m qwen3_asr_swift_tpu_torch.cli`` on the card with
                ``--random-weights``: transcribe, transcribe-batch, align,
-               vad, vad-stream, speak, denoise, respond and vibevoice, in
-               parallel, each exit 0 with the reference's JSON keys.
+               vad, vad-stream, speak, denoise, respond, vibevoice, kokoro
+               and voxcpm2, in parallel, each exit 0 with the reference's
+               JSON keys.
 
 Then the conversational paths (chat and agent run after realtime, while
 the TTS model is still built; duplex after respond, on its 7B):
@@ -187,10 +213,12 @@ the TTS model is still built; duplex after respond, on its 7B):
                128 + 129 a frame; push p50/p90, frames/s against 12.5 Hz,
                device ms a frame by range, peak memory at batch 1 and 2.
 
-Weights are random (numpy, seed 0) at the full width of the 0.6B
-configuration (the ASR phases) and the 1.7B one (TTS); PersonaPlex's, the
-chat model's, CosyVoice's and VibeVoice's are drawn on the card (the 7B's
-numpy draw would take minutes). The line before the last is ``{"kernels": [...]}`` (each
+Weights are random at the full width of each configuration, drawn on the
+card from a seeded ``torch.Generator`` (torch seed 0; packed there where a
+phase packs), the slice's, the 1.7B TTS's and the aligner's included, and
+host models take copies of the card's arrays. The
+card-vs-host cuts of phases cosyvoice and vibevoice draw with numpy (seed
+0). Each draw prints its seconds. The line before the last is ``{"kernels": [...]}`` (each
 entry with its launches in the main path's run, its bound and its library
 time); the last line is ``{"ok": true, "device": {...}}``. Imports nothing
 of JAX nor of the JAX package, and checks so before the last lines.
@@ -222,6 +250,15 @@ K3_BF16_TOL = 2.0 ** -7
 # lookup returns bf16 rows (as the reference's does); fp32 sums taken in
 # another order flip single bf16 roundings, which compound over 28 layers.
 STEP_TOL = 5e-2
+# each group-dot product computed on the card from the host's input, of max
+# |host output|: the int8 codes are the host's, the integer partials exact,
+# only the fp32 sums over the groups taken in another order
+GROUPDOT_PRODUCT_TOL = 1e-5
+# each group-dot product's input, card vs host, of max |host input|, with
+# the products teacher-forced: the decoder's activations are bf16 (the
+# packed embedding rows), and each op between two products rounds to bf16
+# on both sides in another order; 2^-6 is four bf16 ulps of the largest
+GROUPDOT_INPUT_TOL = 2.0 ** -6
 # the published peaks of one H100 SXM (dense), for the bounds: a product's
 # operations are priced at the card's peak for its operand types, whatever
 # pipe the kernel runs on today
@@ -715,15 +752,36 @@ def phase_k3(dev):
                       "decoder calls it, operands cold in L2; b16_*: at batch 16 (beam's rows)"}
 
 
-def make_weights():
+def tree_numpy(tree):
+    """Every tensor leaf of a tree as a host numpy array."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: tree_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_numpy(v) for v in tree]
+    return tree.cpu().numpy() if isinstance(tree, torch.Tensor) else tree
+
+
+def make_weights(dev, seed: int = 0):
+    """The slice's trees, drawn on the card from a seeded ``torch.Generator``
+    with the decoder packed 4-bit group 64 there; and their host numpy
+    copies (for the phases that also build a host model or write a
+    checkpoint)."""
+    import torch
+
     from qwen3_asr_swift_tpu_torch.core.params import init_random_params
     from qwen3_asr_swift_tpu_torch.models.qwen3_asr import CONFIG_SMALL
 
     t0 = time.perf_counter()
-    enc, dec = init_random_params(CONFIG_SMALL, seed=0, quant_bits=4)
-    log(f"weights: CONFIG_SMALL random seed 0, decoder packed 4-bit group 64 "
-        f"({time.perf_counter() - t0:.1f} s on the host)")
-    return enc, dec
+    trees = init_random_params(CONFIG_SMALL, seed, quant_bits=4, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = tree_numpy(trees)
+    log(f"weights: CONFIG_SMALL drawn on the card from torch seed {seed}, decoder packed 4-bit "
+        f"group 64 there, in {draw_s:.1f} s; host copy {time.perf_counter() - t0:.1f} s")
+    return trees, host
 
 
 def model_options(**kw):
@@ -747,10 +805,12 @@ def build_model(enc, dec, device, dtype, **kw):
     return Qwen3ASR.from_params(cfg, enc, dec, device=device, dtype=dtype, **model_options(**kw))
 
 
-def phase_step(weights, label="step", **kw):
-    """Full-width prefill + first decode step, card (kernels) vs host CPU
-    (plain versions), both fp32 (matmuls in full fp32, cuDNN's TF32 flag at
-    its default: fp32 convs are tap matmuls); ``kw`` go to the model."""
+def step_logits(weights, where, tok=None, **kw):
+    """The full-width prefill + first decode step of 2 clips of 8 s on
+    ``where``, fp32 (matmuls in full fp32, cuDNN's TF32 flag at its
+    default: fp32 convs are tap matmuls); ``kw`` go to the model. Returns
+    (audio tokens, logits, the first tokens), on the host; ``tok`` fixes
+    the first tokens."""
     import torch
 
     from qwen3_asr_swift_tpu_torch.models.qwen3_asr.decoder import decode_step
@@ -759,39 +819,114 @@ def phase_step(weights, label="step", **kw):
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(2)
     clips = [(0.1 * rng.standard_normal(8 * 16000)).astype(np.float32) for _ in range(2)]
+    model = build_model(*weights, where, torch.float32, **kw)
+    with torch.inference_mode():
+        st = model.prestage(clips)
+        audio_tokens, n_audio = model._encode(st)
+        prompt = model._prompt(st.b, None, None)
+        state = model._gen_start(audio_tokens, n_audio, prompt, 4, SamplingOptions(max_tokens=4))
+        if tok is None:
+            tok = state.tokens[:, 0].cpu()
+        logits, _ = decode_step(model.decoder_params, model.cfg.decoder, tok.to(model.device),
+                                state.cache)
+    return audio_tokens.float().cpu(), logits.float().cpu(), tok
+
+
+def phase_step(weights, label="step", **kw):
+    """Full-width prefill + first decode step, card (kernels) vs host CPU
+    (plain versions), both fp32 (:func:`step_logits`); ``kw`` go to the
+    model. Returns the relative L2 of the logits."""
     out = {}
     tok = None
     for where in ("cpu", "cuda"):
-        model = build_model(*weights, where, torch.float32, **kw)
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            st = model.prestage(clips)
-            audio_tokens, n_audio = model._encode(st)
-            prompt = model._prompt(st.b, None, None)
-            state = model._gen_start(audio_tokens, n_audio, prompt, 4, SamplingOptions(max_tokens=4))
-            if tok is None:
-                tok = state.tokens[:, 0].cpu()
-            logits, _ = decode_step(model.decoder_params, model.cfg.decoder, tok.to(model.device),
-                                    state.cache)
-        out[where] = (audio_tokens.float().cpu(), logits.float().cpu())
+        *out[where], tok = step_logits(weights, where, tok, **kw)
         log(f"{label} on {where}: {time.perf_counter() - t0:.1f} s")
-        del model
-    enc_rel = (torch.linalg.vector_norm(out["cuda"][0] - out["cpu"][0])
-               / torch.linalg.vector_norm(out["cpu"][0])).item()
-    rel = (torch.linalg.vector_norm(out["cuda"][1] - out["cpu"][1])
-           / torch.linalg.vector_norm(out["cpu"][1])).item()
+    enc_rel = rel_l2(out["cuda"][0], out["cpu"][0])
+    rel = rel_l2(out["cuda"][1], out["cpu"][1])
     same = (out["cuda"][1].argmax(-1) == out["cpu"][1].argmax(-1)).tolist()
     log(f"{label}: encoder rel L2 {enc_rel:.3e}; decode-step logits rel L2 {rel:.3e} "
         f"(tol {STEP_TOL:g}); argmax equal per clip {same}")
     if not rel <= STEP_TOL:
         raise AssertionError(f"decode-step logits rel L2 {rel} > {STEP_TOL}")
+    return rel
+
+
+def groupdot_step(weights):
+    """Phase step under ``quant_compute="groupdot"`` with every group-dot
+    product teacher-forced: the host records each product's input and
+    output; the card computes each of its products on the host's input,
+    within ``GROUPDOT_PRODUCT_TOL`` of max |host output|, and goes on with
+    the host's output. The rest of the model (encoder, norms, rope,
+    attention over the int8 cache with K3) is held at each product's input,
+    within ``GROUPDOT_INPUT_TOL`` of max |host input|, and the logits (the
+    final norm, the packed LM head with K1) within ``STEP_TOL`` as phase
+    step holds them: all without the int8 activation quantizer's flips,
+    which turn every bf16 rounding that parts upstream into a whole code
+    (ROADMAP §3 entry 11). The free-running logits are printed beside.
+    Returns (forced rel L2, free rel L2, worst product, worst input)."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.ops import quant
+
+    real = quant.quant_matmul_groupdot
+    calls = []
+
+    def record(x, p):
+        y = real(x, p)
+        calls.append((x.cpu(), y.cpu()))
+        return y
+
+    t0 = time.perf_counter()
+    with patch.object(quant, "quant_matmul_groupdot", record):
+        _, host, tok = step_logits(weights, "cpu", quant_compute="groupdot")
+    log(f"groupdot step on cpu: {time.perf_counter() - t0:.1f} s, {len(calls)} products")
+    replay, worst, gaps = iter(calls), [0.0], []
+
+    def forced(x, p):
+        rx, ry = next(replay)
+        if rx.shape != x.shape:
+            raise AssertionError(f"groupdot step: product input {tuple(x.shape)} on the card, "
+                                 f"{tuple(rx.shape)} on the host")
+        gaps.append(((x.float().cpu() - rx).abs().max() / rx.abs().max()).item())
+        y = real(rx.to(x.device), p).cpu()
+        worst[0] = max(worst[0], ((y - ry).abs().max() / ry.abs().max()).item())
+        return ry.to(x.device)
+
+    t0 = time.perf_counter()
+    with patch.object(quant, "quant_matmul_groupdot", forced):
+        _, card, _ = step_logits(weights, "cuda", tok, quant_compute="groupdot")
+    _, free, _ = step_logits(weights, "cuda", tok, quant_compute="groupdot")
+    rel, rel_free = rel_l2(card, host), rel_l2(free, host)
+    same = (card.argmax(-1) == host.argmax(-1)).tolist()
+    log(f"groupdot step, every product teacher-forced: {len(gaps)} products on the card, each on "
+        f"the host's input within {worst[0]:.3e} of max |host| (tol {GROUPDOT_PRODUCT_TOL:g}); "
+        f"their inputs of max |host| at most {max(gaps):.3e} (tol {GROUPDOT_INPUT_TOL:g}); "
+        f"decode-step logits rel L2 "
+        f"{rel:.3e} (tol {STEP_TOL:g}), argmax equal per clip {same}; free-running (not held) "
+        f"{rel_free:.3e}; card runs {time.perf_counter() - t0:.1f} s")
+    if not (len(gaps) == len(calls) and worst[0] <= GROUPDOT_PRODUCT_TOL
+            and max(gaps) <= GROUPDOT_INPUT_TOL and rel <= STEP_TOL):
+        raise AssertionError(f"groupdot step: {len(gaps)} of {len(calls)} products, worst "
+                             f"{worst[0]}, worst input {max(gaps)}, forced logits rel L2 {rel}")
+    return rel, rel_free, worst[0], max(gaps)
+
+
+def cuda_events(prof):
+    """A finished profiler window's device events as (name, start µs, end
+    µs), read from its raw trace: the event tree that ``prof.events()``
+    builds costs about a millisecond of host an event."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
 
 
 def device_times(run):
     """Run ``run()`` once under the profiler: ({kernel name: device µs
     summed over its instances}, wall s)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -800,9 +935,8 @@ def device_times(run):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, start, end in cuda_events(prof):
+        by_name[name] = by_name.get(name, 0.0) + end - start
     return by_name, wall
 
 
@@ -1216,13 +1350,14 @@ def phase_load(weights, dev_name, power):
 
 def phase_groupdot(weights, counters, dev_name, power):
     """quant_compute="groupdot" at full width: the first decode step card vs
-    host CPU, then 8 x 8 s clips, 32 tokens, int8 KV; only the LM head
+    host CPU with its products teacher-forced (:func:`groupdot_step`),
+    then 8 x 8 s clips, 32 tokens, int8 KV; only the LM head
     (packed) runs K1, every decode step runs K3."""
     import torch
 
     from qwen3_asr_swift_tpu_torch.ops.sampling import SamplingOptions
 
-    phase_step(weights, label="groupdot step", quant_compute="groupdot")
+    groupdot_step(weights)
     k1, k3 = counters
     model = build_model(*weights, "cuda", torch.bfloat16, quant_compute="groupdot")
     rng = np.random.default_rng(9)
@@ -1406,7 +1541,7 @@ def phase_stream(model, vad, stream, counters, dev_name, power):
         f"equals a direct transcribe of it")
 
 
-def phase_align(dev_name, power):
+def phase_align(dev, dev_name, power):
     """The forced aligner at the published widths (ENCODER_ALIGNER,
     DECODER_SMALL packed 4-bit, 5000 classes), random from seed 0, fp32 on
     the card and on the host CPU: an 8 s clip against 23 words. The card's
@@ -1427,11 +1562,13 @@ def phase_align(dev_name, power):
     cfg = dataclasses.replace(CONFIG_SMALL, encoder=ENCODER_ALIGNER, decoder=dataclasses.replace(
         CONFIG_SMALL.decoder, bits=4, group_size=64))
     t0 = time.perf_counter()
-    enc, dec = init_random_params(cfg, 0, quant_bits=4)
-    rng = np.random.default_rng(1)
+    enc, dec = init_random_params(cfg, 0, quant_bits=4, device=dev)
     h = cfg.decoder.hidden_size
-    head = {"kernel": (rng.standard_normal((h, cfg.classify_num), dtype=np.float32)
-                       / np.float32(np.sqrt(h)))}
+    head = {"kernel": torch.randn((h, cfg.classify_num), generator=torch.Generator(device=dev)
+                                  .manual_seed(1), device=dev) / np.sqrt(h)}
+    torch.cuda.synchronize()
+    log(f"align weights: drawn on the card from torch seeds 0 and 1, decoder packed there, in "
+        f"{time.perf_counter() - t0:.1f} s")
     _, tok = byte_tokenizer()
     card = Qwen3ForcedAligner(cfg, enc, dec, head, tok, device="cuda", dtype=torch.float32)
     host = Qwen3ForcedAligner(cfg, enc, dec, head, tok, device="cpu", dtype=torch.float32)
@@ -1548,14 +1685,57 @@ def tts_first_frame(model, text, code0=None):
     return logits[0, p_len - 1].float().cpu(), cp0[0].float().cpu(), code0
 
 
-def tree_to(tree, device):
+def tree_to(tree, device, dtype=None):
+    """Every tensor leaf of a tree on ``device``, its float leaves in
+    ``dtype`` where given."""
     import torch
 
     if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
+        return {k: tree_to(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_to(v, device) for v in tree]
-    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+        return [tree_to(v, device, dtype) for v in tree]
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    return tree.to(device, dtype if dtype is not None and tree.is_floating_point() else None)
+
+
+def peak_tensors(run, top: int = 6):
+    """Run ``run()`` once with the caching allocator's history on. Returns
+    (the peak of what it allocated and had not yet freed, in bytes, and the
+    ``top`` largest blocks live at that peak as (bytes, the innermost frame
+    of the port that allocated it))."""
+    import torch
+
+    torch.cuda.memory._record_memory_history(max_entries=2_000_000, stacks="python")
+    try:
+        run()
+        torch.cuda.synchronize()
+        events = torch.cuda.memory._snapshot()["device_traces"][torch.cuda.current_device()]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+
+    def replay(upto):
+        live, cur, peak, at = {}, 0, 0, 0
+        for i, e in enumerate(events[:upto]):
+            if e["action"] == "alloc":
+                live[e["addr"]] = e
+                cur += e["size"]
+            elif e["action"] == "free_completed" and e["addr"] in live:
+                cur -= live.pop(e["addr"])["size"]
+            if cur > peak:
+                peak, at = cur, i
+        return live, peak, at
+
+    _, peak, at = replay(len(events))
+    live, _, _ = replay(at + 1)
+
+    def where(e):
+        for f in e.get("frames", []):
+            if "qwen3_asr_swift_tpu_torch" in f["filename"]:
+                return f"{f['filename'].split('qwen3_asr_swift_tpu_torch/')[-1]}:{f['line']} {f['name']}"
+        return "outside the port"
+    blocks = sorted(live.values(), key=lambda e: -e["size"])[:top]
+    return peak, [(e["size"], where(e)) for e in blocks]
 
 
 def ranged(name, fn, when=None):
@@ -1570,14 +1750,13 @@ def ranged(name, fn, when=None):
 
 def range_device_ms(run, prefix: str, by_range=None):
     """Run ``run()`` once under the profiler. Each kernel's device time goes
-    to the ``record_function`` range (named ``prefix...``) whose span on the
-    device holds the kernel's start, else to "other". Returns ({range: device
+    to the innermost ``record_function`` range (named ``prefix...``) whose
+    span on the device holds the kernel's start, else to "other". Returns ({range: device
     ms}, {range: kernels}, {kernel name: device µs}, wall s); ``by_range``,
     a dict when given, receives {range: {kernel name: device µs}}."""
     import bisect
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1586,26 +1765,32 @@ def range_device_ms(run, prefix: str, by_range=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans, kernels = [], []
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        if e.name.startswith(prefix):   # the range's own span on the device timeline
-            spans.append((e.time_range.start, e.time_range.end, e.name[len(prefix):]))
+    for name, start, end in cuda_events(prof):
+        if name.startswith(prefix):     # the range's own span on the device timeline
+            spans.append((start, end, name[len(prefix):]))
         else:
-            kernels.append(e)
+            kernels.append((name, start, end))
     spans.sort()
     starts = [sp[0] for sp in spans]
+    parent, open_ = [], []          # each span's enclosing span (-1: none)
+    for j, (start, _, _) in enumerate(spans):
+        while open_ and spans[open_[-1]][1] <= start:
+            open_.pop()
+        parent.append(open_[-1] if open_ else -1)
+        open_.append(j)
     ms, count, by_kernel = {}, {}, {}
-    for k in kernels:
-        us = k.time_range.elapsed_us()
-        by_kernel[k.name] = by_kernel.get(k.name, 0.0) + us
-        i = bisect.bisect_right(starts, k.time_range.start) - 1
-        name = spans[i][2] if i >= 0 and k.time_range.start < spans[i][1] else "other"
+    for kernel, start, end in kernels:
+        us = end - start
+        by_kernel[kernel] = by_kernel.get(kernel, 0.0) + us
+        i = bisect.bisect_right(starts, start) - 1
+        while i >= 0 and start >= spans[i][1]:
+            i = parent[i]
+        name = spans[i][2] if i >= 0 else "other"
         ms[name] = ms.get(name, 0.0) + us / 1e3
         count[name] = count.get(name, 0) + 1
         if by_range is not None:
             into = by_range.setdefault(name, {})
-            into[k.name] = into.get(k.name, 0.0) + us
+            into[kernel] = into.get(kernel, 0.0) + us
     return ms, count, by_kernel, wall
 
 
@@ -1723,11 +1908,12 @@ def phase_tts(dev, k1_counter, dev_name, power):
     _, tok = byte_tokenizer()
     k1_frame = tts_k1_frame(dev)
     t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
+    rng = torch.Generator(device=dev).manual_seed(0)
     weights = (init_talker_params(rng, cfg.talker), init_cp_params(rng, cfg.code_predictor),
                init_codec_params(rng, cfg.codec))
-    log(f"tts weights: CONFIG_17B (talker 2048 x 28, CP 1024 x 5, codec decoder), random "
-        f"seed 0 ({time.perf_counter() - t0:.1f} s on the host)")
+    torch.cuda.synchronize()
+    log(f"tts weights: CONFIG_17B (talker 2048 x 28, CP 1024 x 5, codec decoder) drawn on the "
+        f"card from torch seed 0 in {time.perf_counter() - t0:.1f} s")
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     ref32 = Qwen3TTS(cfg, *weights, device=dev, dtype=torch.float32, tokenizer=tok,
@@ -2476,6 +2662,399 @@ def phase_vibevoice(dev, counters, dev_name, power):
         raise AssertionError(f"vibevoice voice: latents {lat.shape}, {len(voiced)} samples")
     check_counters_still("vibevoice", counters, before)
     log(f"vibevoice: phase {time.perf_counter() - t_phase:.1f} s")
+    return model
+
+
+KOKORO_CHECK_TEXT = "Hello there."     # card vs host: 14 ids, bucket 16, 384 frames
+# the timed run: 55 ids with the bracketing pads, bucket 64, 1,536 frames
+KOKORO_TEXT = "The weather on the coast is fine today, so we walk."
+KOKORO_TOL = 1e-4        # F0/N and the decoder's input, relative L2, card vs host CPU (fp32)
+KOKORO_TIE = 1e-3        # a duration may part only where the host's lies this near x.5
+KOKORO_PREC_RATIO = 2.0  # the waveform's distance from a float64 run: card within 2 x host
+VOX_TOKENS = 32          # patches a synthesis (5.12 s at 6.25 Hz; depth cut in output)
+VOX_CHECK_PATCHES = 16   # patches of the card-vs-host loop with the stop head off
+VOX_TEXT = "Hello from one card, spoken by the port."
+VOX_SPLIT_PATCHES = 4    # patches under the profiler
+VOX_TOL = 1e-4           # each step's patch, of max |host|, card vs host CPU (fp32)
+VOX_TIE = 1e-3           # an FSQ level may part only where the host's tanh(.)*9 lies this near x.5
+VOX_WAV_TOL = 1e-3       # the VAE decode, relative L2, card vs host CPU
+VOX_PREC_RATIO = 2.0     # the VAE decode's distance from float64: card within 2 x host
+VOX_VOICE_S = 3.0        # seconds of 48 kHz reference audio for a cloned synthesis
+VOX_STOP_BIAS = 30.0     # the stop head's class-0 bias (stop off), as vibevoice's EOS bias
+SPEAK_VOX_TOKENS = 8     # VoxCPM2's patch cap on /speak (1.28 s; depth cut in output)
+SPEAK_ENGINE_TEXTS.update({"kokoro": "Hello there.", "voxcpm2": "Hello."})
+
+
+def kokoro_snapped_source(kokoro_mod):
+    """``_harmonic_source`` with the edge frames' phase bins set to their
+    exact values (0, or π where the real part is negative): those frames are
+    symmetric, so each imaginary part is a rounding residual and the sign
+    that atan2 turns into ±π follows the sum order (ROADMAP §3)."""
+    import torch
+
+    source = kokoro_mod._harmonic_source
+
+    def run(p, cfg, f0, noise):
+        s = source(p, cfg, f0, noise).clone()
+        nb = cfg.gen_istft_n_fft // 2 + 1
+        edge = s[:, [0, -1], nb:]
+        s[:, [0, -1], nb:] = torch.where(edge.abs() > np.pi / 2, np.pi, 0.0).to(s.dtype)
+        return s
+    return run
+
+
+def phase_kokoro(dev, counters, dev_name, power):
+    """Kokoro ``CONFIG_82M`` (ALBERT 768 x 12 shared, hidden 512, decoder
+    1024, iSTFTNet 10 x 6 upsampling, hop 5), fp32, random weights drawn on
+    the card (torch seed 0): (a) card vs host CPU on ``KOKORO_CHECK_TEXT``,
+    stage by stage, each stage on the host's inputs, with the same source
+    noise: the durations equal, or parting only where the host's pre-round
+    duration lies within ``KOKORO_TIE`` of a half-integer; F0/N and the
+    decoder's input within ``KOKORO_TOL``; the waveform of card, host and a
+    float64 run on the card, each from the host's decoder input: the card
+    no farther from float64 than ``KOKORO_PREC_RATIO`` times the host (the
+    fp32 phase cumsum over the buffer parts late in it); (b) a timed
+    ``synthesize`` of ``KOKORO_TEXT``: RTF, device ms by profiler range,
+    the frame budget against the spoken frames, idle share, peak memory
+    and the largest blocks live at it (:func:`peak_tensors`). K1 and K3
+    must not run. Returns the model."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.kokoro import CONFIG_82M, KokoroTTS
+    from qwen3_asr_swift_tpu_torch.models.kokoro import model as kokoro_mod
+
+    before = [c.value for c in counters]
+    t_phase = time.perf_counter()
+    cfg = CONFIG_82M
+    spf = cfg.samples_per_frame
+    t0 = time.perf_counter()
+    model = KokoroTTS.init_random_on_device(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    log(f"kokoro weights: CONFIG_82M drawn on the card in {time.perf_counter() - t0:.1f} s")
+
+    # (a) card vs host, stage by stage on the host's inputs
+    t0 = time.perf_counter()
+    host = KokoroTTS(cfg, tree_to(model.params, "cpu"), device="cpu")
+    exact = KokoroTTS(cfg, model.params, device=dev, dtype=torch.float64)
+    ids, n, ref_s, max_frames = host.prepare(KOKORO_CHECK_TEXT)
+    noise = kokoro_mod.source_noise(cfg, 1, 2 * max_frames, torch.Generator().manual_seed(0))
+    speed = torch.tensor(1.0)
+    got = {}
+    with torch.inference_mode():
+        for where, m in (("host", host), ("card", model)):
+            got[where] = kokoro_mod.predict_alignment(
+                m.params, cfg, torch.as_tensor(ids, device=m.device), n,
+                torch.as_tensor(ref_s, device=m.device), speed.to(m.device), max_frames)
+        en, fmask, tok_idx, total, h_dur, h_raw, valid = got["host"]
+        c_dur = got["card"][4].cpu()
+        parted = (c_dur != h_dur).nonzero()[:, 1].tolist()
+        gap = [abs(h_raw[0, i].item() % 1.0 - 0.5) for i in parted]
+        s_pros = torch.as_tensor(ref_s[:, cfg.style_dim:])
+        s_dec = torch.as_tensor(ref_s[:, :cfg.style_dim])
+        t_en = kokoro_mod.text_encode(host.params["text_encoder"], cfg, torch.as_tensor(ids), n,
+                                      valid)
+        asr = torch.where(fmask, t_en[:, tok_idx], 0.0)
+        stage = {}
+        for where, m in (("host", host), ("card", model)):
+            to = m.device
+            f0, nn_ = kokoro_mod.prosody_f0n(m.params["predictor"], cfg, en.to(to),
+                                             s_pros.to(to), total.to(to))
+            stage[where] = (f0.cpu(), nn_.cpu())
+        f0, nn_ = stage["host"]
+        for where, m in (("host", host), ("card", model)):
+            to = m.device
+            x, nv = kokoro_mod.decoder_input(m.params["decoder"], cfg, asr.to(to), f0.to(to),
+                                             nn_.to(to), s_dec.to(to), total.to(to))
+            stage[where] += (x.cpu(),)
+        x = stage["host"][2]
+        wav, inner = {}, {}
+        snapped, spectrum = kokoro_snapped_source(kokoro_mod), kokoro_mod._generator_spectrum
+        for where, m in (("host", host), ("card", model), ("exact", exact)):
+            to, dt = m.device, m.dtype
+            seen = inner[where] = []
+            with patch.multiple(kokoro_mod,
+                                _harmonic_source=lambda *a: seen.append(snapped(*a)) or seen[-1],
+                                _generator_spectrum=lambda *a, **k: seen.append(
+                                    spectrum(*a, **k)) or seen[-1]):
+                wav[where] = kokoro_mod.generator(
+                    m.params["decoder"]["generator"], cfg, x.to(to, dt), s_dec.to(to, dt),
+                    f0.to(to, dt), noise.to(to), n_valid=nv.to(to)).double().cpu()
+    # where the runs part from float64: the source's STFT (as complex values),
+    # then the generator's spectrum
+    nb = cfg.gen_istft_n_fft // 2 + 1
+
+    def complex_of(src):
+        src = src.double().cpu()
+        return src[..., :nb] * torch.exp(1j * src[..., nb:])
+
+    inner_prec = {w: (rel_l2(complex_of(inner[w][0]).abs(), complex_of(inner["exact"][0]).abs()),
+                      rel_l2(torch.view_as_real(complex_of(inner[w][0])),
+                             torch.view_as_real(complex_of(inner["exact"][0]))),
+                      rel_l2(inner[w][1][0], inner["exact"][1][0]),
+                      rel_l2(inner[w][1][1], inner["exact"][1][1]))
+                  for w in ("card", "host")}
+    log("kokoro (a) from float64, card / host: source magnitude "
+        + " / ".join(f"{inner_prec[w][0]:.3e}" for w in ("card", "host")) + ", source STFT "
+        + " / ".join(f"{inner_prec[w][1]:.3e}" for w in ("card", "host"))
+        + ", generator magnitude bins " + " / ".join(f"{inner_prec[w][2]:.3e}" for w in ("card", "host"))
+        + ", phase bins " + " / ".join(f"{inner_prec[w][3]:.3e}" for w in ("card", "host")))
+    del inner
+    rel_f0, rel_n = rel_l2(stage["card"][0], f0), rel_l2(stage["card"][1], nn_)
+    rel_x = rel_l2(stage["card"][2], x)
+    card_prec, host_prec = rel_l2(wav["card"], wav["exact"]), rel_l2(wav["host"], wav["exact"])
+    n_ids = int(valid.sum())
+    log(f"kokoro (a) card vs host (fp32, {n_ids} ids, {max_frames} frames of budget): durations "
+        f"{h_dur[0, :n_ids].tolist()} (total {int(total)}), {len(parted)} parting "
+        f"(distance of the host's from x.5: {gap}, tol {KOKORO_TIE:g}); F0 rel L2 {rel_f0:.3e}, "
+        f"N {rel_n:.3e}, decoder input {rel_x:.3e} (tol {KOKORO_TOL:g}); the waveform "
+        f"({wav['host'].shape[1]} samples) from float64: card {card_prec:.3e}, host "
+        f"{host_prec:.3e} (card tol {KOKORO_PREC_RATIO:g} x host); card vs host "
+        f"{rel_l2(wav['card'], wav['host']):.3e}; {time.perf_counter() - t0:.1f} s with the "
+        f"host's share")
+    if not (all(g <= KOKORO_TIE for g in gap) and max(rel_f0, rel_n, rel_x) <= KOKORO_TOL
+            and card_prec <= KOKORO_PREC_RATIO * host_prec
+            and all(torch.isfinite(w).all() for w in wav.values())):
+        raise AssertionError(f"kokoro card vs host: durations parting at {parted} ({gap}), "
+                             f"F0/N/x {rel_f0}/{rel_n}/{rel_x}, from float64 {card_prec} vs "
+                             f"{host_prec}")
+    del host, exact, got, stage, wav
+
+    # (b) the timed synthesis on the card
+    model.synthesize("warm up")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    chunk = model.synthesize(KOKORO_TEXT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    budget = dict(model.last_budget)
+    audio_s = len(chunk.samples) / chunk.sample_rate
+    ranges_of = {"predict_alignment": "predictor", "prosody_f0n": "predictor",
+                 "text_encode": "text", "decoder_input": "decoder",
+                 "_harmonic_source": "source", "_source_branch": "source",
+                 "_generator_spectrum": "generator",
+                 "_gen_istft": "istft"}
+    with patch.multiple(kokoro_mod, **{f: ranged(f"kokoro.{r}", getattr(kokoro_mod, f))
+                                       for f, r in ranges_of.items()}):
+        ranges, _, kernels, prof_wall = range_device_ms(lambda: model.synthesize(KOKORO_TEXT),
+                                                        "kokoro.")
+    busy = sum(kernels.values()) / 1e3
+    log(f"kokoro (b) CONFIG_82M fp32, {len(model.prepare(KOKORO_TEXT)[0][0])}-id bucket: "
+        f"{audio_s:.2f} s of audio in {wall:.3f} s: RTF {wall / audio_s:.3f}; frame budget "
+        f"{budget['frames']} frames = {budget['frames'] * spf} samples, spoken "
+        f"{budget['spoken_frames']} frames = {budget['spoken_frames'] * spf} samples "
+        f"({budget['spoken_frames'] / budget['frames']:.3f} of the budget); peak memory "
+        f"{peak:.2f} GiB ({resident:.2f} resident before it); on {dev_name} ({power})")
+    log(f"kokoro under the profiler: wall {prof_wall:.3f} s, device busy {busy:.2f} ms (idle "
+        f"{100 * (1 - busy / 1e3 / prof_wall):.1f} %); device ms: ALBERT + predictor "
+        f"{ranges.get('predictor', 0.0):.3f}, text encoder {ranges.get('text', 0.0):.3f}, "
+        f"decoder {ranges.get('decoder', 0.0):.3f}, source (2x the generator's length) "
+        f"{ranges.get('source', 0.0):.3f}, generator {ranges.get('generator', 0.0):.3f}, iSTFT "
+        f"{ranges.get('istft', 0.0):.3f}, other {ranges.get('other', 0.0):.3f}; on {dev_name} "
+        f"({power})")
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:5]:
+        log(f"  device {us / 1e3:9.2f} ms  {name[:100]}")
+    held, blocks = peak_tensors(lambda: model.synthesize(KOKORO_TEXT))
+    log(f"kokoro peak: {held / 2 ** 30:.2f} GiB allocated and not yet freed at the synthesis's "
+        f"peak; its largest blocks:")
+    for size, at in blocks:
+        log(f"  {size / 2 ** 20:9.1f} MiB  {at}")
+    if not (len(chunk.samples) == budget["spoken_frames"] * spf > 0
+            and np.isfinite(chunk.samples).all()):
+        raise AssertionError(f"kokoro: {len(chunk.samples)} samples, finite "
+                             f"{np.isfinite(chunk.samples).all()}")
+    check_counters_still("kokoro", counters, before)
+    log(f"kokoro: phase {time.perf_counter() - t_phase:.1f} s")
+    return model
+
+
+def fsq_levels(log_to, fsq):
+    """``fsq`` that also records each one-row call's tanh(.)·scale, as fsq
+    computes it before rounding (the patch loop's calls; the prefill's are
+    [1, T, H])."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.ops.nn import linear, upcast
+
+    def run(p, cfg, x):
+        if x.dim() == 2:
+            log_to.append((torch.tanh(upcast(linear(x, p["in_proj"]))) * cfg.fsq_scale).cpu())
+        return fsq(p, cfg, x)
+    return run
+
+
+def phase_voxcpm2(dev, counters, dev_name, power):
+    """VoxCPM2 ``CONFIG_2B`` (base LM 2048 x 28, residual 8, LocEnc and
+    DiT 1024 x 12, vocab 73,448, the AudioVAE at 48 kHz), random weights
+    drawn on the card (torch seed 0), the stop head biased off
+    (``VOX_STOP_BIAS``), ``VOX_TOKENS`` patches: (a) cut to 2 base + 1
+    residual + 1 LocEnc + 1 DiT layers at the published widths, fp32, card
+    vs host CPU with the same start noise: each step's patch within
+    ``VOX_TOL`` of max |host| up to the first FSQ level that parts, which
+    must be a near-tie (the host's tanh(.)·9 within ``VOX_TIE`` of a
+    half-integer); ``n_steps`` equal with the stop head live; the VAE
+    decode within ``VOX_WAV_TOL``, and no farther from a float64 decode on
+    the card than ``VOX_PREC_RATIO`` times the host; (b) the full model in bf16: patches/s
+    against 6.25 Hz, device ms a patch by profiler range, prefill ms, VAE ms
+    a second of audio, RTF, idle share, peak memory; one cloned synthesis
+    (``VOX_VOICE_S`` s of 48 kHz audio) and one with ``instruct``. K1 and
+    K3 must not run. Returns the bf16 model."""
+    import dataclasses
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.core.params import param_bytes
+    from qwen3_asr_swift_tpu_torch.models.voxcpm2 import CONFIG_2B, VoxCPM2TTS
+    from qwen3_asr_swift_tpu_torch.models.voxcpm2 import model as vox_mod
+    from qwen3_asr_swift_tpu_torch.models.voxcpm2.vae import vae_decode
+
+    before = [c.value for c in counters]
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(CONFIG_2B, max_tokens=VOX_TOKENS)
+    per_patch = cfg.patch_size * cfg.vae.decode_chunk_size          # 48 kHz samples a patch
+
+    # (a) card vs host at 2 + 1 + 1 + 1 layers, published widths, fp32
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(cfg, num_layers=2, res_layers=1, enc_layers=1, dit_layers=1)
+    card = VoxCPM2TTS.init_random_on_device(cut, 0, device=dev, dtype=torch.float32)
+    host = VoxCPM2TTS(cut, tree_to(card.params, "cpu"), device="cpu")
+    arr, n, ref_pad, n_ref = host.prepare(VOX_TEXT)
+    starts = vox_mod.start_noise(cut, VOX_CHECK_PATCHES, torch.Generator().manual_seed(0))
+    runs = {}
+    for bias in (VOX_STOP_BIAS, None):
+        for where, m in (("host", host), ("card", card)):
+            m.params["stop_head"].pop("bias", None)
+            if bias is not None:
+                m.params["stop_head"]["bias"] = torch.tensor([bias, -bias], device=m.device)
+            levels = []
+            with patch.object(vox_mod, "fsq", fsq_levels(levels, vox_mod.fsq)), \
+                    torch.inference_mode():
+                out, n_steps, _ = vox_mod.generate_patches(
+                    m.params, cut, arr, n, ref_pad, n_ref, starts.to(m.device),
+                    VOX_CHECK_PATCHES, torch.float32)
+            runs[where, bias] = (out.double().cpu(), int(n_steps), levels)
+    (h_out, h_n, h_lv), (c_out, c_n, c_lv) = runs["host", VOX_STOP_BIAS], runs["card", VOX_STOP_BIAS]
+    first_part, tie = None, None
+    for i, (a, b) in enumerate(zip(h_lv, c_lv)):
+        differ = (torch.round(a) != torch.round(b)).nonzero()
+        if len(differ):
+            first_part = i
+            tie = max(abs(abs(a[tuple(j)].item()) % 1.0 - 0.5) for j in differ)
+            break
+    # the step-i FSQ feeds step i + 1's patch: patches up to the parting's own step compare
+    upto = h_n if first_part is None else first_part + 1
+    per_step = [(c_out[i] - h_out[i]).abs().max().item() / h_out[i].abs().max().item()
+                for i in range(upto)]
+    live = runs["host", None][1], runs["card", None][1]
+    with torch.inference_mode():
+        lat = h_out[:h_n].reshape(1, -1, cut.latent_dim).float()
+        wav = [vae_decode(m.params["audio_vae"], cut.vae, lat.to(m.device)).double().cpu()
+               for m in (host, card)]
+        exact = vae_decode(tree_to(card.params["audio_vae"], dev, torch.float64), cut.vae,
+                           lat.to(dev, torch.float64)).cpu()
+    rel_wav = rel_l2(wav[1], wav[0])
+    host_prec, card_prec = rel_l2(wav[0], exact), rel_l2(wav[1], exact)
+    log(f"voxcpm2 (a) 2 + 1 + 1 + 1 layers, fp32, stop head off: {c_n} patches on the card, "
+        f"{h_n} on the host; each step's patch of max |host| up to "
+        f"{'the end' if first_part is None else f'step {first_part + 1}'}: at most "
+        f"{max(per_step):.3e} (tol {VOX_TOL:g}; first {per_step[0]:.3e}); first FSQ parting "
+        f"{'none' if first_part is None else f'at step {first_part}, the host within {tie:.2e} of x.5'}"
+        f" (tol {VOX_TIE:g}); stop head live: n_steps host {live[0]}, card {live[1]}; the VAE "
+        f"decode of {lat.shape[1]} latents card vs host rel L2 {rel_wav:.3e} (tol "
+        f"{VOX_WAV_TOL:g}), from a float64 decode card {card_prec:.3e}, host {host_prec:.3e} "
+        f"(card tol {VOX_PREC_RATIO:g} x host); {time.perf_counter() - t0:.1f} s with the host's "
+        f"share")
+    if not (c_n == h_n and max(per_step) <= VOX_TOL and (tie is None or tie <= VOX_TIE)
+            and live[0] == live[1] and rel_wav <= VOX_WAV_TOL
+            and card_prec <= VOX_PREC_RATIO * host_prec):
+        raise AssertionError(f"voxcpm2 card vs host: patches {c_n}/{h_n}, per step "
+                             f"{max(per_step)}, FSQ parting {first_part} ({tie}), live n_steps "
+                             f"{live}, VAE {rel_wav}, from float64 {card_prec} vs {host_prec}")
+    del card, host, runs, wav
+
+    # (b) the full model, drawn on the card, bf16 (from_pretrained's dtype)
+    t0 = time.perf_counter()
+    model = VoxCPM2TTS.init_random_on_device(cfg, 0, device=dev, dtype=torch.bfloat16)
+    model.params["stop_head"]["bias"] = torch.tensor([VOX_STOP_BIAS, -VOX_STOP_BIAS], device=dev)
+    torch.cuda.synchronize()
+    log(f"voxcpm2 weights: CONFIG_2B drawn on the card in {time.perf_counter() - t0:.1f} s, "
+        f"bf16 with the VAE in fp32: {param_bytes(model.params) / 2 ** 30:.2f} GiB")
+    model.synthesize("warm up", max_tokens=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    stages = {}
+    with patch.multiple(vox_mod, prefill=timed(stages, "prefill", vox_mod.prefill),
+                        vae_decode=timed(stages, "vae", vox_mod.vae_decode)):
+        t0 = time.perf_counter()
+        chunk = model.synthesize(VOX_TEXT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_patch = len(chunk.samples) // per_patch
+    audio_s = len(chunk.samples) / chunk.sample_rate
+    loop_s = wall - stages["vae"]
+    log(f"voxcpm2 (b) CONFIG_2B bf16: {n_patch} patches ({model.last_loop['steps_run']} run, "
+        f"{model.last_loop['stop_reads']} host reads of the stop flag), {audio_s:.2f} s of audio "
+        f"in {wall:.3f} s: RTF {wall / audio_s:.3f}; prefill {1e3 * stages['prefill']:.1f} ms; "
+        f"patch loop {n_patch / (loop_s - stages['prefill']):.2f} patches/s (real time 6.25); "
+        f"VAE decode {1e3 * stages['vae'] / audio_s:.1f} ms a second of audio; peak memory "
+        f"{peak:.2f} GiB ({resident:.2f} resident before it); on {dev_name} ({power})")
+    if not (n_patch == VOX_TOKENS and len(chunk.samples) == n_patch * per_patch
+            and np.isfinite(chunk.samples).all()):
+        raise AssertionError(f"voxcpm2: {len(chunk.samples)} samples, finite "
+                             f"{np.isfinite(chunk.samples).all()}")
+
+    def lm_range(lm, x, positions, mask, cache, dims, *rest):
+        if x.shape[1] > 1:
+            return "vox.prefill"
+        return "vox.base" if dims.rope else "vox.residual"
+
+    def enc_range(p, cfg_, patches):
+        return "vox.prefill" if patches.shape[1] > 1 else "vox.locenc"
+
+    with patch.multiple(vox_mod, _lm_forward=ranged("", vox_mod._lm_forward, lm_range),
+                        loc_enc=ranged("", vox_mod.loc_enc, enc_range),
+                        cfm_sample=ranged("vox.cfm", vox_mod.cfm_sample),
+                        _stop_logits=ranged("vox.stop", vox_mod._stop_logits),
+                        vae_decode=ranged("vox.vae", vox_mod.vae_decode)):
+        ranges, _, kernels, prof_wall = range_device_ms(
+            lambda: model.synthesize(VOX_TEXT, max_tokens=VOX_SPLIT_PATCHES), "vox.")
+    busy = sum(kernels.values()) / 1e3
+    f = VOX_SPLIT_PATCHES
+    log(f"voxcpm2 under the profiler ({f} patches): wall {prof_wall:.3f} s, device busy "
+        f"{busy:.2f} ms (idle {100 * (1 - busy / 1e3 / prof_wall):.1f} %); prefill "
+        f"{ranges.get('prefill', 0.0):.3f} ms once; device ms a patch: CFM "
+        f"{ranges.get('cfm', 0.0) / f:.3f}, LocEnc {ranges.get('locenc', 0.0) / f:.3f}, base LM "
+        f"{ranges.get('base', 0.0) / f:.3f}, residual LM {ranges.get('residual', 0.0) / f:.3f}, "
+        f"stop {ranges.get('stop', 0.0) / f:.3f}, other {ranges.get('other', 0.0) / f:.3f}; VAE "
+        f"{ranges.get('vae', 0.0):.3f} ms for {f * per_patch / cfg.sample_rate:.2f} s; on "
+        f"{dev_name} ({power})")
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:5]:
+        log(f"  device {us / 1e3:9.2f} ms  {name[:100]}")
+
+    t = np.arange(int(VOX_VOICE_S * 48000)) / 48000
+    ref_audio = (0.3 * np.sin(2 * np.pi * 180 * t)).astype(np.float32)
+    t0 = time.perf_counter()
+    cloned = model.synthesize(VOX_TEXT, voice=ref_audio, max_tokens=8).samples
+    clone_s = time.perf_counter() - t0
+    designed = model.synthesize(VOX_TEXT, instruct="a calm low voice", max_tokens=8).samples
+    ref_patches = model.encode_reference(ref_audio)
+    log(f"voxcpm2 cloned: {VOX_VOICE_S:g} s of reference -> {ref_patches.shape[0]} patches, "
+        f"{len(cloned) // per_patch} patches out in {clone_s:.3f} s; instruct: "
+        f"{len(designed) // per_patch} patches; finite {np.isfinite(cloned).all()} "
+        f"{np.isfinite(designed).all()}")
+    if not (len(cloned) == len(designed) == 8 * per_patch and np.isfinite(cloned).all()
+            and np.isfinite(designed).all()
+            and ref_patches.shape == (-(-int(VOX_VOICE_S * cfg.vae.sample_rate)
+                                        // (cfg.patch_size * cfg.chunk_size)),
+                                      cfg.patch_size, cfg.latent_dim)):
+        raise AssertionError(f"voxcpm2 voice/instruct: {len(cloned)}/{len(designed)} samples, "
+                             f"reference patches {ref_patches.shape}")
+    check_counters_still("voxcpm2", counters, before)
+    log(f"voxcpm2: phase {time.perf_counter() - t_phase:.1f} s")
     return model
 
 
@@ -3558,8 +4137,8 @@ def phase_duplex(model, k1_counter, dev_name, power):
 def phase_cli(dev_name):
     """``python -m qwen3_asr_swift_tpu_torch.cli`` on the card (its default
     device) with ``--random-weights``: transcribe, transcribe-batch, align,
-    vad, vad-stream, speak, denoise, respond and vibevoice, one process
-    each, all started together; each
+    vad, vad-stream, speak, denoise, respond, vibevoice, kokoro and
+    voxcpm2, one process each, all started together; each
     must exit 0 and print the reference's JSON keys (vad-stream: its event
     lines)."""
     import tempfile
@@ -3570,7 +4149,8 @@ def phase_cli(dev_name):
             "transcribe-batch": {"file", "text", "confidence"},
             "align": {"word", "start", "end"}, "vad": {"start", "end"},
             "speak": {"output", "seconds"}, "denoise": {"output"},
-            "respond": {"output", "seconds"}, "vibevoice": {"output", "seconds"}}
+            "respond": {"output", "seconds"}, "vibevoice": {"output", "seconds"},
+            "kokoro": {"output", "seconds", "voices"}, "voxcpm2": {"output", "seconds"}}
     with tempfile.TemporaryDirectory() as d:
         rng = np.random.default_rng(4)
         t = np.arange(3 * 16000) / 16000
@@ -3583,7 +4163,9 @@ def phase_cli(dev_name):
                 "speak": ["hello", "--output", os.path.join(d, "out.wav")],
                 "denoise": [clip, "--output", os.path.join(d, "denoised.wav")],
                 "respond": [clip, "--output", os.path.join(d, "response.wav")],
-                "vibevoice": ["hello", "--output", os.path.join(d, "vibevoice.wav")]}
+                "vibevoice": ["hello", "--output", os.path.join(d, "vibevoice.wav")],
+                "kokoro": ["hello", "--output", os.path.join(d, "kokoro.wav")],
+                "voxcpm2": ["hello", "--output", os.path.join(d, "voxcpm2.wav")]}
         t0 = time.perf_counter()
         procs = {name: subprocess.Popen(
             [sys.executable, "-m", "qwen3_asr_swift_tpu_torch.cli", name, "--random-weights",
@@ -3619,6 +4201,8 @@ def phase_cli(dev_name):
 
 
 def main() -> int:
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3654,9 +4238,10 @@ def main() -> int:
 
     k1, k2, k3 = phase_k1(dev), phase_k2(dev), phase_k3(dev)
     mark("k1-k3")
-    weights = make_weights()
-    phase_step(weights)
+    weights, host_weights = make_weights(dev)
+    phase_step(host_weights)
     model = build_model(*weights, "cuda", torch.bfloat16)
+    del weights
     phase_codec(model, dev_name, power)
     launches, _ = phase_slice(model, (K1_LAUNCHES, K3_LAUNCHES, WIRE_NATIVE_CALLS), dev_name,
                               power)
@@ -3668,11 +4253,12 @@ def main() -> int:
     phase_beam_sampling(model, (K1_LAUNCHES, K3_LAUNCHES))
     phase_serve(model)
     mark("pool, beam, serve")
-    phase_load(weights, dev_name, power)
-    phase_groupdot(weights, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
+    phase_load(host_weights, dev_name, power)
+    phase_groupdot(host_weights, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
+    del host_weights
     vad, stream = phase_vad(dev_name, power)
     phase_stream(model, vad, stream, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
-    phase_align(dev_name, power)
+    phase_align(dev, dev_name, power)
     mark("load, groupdot, vad, stream, align")
     tts, k1["launches_tts"], k1["tts_frame"] = phase_tts(dev, K1_LAUNCHES, dev_name, power)
     mark("tts")
@@ -3682,9 +4268,14 @@ def main() -> int:
     mark("cosyvoice")
     vibe = phase_vibevoice(dev, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
     mark("vibevoice")
-    phase_speak_engines(model, {"cosyvoice": cosy, "vibevoice": vibe},
-                        (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
-    del cosy, vibe
+    kokoro = phase_kokoro(dev, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
+    mark("kokoro")
+    vox = phase_voxcpm2(dev, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
+    vox.cfg = dataclasses.replace(vox.cfg, max_tokens=SPEAK_VOX_TOKENS)
+    mark("voxcpm2")
+    phase_speak_engines(model, {"cosyvoice": cosy, "vibevoice": vibe, "kokoro": kokoro,
+                                "voxcpm2": vox}, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
+    del cosy, vibe, kokoro, vox
     mark("speak (engines)")
     phase_realtime(model, tts, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
     mark("realtime")

@@ -3,8 +3,9 @@ subcommands of ``qwen3_asr_swift_tpu/cli.py`` whose models are ported:
 ``transcribe``, ``transcribe-batch``, ``align``, ``speak`` (and its aliases
 ``qwen3-tts`` and ``qwen3-tts-coreml``), ``respond`` (PersonaPlex),
 ``vad``, ``vad-stream``, ``denoise`` (DeepFilterNet3), ``chat`` (Qwen3.5),
-``vibevoice`` and ``vibevoice-encode-voice`` (VibeVoice) and ``serve``. The other families' subcommands are not in the parser yet
-(ROADMAP §1).
+``vibevoice`` and ``vibevoice-encode-voice`` (VibeVoice), ``kokoro``
+(Kokoro-82M), ``voxcpm2`` (VoxCPM2) and ``serve``. The other families'
+subcommands are not in the parser yet (ROADMAP §1).
 
 Every model runs on ``--device`` (default ``cuda``, the first card; a
 request for a card on a machine without one raises); nothing picks the CPU
@@ -237,6 +238,33 @@ def cmd_vibevoice_encode_voice(args):
     _print({"voice_cache": str(path)})
 
 
+def cmd_kokoro(args):
+    from .audio.io import write_wav
+    from .models.kokoro import KokoroTTS, config_tiny
+
+    model = (KokoroTTS.init_random(config_tiny(), device=args.device) if args.random_weights
+             else KokoroTTS.from_pretrained(args.model, device=args.device))
+    chunk = model.synthesize(args.text, voice=args.voice, language=args.language,
+                             speed=args.speed)
+    write_wav(args.output, chunk.samples, chunk.sample_rate)
+    _print({"output": args.output, "seconds": len(chunk.samples) / chunk.sample_rate,
+            "voices": model.available_voices})
+
+
+def cmd_voxcpm2(args):
+    from .audio.io import write_wav
+    from .models.voxcpm2 import VoxCPM2TTS, config_tiny
+
+    model = (VoxCPM2TTS.init_random(config_tiny(), device=args.device) if args.random_weights
+             else VoxCPM2TTS.from_pretrained(args.model, device=args.device))
+    voice = None
+    if args.voice:
+        voice, _ = _load_audio(args.voice, rate=model.cfg.sample_rate)
+    chunk = model.synthesize(args.text, voice=voice, instruct=args.instruct)
+    write_wav(args.output, chunk.samples, chunk.sample_rate)
+    _print({"output": args.output, "seconds": len(chunk.samples) / chunk.sample_rate})
+
+
 def cmd_serve(args):
     import asyncio
 
@@ -310,6 +338,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--model": dict(default="aufklarer/Qwen3-TTS-0.6B-CoreML"),
         "--voice": dict(default=None), "--language": dict(default="english"),
         "--instruct": dict(default=None), "--output": dict(default="out.wav")})
+    add("kokoro", cmd_kokoro, text={}, **{
+        "--model": dict(default="hexgrad/Kokoro-82M"), "--voice": dict(default=None),
+        "--language": dict(default="en"), "--speed": dict(type=float, default=1.0),
+        "--output": dict(default="out.wav")})
     add("respond", cmd_respond, audio={}, **{
         "--model": dict(default="nvidia/personaplex-7b-v1"),
         "--output": dict(default="response.wav"),
@@ -336,6 +368,11 @@ def build_parser() -> argparse.ArgumentParser:
     add("vibevoice-encode-voice", cmd_vibevoice_encode_voice, audio={}, **{
         "--model": dict(default="microsoft/VibeVoice-Realtime-0.5B"),
         "--transcript": dict(default=None), "--output": dict(default="voice_cache.npz")})
+    add("voxcpm2", cmd_voxcpm2, text={}, **{
+        "--model": dict(default="openbmb/VoxCPM2"),
+        "--voice": dict(default=None, help="reference audio for cloning"),
+        "--instruct": dict(default=None, help="voice-design instruction"),
+        "--output": dict(default="out.wav")})
     add("serve", cmd_serve, **{
         "--host": dict(default="127.0.0.1"), "--port": dict(type=int, default=8321),
         "--decode-chunk": dict(

@@ -19,7 +19,11 @@ Leaf rules (mirroring ``qwen3_asr_swift_tpu/ops/quant.py::cast_tree``):
 - integer leaves are never cast.
 
 The random initialisers draw with numpy from a seed and pack with the
-port's copy of the reference's ``core.weights.quantize_mlx``.
+port's copy of the reference's ``core.weights.quantize_mlx``; given a
+``torch.Generator`` in place of the numpy one, they draw their kernels and
+tables on the generator's device (the quick way at full size), and
+:func:`init_random_params` packs there with ``ops.quant.quantize_tree``,
+the same function on tensors.
 """
 
 from __future__ import annotations
@@ -111,7 +115,11 @@ def param_bytes(tree) -> int:
 # qwen3_asr_swift_tpu/models/qwen3_asr/{encoder,decoder}.py init_*_params
 # ---------------------------------------------------------------------------
 
-def _normal(rng: np.random.Generator, shape, scale) -> np.ndarray:
+def _normal(rng, shape, scale):
+    """A standard normal draw times ``scale``: fp32 numpy from a numpy
+    generator, or an fp32 tensor on a ``torch.Generator``'s device."""
+    if isinstance(rng, torch.Generator):
+        return torch.randn(shape, generator=rng, device=rng.device) * scale
     return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
 
 
@@ -220,14 +228,24 @@ def quantize_tree_np(params, bits: int, group_size: int = 64,
     return walk(params)
 
 
-def init_random_params(cfg, seed: int = 0, quant_bits: Optional[int] = None):
-    """(encoder tree, decoder tree) of numpy arrays drawn from ``seed``;
-    ``quant_bits`` packs the decoder linears and embedding (group 64)."""
-    rng = np.random.default_rng(seed)
+def init_random_params(cfg, seed: int = 0, quant_bits: Optional[int] = None, device=None):
+    """(encoder tree, decoder tree) drawn from ``seed``: numpy arrays, or
+    with ``device`` tensors drawn there from a seeded ``torch.Generator``
+    (other values than numpy's draw); ``quant_bits`` packs the decoder
+    linears and embedding (group 64) on the host or on ``device``."""
+    if device is None:
+        rng = np.random.default_rng(seed)
+    else:
+        rng = torch.Generator(device=device).manual_seed(seed)
     enc = init_encoder_params_np(rng, cfg.encoder)
     dec = init_decoder_params_np(rng, cfg.decoder)
     if quant_bits:
-        dec = quantize_tree_np(dec, quant_bits)
+        if device is None:
+            dec = quantize_tree_np(dec, quant_bits)
+        else:
+            from ..ops.quant import quantize_tree
+
+            dec = quantize_tree(dec, quant_bits)
     return enc, dec
 
 

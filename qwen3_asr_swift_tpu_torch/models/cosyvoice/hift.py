@@ -8,8 +8,7 @@ injected at each decoder stage, conv_pre (80 → 512, 4-frame look-ahead),
 with source injection and 3-kernel MRF resblocks (Snake, raw alpha),
 conv_post → 9 log-magnitude + 9 phase bins → iSTFT overlap-add → ±0.99.
 
-Every conv is the port's window-matmul ``conv1d`` (fp32 stays fp32, no
-TF32); the STFT is one strided conv against the window·DFT kernel, the
+Every conv is the port's ``conv1d`` (fp32 stays fp32, no TF32); the STFT is one strided conv against the window·DFT kernel, the
 iSTFT a matmul plus overlap-add. The source's three draws (phase, sine
 noise, merged noise) come from the caller.
 """

@@ -16,7 +16,7 @@ The published topology over the reference's parameter tree (conv weights
   projections, codebooks as ``embed_sum / cluster_usage``;
 - the mirrored SEANet decoder with causal transposed convs (trim right).
 
-Convs are matmuls over strided windows (``ops/nn.py::conv1d``) and
+Convs are tap matmuls (``ops/nn.py::conv1d``; cuDNN in bf16) and
 transposed convs a matmul per tap with an overlap-add, so fp32 runs in full
 fp32 on the card as on the host. The streaming codec
 (:func:`mimi_encode_frame`, :func:`mimi_decode_frame`) carries each conv's
@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from ...core.params import _linear, _norm, _normal
 from ...ops.attention import NEG_INF, sdpa
-from ...ops.nn import conv1d, layer_norm, linear
+from ...ops.nn import conv1d, conv_transpose1d_full, layer_norm, linear
 from ...ops.rope import apply_rope, rope_angles
 
 
@@ -134,19 +134,8 @@ def causal_conv_transpose(x: torch.Tensor, p, stride: int) -> torch.Tensor:
 
 def _conv_transpose_full(x: torch.Tensor, p, stride: int) -> torch.Tensor:
     """The untrimmed transposed conv without its bias: (T-1)·stride + K
-    samples, each tap one product of the input overlap-added at its
-    offset."""
-    k, in_per, out_total = p["w"].shape
-    b, t, c = x.shape
-    g = c // in_per
-    w = p["w"].flip(0).to(x.dtype).reshape(k, in_per, g, out_total // g)
-    z = torch.einsum("btgi,kigo->btkgo", x.reshape(b, t, g, in_per), w)
-    z = z.reshape(b, t, k, out_total)
-    n = (t - 1) * stride + k
-    y = x.new_zeros((b, n, out_total))
-    for tap in range(k):
-        y[:, tap: tap + (t - 1) * stride + 1: stride] += z[:, :, tap]
-    return y
+    samples (``ops/nn.py::conv_transpose1d_full``)."""
+    return conv_transpose1d_full(x, p["w"], stride)
 
 
 # ---------------------------------------------------------------------------

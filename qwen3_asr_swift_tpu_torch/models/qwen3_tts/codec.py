@@ -10,7 +10,7 @@ SnakeBeta → final conv → clip. 1920 samples per 12.5 Hz frame.
 Every convolution is causal, so decoding a chunk with enough left context
 reproduces the full decode, and right-padding codes to a bucket of frames
 and trimming the output is exact. The decoder runs in fp32; its convs are
-matmuls over strided windows (``ops/nn.py::conv1d``) and its transposed
+tap matmuls (``ops/nn.py::conv1d``) and its transposed
 convs a matmul and an overlap-add, so fp32 stays fp32 on the card (cuDNN's
 fp32 convs default to TF32).
 """

@@ -11,9 +11,9 @@ part that does not depend on the LSTM state (STFT, magnitude, encoder
 convs, the input half of the gates) runs for every chunk of the clip in one
 batch, and only the recurrence is a loop of device ops: ``h`` and ``c``
 stay on the device and the probabilities are read once, at the end, with
-no sync per chunk. The convs are matmuls over strided windows
-(``ops/nn.py::conv1d``), which run in full fp32 on the card as on the
-host.
+no sync per chunk. The convs are the port's ``ops/nn.py::conv1d`` (tap
+matmuls; the STFT one product over its windows), which run in full fp32
+on the card as on the host.
 
 ``init_params`` draws with numpy from a seed; ``convert_checkpoint`` and
 ``convert_torchscript`` are copies of the reference's converters.

@@ -9,7 +9,7 @@ downsamples (ratios reversed for the encoder), Block1D towers
 (trim right). σ-VAE sampling adds ``fix_std``·noise to the mean latent; the
 noise comes from the caller.
 
-Every conv is the port's window-matmul ``conv1d`` (fp32 stays fp32); the
+Every conv is the port's ``conv1d`` (fp32 stays fp32); the
 transposed convs are ``qwen3_tts/codec.py::causal_transpose_conv1d`` (one
 matmul, then ``F.fold``), which is the reference's ``lax.conv_transpose``
 trimmed on the right. Every conv is causal, so a chunked decode with a left

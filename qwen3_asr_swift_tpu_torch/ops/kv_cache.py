@@ -27,6 +27,8 @@ from typing import List, Optional
 
 import torch
 
+from .nn import div_scalar
+
 
 @dataclasses.dataclass
 class LayerKV:
@@ -75,7 +77,7 @@ def quantize_kv(x: torch.Tensor):
     """[B, Hkv, T, D] → (int8 codes, fp32 scale [B, Hkv, T]). ``torch.round``
     rounds half to even, as ``jnp.round`` does."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1) / 127.0
+    scale = div_scalar(xf.abs().amax(dim=-1), 127.0)
     safe = torch.clamp(scale, min=1e-8)
     q = torch.clamp(torch.round(xf / safe[..., None]), -127, 127)
     return q.to(torch.int8), scale

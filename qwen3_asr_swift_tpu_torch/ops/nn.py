@@ -10,6 +10,7 @@ the port's own precision reference).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -25,6 +26,20 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 def upcast(x: torch.Tensor) -> torch.Tensor:
     """``x`` in :func:`acc_dtype` of its dtype."""
     return x.to(acc_dtype(x.dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _scalar_on(value: float, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def div_scalar(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x / value`` rounded as a true division on every device, as numpy
+    and XLA round it: PyTorch's CUDA division by a Python scalar multiplies
+    by the scalar's reciprocal, which rounds otherwise. (The divisor is a
+    0-d tensor on x's device, made once.)"""
+    return x / _scalar_on(float(value), x.device)
 
 
 def linear(x: torch.Tensor, p) -> torch.Tensor:
@@ -163,26 +178,79 @@ def conv1d(x: torch.Tensor, p, stride: int = 1, padding=0, groups: int = 1,
            dilation: int = 1) -> torch.Tensor:
     """NLC conv1d with the reference's layout, p: {"kernel": [width,
     in//groups, out] (HIO), optional "bias": [out]}; ``padding`` an int or
-    ``((lo, hi),)``; fp32 bias. Computed as strided windows times the
-    kernel, a matmul: fp32 matmuls run in full fp32 by default, where
-    cuDNN's fp32 convs default to TF32, so no process-wide flag is set."""
+    ``((lo, hi),)``; fp32 bias.
+
+    bf16 and fp16 go to ``F.conv1d`` (fp32 accumulation, one rounding).
+    fp32 and float64 are a sum over the kernel's taps of one strided
+    product each into one buffer: full precision (fp32 matmuls are not
+    TF32 by default, cuDNN's fp32 convs are, and no process-wide flag is
+    set), no window matrix, and each product sums over the input channels
+    of one tap alone, so a long kernel's sums are taken in width short runs
+    on the card as on the host. A single-channel signal (an STFT's frames)
+    is one product over its unfolded windows instead: the same width-term
+    sums, one launch rather than width."""
     if isinstance(padding, int):
         padding = ((padding, padding),)
     ((lo, hi),) = padding
     k = p["kernel"].to(x.dtype)
     width, cin_g, cout = k.shape
     b = x.shape[0]
-    win = F.pad(x, (0, 0, lo, hi)).unfold(1, (width - 1) * dilation + 1, stride)
-    win = win[..., ::dilation]                                  # [B, L', C, width]
-    n = win.shape[1]
-    win = win.reshape(b, n, groups, cin_g, width).transpose(-1, -2).reshape(
-        b, n, groups, width * cin_g)
-    kg = k.reshape(width, cin_g, groups, cout // groups).permute(2, 0, 1, 3).reshape(
-        groups, width * cin_g, cout // groups)
-    y = torch.einsum("blgk,gko->blgo", win, kg).reshape(b, n, cout)
+    xp = F.pad(x, (0, 0, lo, hi))
+    if x.dtype in (torch.bfloat16, torch.float16):
+        y = F.conv1d(xp.transpose(1, 2), k.permute(2, 1, 0), stride=stride, dilation=dilation,
+                     groups=groups).transpose(1, 2)
+    elif cin_g * groups == 1:
+        win = xp[..., 0].unfold(1, (width - 1) * dilation + 1, stride)[..., ::dilation]
+        y = win @ k[:, 0]                                       # [B, L', width] @ [width, out]
+    else:
+        n = (xp.shape[1] - (width - 1) * dilation - 1) // stride + 1
+        depthwise = cin_g == 1 and cout == groups
+        if groups == 1:
+            y = x.new_zeros((b * n, cout))
+        elif depthwise:
+            y = x.new_zeros((b, n, cout))
+        else:
+            y = x.new_zeros((groups, b * n, cout // groups))
+            kg = k.reshape(width, cin_g, groups, cout // groups).transpose(1, 2)
+        for j in range(width):
+            tap = xp[:, j * dilation: j * dilation + stride * (n - 1) + 1: stride]
+            if groups == 1:
+                y.addmm_(tap.reshape(b * n, cin_g), k[j])
+            elif depthwise:
+                y.addcmul_(tap, k[j, 0])
+            else:
+                y.baddbmm_(tap.reshape(b * n, groups, cin_g).transpose(0, 1), kg[j])
+        if not depthwise:
+            y = (y if groups == 1 else y.transpose(0, 1)).reshape(b, n, cout)
     if "bias" in p:
         y = upcast(y) + upcast(p["bias"])
     return y.to(x.dtype)
+
+
+def conv_transpose1d_full(x: torch.Tensor, kernel: torch.Tensor, stride: int) -> torch.Tensor:
+    """The reference's transposed conv as ``lax.conv_transpose`` (VALID) or
+    an lhs-dilated conv padded K-1 a side computes it, without its bias:
+    NLC x, kernel [K, in//groups, out] with the taps as the reference's
+    converters store them (flipped); (T-1)·stride + K samples, each tap one
+    product of the input overlap-added at its offset in :func:`acc_dtype`
+    (one tap's product live at a time). The groups follow from the
+    kernel's shape."""
+    k, in_per, out_total = kernel.shape
+    b, t, c = x.shape
+    g = c // in_per
+    w = kernel.flip(0).to(x.dtype)
+    n = (t - 1) * stride + k
+    y = x.new_zeros((b, n, out_total), dtype=acc_dtype(x.dtype))
+    for tap in range(k):
+        if g == 1:
+            z = x @ w[tap]
+        elif in_per == 1 and out_total == g:                    # depthwise
+            z = x * w[tap, 0]
+        else:
+            z = torch.einsum("btgi,igo->btgo", x.reshape(b, t, g, in_per),
+                             w[tap].reshape(in_per, g, out_total // g)).reshape(b, t, out_total)
+        y[:, tap: tap + (t - 1) * stride + 1: stride] += z
+    return y
 
 
 def _conv2d_taps(x: torch.Tensor, w: torch.Tensor, stride, padding) -> torch.Tensor:

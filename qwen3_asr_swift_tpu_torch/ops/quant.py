@@ -39,6 +39,7 @@ import os
 import torch
 
 from . import cuda_build
+from .nn import div_scalar
 
 #: decode-shaped calls (≤ this many activation rows) go to kernel K1 or K2
 KERNEL_MAX_ROWS = 256
@@ -155,7 +156,7 @@ def quant_matmul_groupdot(x: torch.Tensor, p) -> torch.Tensor:
     n_groups, gs, out_dim = gcodes.shape
     lead = x.shape[:-1]
     xf = x.reshape(-1, n_groups, gs).float()                # [B, G, gs]
-    sx = xf.abs().amax(dim=-1).clamp_min(1e-12) / 127.0     # [B, G]
+    sx = div_scalar(xf.abs().amax(dim=-1).clamp_min(1e-12), 127.0)   # [B, G]
     xq = torch.clamp(torch.round(xf / sx[..., None]), -127, 127)
     partial = torch.bmm(xq.transpose(0, 1), gcodes.float())  # [G, B, out], exact integers
     y = (partial * sx.T[:, :, None] * p["gscales"].float()[:, None, :]).sum(dim=0)
@@ -346,7 +347,7 @@ def quantize_mlx_tensor(w: torch.Tensor, bits: int, group_size: int = 64):
     levels = (1 << bits) - 1
     grouped = w.float().reshape(out_dim, in_dim // group_size, group_size)
     gmax, gmin = grouped.amax(dim=-1), grouped.amin(dim=-1)
-    scales = (gmax - gmin) / levels
+    scales = div_scalar(gmax - gmin, levels)
     scales = torch.where(scales == 0, torch.full_like(scales, 1e-8), scales)
     codes = torch.clamp(torch.round((grouped - gmin[..., None]) / scales[..., None]), 0, levels)
     codes = codes.reshape(out_dim, in_dim).to(torch.int64)

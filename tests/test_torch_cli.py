@@ -1,6 +1,6 @@
 """The port's CLI (``python -m qwen3_asr_swift_tpu_torch.cli``), ``respond``,
-``denoise``, ``chat``, ``vibevoice`` and ``vibevoice-encode-voice``
-included.
+``denoise``, ``chat``, ``vibevoice``, ``vibevoice-encode-voice``, ``kokoro``
+and ``voxcpm2`` included.
 
 Each ported subcommand runs through ``main([..., "--device", "cpu",
 "--random-weights"])``, prints the reference's JSON keys, and its result
@@ -28,7 +28,7 @@ from qwen3_asr_swift_tpu_torch.audio.io import load_audio, write_wav
 REPO = Path(__file__).resolve().parent.parent
 PORTED = ["transcribe", "transcribe-batch", "align", "speak", "qwen3-tts", "qwen3-tts-coreml",
           "respond", "vad", "vad-stream", "denoise", "chat", "vibevoice",
-          "vibevoice-encode-voice", "serve"]
+          "vibevoice-encode-voice", "kokoro", "voxcpm2", "serve"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -207,6 +207,43 @@ def test_vibevoice_and_encode_voice(capsys, clips, tmp_path):
     heard, rate = read_wav(open(path, "rb").read())
     assert rate == 24000
     np.testing.assert_array_equal(heard, read_wav(wav_bytes(want.samples, 24000))[0])
+
+
+def test_kokoro(capsys, tmp_path):
+    from qwen3_asr_swift_tpu_torch.audio.io import read_wav, wav_bytes
+    from qwen3_asr_swift_tpu_torch.models.kokoro import KokoroTTS, config_tiny
+
+    path = str(tmp_path / "out.wav")
+    out = json.loads(run(capsys, "kokoro", "hello there", "--random-weights", "--output", path,
+                         "--speed", "1.25"))
+    want = KokoroTTS.init_random(config_tiny(), device="cpu").synthesize("hello there",
+                                                                          speed=1.25)
+    assert set(out) == {"output", "seconds", "voices"} and out["output"] == path
+    assert out["seconds"] == len(want.samples) / 24000 and out["voices"] == ["af_heart"]
+    heard, rate = read_wav(open(path, "rb").read())
+    assert rate == 24000
+    np.testing.assert_array_equal(heard, read_wav(wav_bytes(want.samples, 24000))[0])
+
+
+@pytest.mark.parametrize("extra", [[], ["--instruct", "a calm voice"], ["--voice", "clip"]])
+def test_voxcpm2(capsys, clips, tmp_path, extra):
+    from qwen3_asr_swift_tpu_torch.audio.io import read_wav, wav_bytes
+    from qwen3_asr_swift_tpu_torch.models.voxcpm2 import VoxCPM2TTS, config_tiny
+
+    extra = [clips[1] if a == "clip" else a for a in extra]
+    path = str(tmp_path / "out.wav")
+    out = json.loads(run(capsys, "voxcpm2", "hello there", "--random-weights", "--output", path,
+                         *extra))
+    model = VoxCPM2TTS.init_random(config_tiny(), device="cpu")
+    kw = {"instruct": "a calm voice"} if "--instruct" in extra else {}
+    if "--voice" in extra:
+        kw["voice"] = load_audio(clips[1], model.cfg.sample_rate)[0]
+    want = model.synthesize("hello there", **kw)
+    assert set(out) == {"output", "seconds"} and out["output"] == path
+    assert out["seconds"] == len(want.samples) / 48000
+    heard, rate = read_wav(open(path, "rb").read())
+    assert rate == 48000
+    np.testing.assert_array_equal(heard, read_wav(wav_bytes(want.samples, 48000))[0])
 
 
 @pytest.mark.parametrize("engine", ["pyannote", "firered"])

@@ -583,3 +583,40 @@ def test_fp32_conv2d_is_full_precision_with_cudnn_defaults(card, cin, h, w):
         torch.backends.cudnn.allow_tf32 = saved
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert rel(got.cpu(), want) <= TOL
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_quantize_tree_on_the_card_is_the_numpy_packing(card, bits):
+    """``quantize_tree`` on the card packs as ``quantize_tree_np`` does on
+    the host, bit for bit (codes, scales, biases). PyTorch's CUDA division
+    by a Python scalar multiplies by its reciprocal, so ``(max - min) /
+    levels`` took another rounding there and changed the codes of the
+    trees packed on the card."""
+    from qwen3_asr_swift_tpu_torch.core.params import params_from_jax, quantize_tree_np
+
+    rng = np.random.default_rng(bits)
+    tree = {"a": {"kernel": rng.standard_normal((1024, 3072), dtype=np.float32) * 0.05},
+            "embed_tokens": rng.standard_normal((512, 1024), dtype=np.float32) * 0.02}
+    want = quantize_tree_np(tree, bits)
+    got = k1.quantize_tree(params_from_jax(tree, card, torch.float32), bits)
+    for name in ("a", "embed_tokens"):
+        np.testing.assert_array_equal(got[name]["codes"].cpu().numpy().view(np.uint32),
+                                      want[name]["codes"])
+        for k in ("scales", "biases"):
+            np.testing.assert_array_equal(got[name][k].cpu().numpy(), want[name][k])
+
+
+def test_int8_kv_and_group_dot_scales_on_the_card_are_the_hosts(card):
+    """The int8 KV quantizer and the group-dot activation quantizer divide
+    max|x| by 127 as a true division on the card, so the same fp32 input
+    gives the host's scales and codes bit for bit."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((2, 4, 33, 128), generator=g) * 3.0
+    kq, ks = quantize_kv(x)
+    ckq, cks = quantize_kv(x.to(card))
+    assert torch.equal(cks.cpu(), ks) and torch.equal(ckq.cpu(), kq)
+    p = k1.repack_groupdot(packed(64, 256, 4, "cpu", seed=6), 64)
+    xs = torch.randn((3, 256), generator=g)
+    want = k1.quant_matmul_groupdot(xs, p)
+    got = k1.quant_matmul_groupdot(xs.to(card), {k: v.to(card) for k, v in p.items()})
+    assert rel(got.cpu(), want) <= TOL

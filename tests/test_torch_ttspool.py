@@ -363,17 +363,24 @@ def test_concurrent_synthesize_matches_sequential(model):
 
 @pytest.fixture(scope="module")
 def other_engines():
-    """Tiny CosyVoice and VibeVoice on the CPU, each with a short cap."""
+    """Tiny CosyVoice, VibeVoice, Kokoro and VoxCPM2 on the CPU, each with a
+    short cap."""
     from qwen3_asr_swift_tpu_torch.models.cosyvoice import CosyVoiceTTS
     from qwen3_asr_swift_tpu_torch.models.cosyvoice import config_tiny as cosy_tiny
+    from qwen3_asr_swift_tpu_torch.models.kokoro import KokoroTTS
+    from qwen3_asr_swift_tpu_torch.models.kokoro import config_tiny as kokoro_tiny
     from qwen3_asr_swift_tpu_torch.models.vibevoice import VibeVoiceTTS
     from qwen3_asr_swift_tpu_torch.models.vibevoice import config_tiny as vibe_tiny
+    from qwen3_asr_swift_tpu_torch.models.voxcpm2 import VoxCPM2TTS
+    from qwen3_asr_swift_tpu_torch.models.voxcpm2 import config_tiny as vox_tiny
 
     return {"cosyvoice": CosyVoiceTTS.init_random(cosy_tiny(), device="cpu"),
-            "vibevoice": VibeVoiceTTS.init_random(vibe_tiny(), device="cpu")}
+            "vibevoice": VibeVoiceTTS.init_random(vibe_tiny(), device="cpu"),
+            "kokoro": KokoroTTS.init_random(kokoro_tiny(), device="cpu"),
+            "voxcpm2": VoxCPM2TTS.init_random(vox_tiny(), device="cpu")}
 
 
-@pytest.mark.parametrize("engine", ["cosyvoice", "vibevoice"])
+@pytest.mark.parametrize("engine", ["cosyvoice", "vibevoice", "kokoro", "voxcpm2"])
 @pytest.mark.parametrize("scheduler", ["group", "slotpool"])
 def test_speak_engine_without_a_talker_takes_the_group_batcher(model, other_engines, engine,
                                                                 scheduler):

@@ -63,6 +63,11 @@ from qwen3_asr_swift_tpu.models.vibevoice import convert as j_vibe_convert
 from qwen3_asr_swift_tpu.models.vibevoice import diffusion as j_vibe_diff
 from qwen3_asr_swift_tpu.models.vibevoice import model as j_vibe
 from qwen3_asr_swift_tpu.models.vibevoice import tokenizer as j_vibe_tok
+from qwen3_asr_swift_tpu.audio import ringbuffer as j_ring
+from qwen3_asr_swift_tpu.core import loader as j_loader
+from qwen3_asr_swift_tpu.models.kokoro import model as j_kokoro
+from qwen3_asr_swift_tpu.models.voxcpm2 import model as j_vox
+from qwen3_asr_swift_tpu.ui import store as j_store
 from qwen3_asr_swift_tpu_torch.audio import companding as p_comp
 from qwen3_asr_swift_tpu_torch.audio import io as p_io
 from qwen3_asr_swift_tpu_torch.core import config as p_config
@@ -106,6 +111,11 @@ from qwen3_asr_swift_tpu_torch.models.vibevoice import diffusion as p_vibe_diff
 from qwen3_asr_swift_tpu_torch.models.vibevoice import model as p_vibe
 from qwen3_asr_swift_tpu_torch.models.vibevoice import tokenizer as p_vibe_tok
 from qwen3_asr_swift_tpu_torch.pipeline import engine as p_engine
+from qwen3_asr_swift_tpu_torch.audio import ringbuffer as p_ring
+from qwen3_asr_swift_tpu_torch.core import loader as p_loader
+from qwen3_asr_swift_tpu_torch.models.kokoro import model as p_kokoro
+from qwen3_asr_swift_tpu_torch.models.voxcpm2 import model as p_vox
+from qwen3_asr_swift_tpu_torch.ui import store as p_store
 
 # the audio packages export the function ``resample`` over the module's name
 j_resample = importlib.import_module("qwen3_asr_swift_tpu.audio.resample")
@@ -296,6 +306,9 @@ def test_bpe_tokenizer_matches(text):
                                 "solver_coefficients"]),
     (p_vibe_tok, j_vibe_tok, ["TokenizerConfig", "tokenizer_config_tiny"]),
     (p_vibe, j_vibe, ["VibeVoiceConfig", "config_tiny"]),
+    (p_kokoro, j_kokoro, ["KokoroConfig", "config_tiny", "trim_and_fade"]),
+    (p_vox, j_vox, ["ModDims", "VoxCPM2Config", "config_tiny", "cfm_time_span"]),
+    (p_loader, j_loader, ["ModelSpec", "ModelSet", "ModelLoader", "MemoryTier"]),
 ])
 def test_copied_code_is_the_original(port, ref, names):
     """Whole copies keep their originals' source, so a fix to one shows as
@@ -320,6 +333,9 @@ def test_copied_code_is_the_original(port, ref, names):
     (p_cosy.CosyVoiceTTS, j_cosy.CosyVoiceTTS, ["register_voice", "_encode_text",
                                                 "synthesize", "synthesize_stream",
                                                 "synthesize_dialogue"]),
+    (p_kokoro.KokoroTTS, j_kokoro.KokoroTTS, ["available_voices", "_ref_s", "warm_up",
+                                              "is_loaded"]),
+    (p_vox.VoxCPM2TTS, j_vox.VoxCPM2TTS, ["warm_up", "unload", "is_loaded"]),
 ])
 def test_copied_methods_are_the_originals(port, ref, names):
     for name in names:
@@ -409,7 +425,8 @@ def test_fbank_constants_match(args):
 
 
 def test_tts_paths_import_nothing_of_the_jax_package():
-    """Running the CLI (``denoise`` and ``respond`` too), ``Qwen3TTS``, both
+    """Running the CLI (``denoise``, ``respond``, ``kokoro`` and ``voxcpm2``
+    too), ``Qwen3TTS``, both
     TTS batchers (the group ``TTSBatcher`` and ``SlotPoolTTS``),
     ``SpeechEnhancer``, ``PersonaPlex`` and a ``/v1/realtime`` session
     imports neither jax nor any module of the JAX package."""
@@ -476,7 +493,9 @@ def test_tts_paths_import_nothing_of_the_jax_package():
                              ["align", clip, "one"], ["vad", clip], ["vad-stream", clip],
                              ["speak", "hi", "--output", os.path.join(d, "o.wav")],
                              ["denoise", clip, "--output", os.path.join(d, "d.wav")],
-                             ["respond", clip, "--output", os.path.join(d, "r.wav")]):
+                             ["respond", clip, "--output", os.path.join(d, "r.wav")],
+                             ["kokoro", "hi", "--output", os.path.join(d, "k.wav")],
+                             ["voxcpm2", "hi", "--output", os.path.join(d, "x.wav")]):
                     cli.main(["--device", "cpu", argv[0], "--random-weights", *argv[1:]])
         assert "jax" not in sys.modules, [k for k in sys.modules if k.startswith("jax")]
         ref = [k for k in sys.modules
@@ -575,3 +594,75 @@ def test_cosyvoice_vibevoice_constants_and_solver_match():
             np.testing.assert_array_equal(got, want)
     script = "A: hi there\nB: hello!\ncontinued\nnoise\nC_1 : bye"
     assert p_cosy.parse_dialogue(script) == j_cosy.parse_dialogue(script)
+
+
+# whole modules the port carries unchanged (the kokoro and voxcpm2
+# converters import their own package's configs and weights helpers)
+WHOLE_COPIES = ["audio/ringbuffer.py", "audio/player.py", "ui/__init__.py", "ui/store.py",
+                "models/kokoro/phonemizer.py", "models/kokoro/phonemizer_i18n.py",
+                "models/kokoro/en_dict.py", "models/kokoro/convert.py",
+                "models/voxcpm2/convert.py"]
+
+
+@pytest.mark.parametrize("path", WHOLE_COPIES)
+def test_whole_copies_are_the_originals(path):
+    got = (REPO / "qwen3_asr_swift_tpu_torch" / path).read_bytes()
+    assert got == (REPO / "qwen3_asr_swift_tpu" / path).read_bytes()
+
+
+def test_loader_copy_differs_only_in_device_memory():
+    """core/loader.py is a copy but for ``device_memory_bytes`` (the card's
+    ``total_memory``; the reference's 16 GiB for an explicit CPU device; a
+    missing card raises) and ``can_fit``, which passes the device on."""
+    import torch
+
+    assert p_loader.device_memory_bytes("cpu") == j_loader.device_memory_bytes() == 16 << 30
+    assert p_loader.can_fit(12 << 30, device="cpu") == j_loader.can_fit(12 << 30)
+    assert p_loader.can_fit(14 << 30, device="cpu") == j_loader.can_fit(14 << 30)
+    if torch.cuda.is_available():
+        want = torch.cuda.get_device_properties(0).total_memory
+        assert p_loader.device_memory_bytes() == p_loader.device_memory_bytes("cuda:0") == want
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            p_loader.device_memory_bytes()
+    for gib in (8, 16, 24, 40, 64, 96):
+        assert (p_loader.MemoryTier.detect(gib << 30).name
+                == j_loader.MemoryTier.detect(gib << 30).name)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_ring_buffer_and_store_copies_behave_as_the_originals(seed):
+    rng = np.random.default_rng(seed)
+    rings = p_ring.AudioRingBuffer(50), j_ring.AudioRingBuffer(50)
+    for _ in range(20):
+        op = rng.integers(3)
+        n = int(rng.integers(0, 70))
+        if op == 0:
+            x = rng.standard_normal(n).astype(np.float32)
+            for r in rings:
+                r.write(x)
+        outs = [r.read(n) if op == 1 else r.peek_last(n) for r in rings]
+        np.testing.assert_array_equal(*outs)
+        assert rings[0].available == rings[1].available
+    stores = p_store.TranscriptionStore(), j_store.TranscriptionStore()
+    for i in range(6):
+        for st in stores:
+            st.update_partial(f"part {i}")
+            if i % 2:
+                st.commit(f"line {i}", start=float(i), end=i + 0.5)
+    assert stores[0].transcript == stores[1].transcript
+    assert [dataclasses.astuple(a)[:3] for a in stores[0].segments] == \
+        [dataclasses.astuple(a)[:3] for a in stores[1].segments]
+
+
+def test_models_package_lists_every_family():
+    """The port's model directories are the families it has ported, and the
+    package's docstring names each."""
+    from qwen3_asr_swift_tpu_torch import models
+
+    families = {"qwen3_asr", "silero_vad", "qwen3_tts", "cosyvoice", "vibevoice", "kokoro",
+                "voxcpm2", "enhancement", "personaplex", "chat"}
+    on_disk = {d.name for d in (REPO / "qwen3_asr_swift_tpu_torch" / "models").iterdir()
+               if (d / "__init__.py").exists()}
+    assert on_disk == families
+    assert all(f"``{f}``" in models.__doc__ for f in families)
