@@ -180,9 +180,12 @@ Then the server's last three routes:
                the same seed, 503 without an ``s2s`` model;
 21. cli      — ``python -m qwen3_asr_swift_tpu_torch.cli`` on the card with
                ``--random-weights``: transcribe, transcribe-batch, align,
-               vad, vad-stream, speak, denoise, respond, vibevoice, kokoro
-               and voxcpm2, in parallel, each exit 0 with the reference's
-               JSON keys.
+               vad (silero, pyannote, firered), vad-stream, diarize,
+               embed-speaker (WeSpeaker, CAM++), speak, denoise, separate,
+               translate, respond, vibevoice, kokoro and voxcpm2, in
+               parallel, each exit 0 with the reference's JSON keys and its
+               wall printed; ``diarize --engine sortformer`` exits non-zero
+               naming the roadmap.
 
 Then the conversational paths (chat and agent run after realtime, while
 the TTS model is still built; duplex after respond, on its 7B):
@@ -212,6 +215,40 @@ the TTS model is still built; duplex after respond, on its 7B):
                against two single sessions; an int8-KV session; K1's launches
                128 + 129 a frame; push p50/p90, frames/s against 12.5 Hz,
                device ms a frame by range, peak memory at batch 1 and 2.
+
+Then the speaker and VAD families, separation and translation (after
+duplex, before cli; fp32 unless said; K1's and K3's counters must not
+move; each phase prints its seconds):
+
+25. pyannote  — segmentation-3.0 ``SEGMENTATION_30``: card vs host on 60 s
+               (activity within 1e-4 of max |host|, VAD segments equal but
+               at a near-tie frame); ``detect_speech`` of 5 min (59 windows
+               of 10 s in one batched forward): windows/s, device ms by range
+               (SincNet, BiLSTM, heads), loop iterations, idle, peak memory;
+26. firered   — FireRedVAD ``CONFIG_FIRERED`` on 60 s (one pass) and
+               150 s (the chunked path): card vs host within 1e-4, chunked
+               vs one pass within 1e-5, ms a second of audio by path;
+27. speaker   — WeSpeaker at the published widths (30 s; 40 × 1.5 s
+               batched) and CAM++ ``CONFIG_CAMPPLUS`` (8 s; 8 clips): raw
+               embeddings card vs host within 1e-4 relative L2, batch rows
+               vs ``embed`` within 1e-5, ms an embedding, peak memory; then
+               ``clone_voice`` on a CosyVoice ``CONFIG_05B`` at 2 + 2 layers
+               with the card's CAM++ (the stored vector CAM++'s ``embed``);
+28. diarize   — ``DiarizationPipeline`` (Silero with an energy decision laid
+               over its random output, phase speaker's WeSpeaker) on 60 s of
+               two synthetic voices: at least 20 windows, labels from the
+               card's embeddings equal to the host's unless a merge distance
+               lies within 1e-4 of the threshold; wall, ms a window;
+29. separate  — Open-Unmix at ``init_umx_params``' defaults, 4 stems: card
+               vs host on 10 s within 1e-4 of max |host|; 30 s at 44.1 kHz
+               (1,292 frames): RTF, device ms by range (STFT, fc, BiLSTM,
+               Wiener, iSTFT), loop iterations, idle, peak memory;
+30. translate — MADLAD-400 ``CONFIG_3B``: at 2 + 2 layers in fp32, encoder
+               card vs host within 1e-5, first-step logits within 1e-4
+               relative L2, 32 greedy ids equal or parting at a near-tie;
+               the 3B in bf16 (drawn on the card), a 48-id source, 64
+               greedy tokens with EOS set outside the vocabulary for that
+               run: tokens/s, encoder ms, device ms a token, idle, peak.
 
 Weights are random at the full width of each configuration, drawn on the
 card from a seeded ``torch.Generator`` (torch seed 0; packed there where a
@@ -264,6 +301,7 @@ GROUPDOT_INPUT_TOL = 2.0 ** -6
 # pipe the kernel runs on today
 HBM_BYTES_S = 3.35e12
 PEAK_BF16_TC = 989e12       # bf16 tensor cores
+PEAK_FP32 = 67e12           # float32 outside the tensor cores
 # peak per x dtype of K1, whose codes are exact in bf16: bf16 x enters the
 # bf16 tensor cores as it is; fp32 x exactly only as three bf16 terms, three
 # passes
@@ -397,6 +435,34 @@ def bound(n_bytes: float, flops: float, peak_flops: float):
     pipe the kernel uses."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def event_ms(fn, reps: int = 5):
+    """Device ms of ``fn()`` from CUDA events around each of ``reps`` calls
+    after a warm-up call (host gaps inside a call count): (least, median)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        times.append(ev0.elapsed_time(ev1))
+    return min(times), float(np.median(times))
+
+
+def stage_check(name, ranged_ms, fn, n_bytes, flops):
+    """A profiled range's reading held up against the same stage alone
+    under CUDA events and its bound (information: the profiler has lost a
+    range's events now and then, PERF.md §7). Returns the log text."""
+    least, median = event_ms(fn)
+    b_ms, b_by = bound(n_bytes, flops, PEAK_FP32)
+    note = "; the range reads below its bound: events lost" if ranged_ms < b_ms else ""
+    return (f"{name} alone (CUDA events, 5 calls): least {least:.3f}, median {median:.3f} ms; "
+            f"its range {ranged_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by}, fp32 peak){note}")
 
 
 def device_source(from_events) -> str:
@@ -1748,18 +1814,29 @@ def ranged(name, fn, when=None):
     return run
 
 
+WINDOW_OPENER = "(opener)"    # the range of the spin kernels that open a profiled window
+
+
 def range_device_ms(run, prefix: str, by_range=None):
     """Run ``run()`` once under the profiler. Each kernel's device time goes
     to the innermost ``record_function`` range (named ``prefix...``) whose
-    span on the device holds the kernel's start, else to "other". Returns ({range: device
-    ms}, {range: kernels}, {kernel name: device µs}, wall s); ``by_range``,
-    a dict when given, receives {range: {kernel name: device µs}}."""
+    span on the device holds the kernel's start, else to "other". The
+    window opens with 64 spin kernels (≈ 10 ms) in a range of their own,
+    left out of every result: late in a run that has profiled many windows,
+    the profiler has lost a window's first events, its whole first range
+    with them. Returns ({range: device ms}, {range: kernels}, {kernel name:
+    device µs}, wall s); ``by_range``, a dict when given, receives {range:
+    {kernel name: device µs}}."""
     import bisect
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(prefix + WINDOW_OPENER):
+            for _ in range(64):
+                torch.cuda._sleep(300_000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1781,11 +1858,13 @@ def range_device_ms(run, prefix: str, by_range=None):
     ms, count, by_kernel = {}, {}, {}
     for kernel, start, end in kernels:
         us = end - start
-        by_kernel[kernel] = by_kernel.get(kernel, 0.0) + us
         i = bisect.bisect_right(starts, start) - 1
         while i >= 0 and start >= spans[i][1]:
             i = parent[i]
         name = spans[i][2] if i >= 0 else "other"
+        if name == WINDOW_OPENER or kernel.startswith("spin_kernel"):
+            continue
+        by_kernel[kernel] = by_kernel.get(kernel, 0.0) + us
         ms[name] = ms.get(name, 0.0) + us / 1e3
         count[name] = count.get(name, 0) + 1
         if by_range is not None:
@@ -2319,31 +2398,35 @@ def cosy_logits_run(model, text, gumbel):
     return out.cpu().numpy(), int(n), seen
 
 
-def token_parting(label, card, host, card_logits, host_logits, gumbel):
+def token_parting(label, card, host, card_logits, host_logits, gumbel=None, tol=None):
     """Check two token lists equal, or parting at a near-tie (ROADMAP §3
     entry 9's rule, both halves): every step's logits up to and including
-    the first parting (all of them where none) within ``COSY_TOL`` relative
-    L2 of the host's, which bounds the gap there too; and at the parting the
-    host's Gumbel-max score margin between its token and the card's within
-    twice the largest card-vs-host logit gap."""
+    the first parting (all of them where none) within ``tol`` (default
+    ``COSY_TOL``) relative L2 of the host's, which bounds the gap there too;
+    and at the parting the host's score margin between its token and the
+    card's (its logits plus the step's Gumbel draws where sampled, greedy
+    where ``gumbel`` is None) within twice the largest card-vs-host logit
+    gap."""
+    tol = COSY_TOL if tol is None else tol
     n = min(len(card), len(host))
     part = next((i for i in range(n) if card[i] != host[i]), None)
     last = n - 1 if part is None else part
     rels = [rel_l2(card_logits[i], host_logits[i]) for i in range(last + 1)]
     worst = max(rels)
     log(f"{label}: the logits of steps 0..{last} card vs host, rel L2 at most {worst:.3e} "
-        f"(step {rels.index(worst)}; first {rels[0]:.3e}; tol {COSY_TOL:g})")
-    if not worst <= COSY_TOL:
-        raise AssertionError(f"{label}: logits rel L2 {worst} > {COSY_TOL} at step "
+        f"(step {rels.index(worst)}; first {rels[0]:.3e}; tol {tol:g})")
+    if not worst <= tol:
+        raise AssertionError(f"{label}: logits rel L2 {worst} > {tol} at step "
                              f"{rels.index(worst)}")
     if part is None:
-        log(f"{label}: speech tokens equal card vs host ({n} tokens)")
+        log(f"{label}: tokens equal card vs host ({n} tokens)")
         return
-    lh, lc, g = host_logits[part], card_logits[part], gumbel[part, 0].cpu()
+    lh, lc = host_logits[part], card_logits[part]
+    g = 0.0 if gumbel is None else gumbel[part, 0].cpu()
     a, b = int(host[part]), int(card[part])
-    margin = ((lh[a] + g[a]) - (lh[b] + g[b])).item()
+    margin = ((lh + g)[a] - (lh + g)[b]).item()
     gap = (lh - lc).abs().max().item()
-    log(f"{label}: speech tokens part at step {part}: host {a}, card {b}; host score margin "
+    log(f"{label}: tokens part at step {part}: host {a}, card {b}; host score margin "
         f"{margin:.6g}, largest logit gap {gap:.6g} (near-tie if margin <= 2 x gap)")
     if not margin <= 2 * gap:
         raise AssertionError(f"{label}: tokens part at step {part} with margin {margin} > 2 x "
@@ -4134,13 +4217,543 @@ def phase_duplex(model, k1_counter, dev_name, power):
     return launches
 
 
+PYANNOTE_S = 300         # seconds of 16 kHz audio: 59 windows of 10 s at a 5 s step
+PYANNOTE_CHECK_S = 60    # seconds of the card-vs-host check (11 windows)
+PYANNOTE_TOL = 1e-4      # speaker activity, of max |host|, card vs host CPU (fp32 both)
+PYANNOTE_TIE = 1e-4      # a segment edge may part only at a frame this near onset or offset
+FIRERED_S = (60, 150)    # one pass (5,998 rows) and the chunked path (14,998 rows)
+FIRERED_TOL = 1e-4       # probabilities, card vs host CPU
+FIRERED_CHUNK_TOL = 1e-5  # chunked vs one pass, on the card
+WESPEAKER_S = 30         # seconds of the single embedding
+WESPEAKER_CLIPS = 40     # clips of 1.5 s in the batch (the 2 s bucket)
+CAMPPLUS_S = 8           # seconds of the single CAM++ embedding
+CAMPPLUS_CLIPS = 8       # clips of 2-6 s in the CAM++ batch
+SPEAKER_TOL = 1e-4       # raw embeddings, relative L2, card vs host CPU
+SPEAKER_BATCH_TOL = 1e-5  # batch rows vs embed, relative L2, on the card
+DIARIZE_S = 60           # seconds of two synthetic voices
+SEPARATE_S = 30          # seconds of 44.1 kHz stereo (1,292 frames)
+SEPARATE_CHECK_S = 10    # seconds of the card-vs-host check
+SEPARATE_TOL = 1e-4      # each stem, of max |host|, card vs host CPU
+TRANSLATE_IDS = 48       # source ids
+TRANSLATE_TOKENS = 64    # greedy tokens of the timed run (EOS out of the vocabulary)
+TRANSLATE_CHECK_TOKENS = 32  # greedy tokens of the card-vs-host check (real EOS)
+TRANSLATE_ENC_TOL = 1e-5  # encoder output, of max |host|, card vs host (2 + 2 layers, fp32)
+TRANSLATE_TOL = 1e-4     # each step's logits up to a parting, relative L2, card vs host
+
+
+def two_voices(seconds: float, rate: int = 16000, seed: int = 11) -> np.ndarray:
+    """Two harmonic sources of different F0 (110 and 240 Hz, a slow vibrato
+    each) with noise, taking turns of 1.8 s with 0.6 s of near-silence
+    between turns."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    turn = (t // 2.4).astype(int)
+    speaking = (t % 2.4) < 1.8
+    f0 = np.where(turn % 2 == 0, 110.0, 240.0) * (1 + 0.02 * np.sin(2 * np.pi * 3 * t))
+    phase = 2 * np.pi * np.cumsum(f0) / rate
+    wave = sum(np.sin(k * phase) / k for k in range(1, 7))
+    return (0.25 * wave * speaking + 0.005 * rng.standard_normal(len(t))).astype(np.float32)
+
+
+def profiled(module, ranges, run, prefix):
+    """``run()`` once under the profiler with ``module``'s functions
+    ``ranges`` ({function: range name}) in profiler ranges: ({range: device
+    ms}, device busy ms, wall s)."""
+    with patch.multiple(module, **{f: ranged(f"{prefix}{r}", getattr(module, f))
+                                   for f, r in ranges.items()}):
+        ms, _, kernels, wall = range_device_ms(run, prefix)
+    return ms, sum(kernels.values()) / 1e3, wall
+
+
+def parting_boundaries(card_segs, host_segs, probs, frame_s, onset, offset):
+    """Segment edges (s) that the card and the host do not share, and
+    whether each lies at a frame whose host probability is within
+    ``PYANNOTE_TIE`` of the onset or the offset (a near-tie)."""
+    edges = lambda segs: {round(x, 6) for s in segs for x in (s.start, s.end)}
+    differ = sorted(edges(card_segs) ^ edges(host_segs))
+    near = {round(i * frame_s, 6) for i, p in enumerate(probs)
+            if min(abs(p - onset), abs(p - offset)) <= PYANNOTE_TIE}
+    return differ, all(d in near for d in differ)
+
+
+def phase_pyannote(dev, counters, dev_name, power):
+    """Pyannote segmentation-3.0 at ``SEGMENTATION_30`` (SincNet 80/60/60,
+    4 BiLSTM layers of 128 a direction, 2 linears of 128, 7 powerset
+    classes), fp32, random weights drawn on the card (torch seed 0): (a) card
+    vs host CPU over ``PYANNOTE_CHECK_S`` s: the speaker activity within
+    ``PYANNOTE_TOL`` of max |host|, the VAD's segments equal but where an
+    edge sits at a frame within ``PYANNOTE_TIE`` of onset or offset; (b)
+    ``detect_speech`` of ``PYANNOTE_S`` s (59 windows in one batched
+    forward): windows/s, device ms by range (SincNet, BiLSTM, heads), loop
+    iterations, idle share, peak memory; SincNet alone under CUDA events
+    beside its range and its bound. K1 and K3 must not run."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.pyannote import (SEGMENTATION_30,
+                                                           PyannoteSegmentation, PyannoteVAD)
+    from qwen3_asr_swift_tpu_torch.models.pyannote import model as py_mod
+
+    before = [c.value for c in counters]
+    t_phase = time.perf_counter()
+    seg = PyannoteSegmentation.init_random_on_device(SEGMENTATION_30, 0, device=dev)
+    audio = two_voices(PYANNOTE_S)
+    check = audio[: PYANNOTE_CHECK_S * SR]
+    host = PyannoteSegmentation(SEGMENTATION_30, tree_to(seg.params, "cpu"), device="cpu")
+    t0 = time.perf_counter()
+    want = host.speaker_activity(check)
+    host_s = time.perf_counter() - t0
+    got = seg.speaker_activity(check)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    probs = want.max(axis=-1)
+    onset = float(np.quantile(probs, 0.6))
+    offset = float(np.quantile(probs, 0.4))
+    kw = dict(onset=onset, offset=offset)
+    card_segs = PyannoteVAD(seg, **kw).detect_speech(check)
+    host_segs = PyannoteVAD(host, **kw).detect_speech(check)
+    differ, near = parting_boundaries(card_segs, host_segs, probs, seg.frame_duration, onset,
+                                      offset)
+    log(f"pyannote (a) card vs host CPU, {PYANNOTE_CHECK_S} s ({len(seg.windows(check)[0])} "
+        f"windows, host {host_s:.2f} s): activity max err {err:.3e} of max |host| (tol "
+        f"{PYANNOTE_TOL:g}); {len(card_segs)} / {len(host_segs)} segments at onset {onset:.4f}, "
+        f"offset {offset:.4f}; edges parting {differ} (near-ties: {near})")
+    if not (got.shape == want.shape and err <= PYANNOTE_TOL and near):
+        raise AssertionError(f"pyannote card vs host: activity {err}, edges {differ}")
+    del host
+
+    vad = PyannoteVAD(seg)
+    vad.detect_speech(check)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    segs = vad.detect_speech(audio)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loop = dict(seg.last_loop)
+    ranges, busy, prof_wall = profiled(
+        py_mod, {"sincnet": "sincnet", "bilstm": "bilstm", "segmentation_forward": "heads"},
+        lambda: seg.window_speakers(seg.windows(audio)[1]), "pyannote.")
+    log(f"pyannote (b) SEGMENTATION_30, {PYANNOTE_S} s: detect_speech {wall:.3f} s = "
+        f"{loop['windows'] / wall:.1f} windows/s ({loop['windows']} windows of "
+        f"{loop['frames']} frames), {len(segs)} segments; loop {loop['iterations']} iterations "
+        f"(both directions and every window in one); peak memory {peak:.2f} GiB; on {dev_name} "
+        f"({power})")
+    log(f"pyannote forward under the profiler: wall {prof_wall:.3f} s, device busy {busy:.2f} ms "
+        f"(idle {100 * (1 - busy / 1e3 / prof_wall):.1f} %); device ms: SincNet "
+        f"{ranges.get('sincnet', 0.0):.3f}, BiLSTM {ranges.get('bilstm', 0.0):.3f}, heads "
+        f"{ranges.get('heads', 0.0):.3f}, other {ranges.get('other', 0.0):.3f}; on {dev_name} "
+        f"({power})")
+    wave = torch.from_numpy(seg.windows(audio)[1]).to(dev)
+    k0, c0 = seg.cfg.sincnet_kernels[0], seg.cfg.sincnet_filters[0]   # the first conv leads
+    out0 = (wave.shape[1] - k0) // seg.cfg.sincnet_strides[0] + 1
+    log("pyannote: " + stage_check(
+        "SincNet", ranges.get("sincnet", 0.0), lambda: py_mod.sincnet(seg.params, seg.cfg, wave),
+        4 * (wave.numel() + c0 * k0), 2 * wave.shape[0] * out0 * c0 * k0))
+    del wave
+    if loop["windows"] != len(seg.windows(audio)[0]) or not all(s.end > s.start for s in segs):
+        raise AssertionError(f"pyannote: {loop} windows, segments {segs[:3]}")
+    check_counters_still("pyannote", counters, before)
+    log(f"pyannote: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_firered(dev, counters, dev_name, power):
+    """FireRedVAD at ``CONFIG_FIRERED`` (80 mels, LFR 5, 4 FSMN blocks of 20
+    causal taps), fp32, drawn on the card: 60 s (one pass, fused
+    fbank-LFR-FSMN) and 150 s (15,000 frames: the chunked path, 6,000-row
+    chunks overlapping by the receptive field); card vs host CPU
+    probabilities within ``FIRERED_TOL``, the chunked path on the card within
+    ``FIRERED_CHUNK_TOL`` of one pass; ms a second of audio by path."""
+    import dataclasses
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.firered_vad import CONFIG_FIRERED, FireRedVAD
+
+    before = [c.value for c in counters]
+    t_phase = time.perf_counter()
+    card = FireRedVAD.init_random_on_device(CONFIG_FIRERED, 0, device=dev)
+    host = FireRedVAD(CONFIG_FIRERED, tree_to(card.params, "cpu"), device="cpu")
+    one = FireRedVAD(dataclasses.replace(CONFIG_FIRERED, max_frames=10 ** 6), card.params,
+                     device=dev)
+    audio = two_voices(max(FIRERED_S), seed=12)
+    card.frame_probabilities(audio[:SR])
+    lines = []
+    for seconds in FIRERED_S:
+        clip = audio[: seconds * SR]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = card.frame_probabilities(clip)
+        wall = time.perf_counter() - t0
+        path = card.last_path
+        err = np.abs(got - host.frame_probabilities(clip)).max()
+        single = one.frame_probabilities(clip)
+        chunk_err = np.abs(got - single).max()
+        segs = card.detect_speech(clip)
+        lines.append(f"{seconds} s: path {path[0]} ({path[1]} chunk(s), {len(got)} rows) "
+                     f"{1e3 * wall / seconds:.3f} ms a second of audio; card vs host {err:.3e} "
+                     f"(tol {FIRERED_TOL:g}); vs one pass ({one.last_path[0]}) {chunk_err:.3e} "
+                     f"(tol {FIRERED_CHUNK_TOL:g}); {len(segs)} segments")
+        if not (err <= FIRERED_TOL and chunk_err <= FIRERED_CHUNK_TOL and np.isfinite(got).all()):
+            raise AssertionError(f"firered {seconds} s: card vs host {err}, chunked {chunk_err}")
+    if [ln.split("path ")[1].split(" ")[0] for ln in lines] != ["single", "chunked"]:
+        raise AssertionError(f"firered paths: {lines}")
+    log(f"firered CONFIG_FIRERED: " + "; ".join(lines) + f"; on {dev_name} ({power})")
+    check_counters_still("firered", counters, before)
+    log(f"firered: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_speaker(dev, counters, dev_name, power):
+    """WeSpeaker ResNet34 at the published widths (32/64/128/256, blocks
+    3/4/6/3) and CAM++ at ``CONFIG_CAMPPLUS`` (192-d, blocks 12/24/16),
+    fp32, drawn on the card: ``embed`` of ``WESPEAKER_S`` s and
+    ``embed_batch`` of ``WESPEAKER_CLIPS`` clips of 1.5 s; CAM++ ``embed`` of
+    ``CAMPPLUS_S`` s and ``embed_batch`` of ``CAMPPLUS_CLIPS`` clips. Card vs
+    host CPU raw embeddings within ``SPEAKER_TOL`` relative L2, batch rows vs
+    ``embed`` on the card within ``SPEAKER_BATCH_TOL``; then ``clone_voice``
+    on a CosyVoice ``CONFIG_05B`` cut to 2 + 2 layers with the card's CAM++:
+    the stored vector equal to CAM++'s ``embed``. ms an embedding, single
+    and batched; peak memory."""
+    import dataclasses
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.cosyvoice import CONFIG_05B, CosyVoiceTTS
+    from qwen3_asr_swift_tpu_torch.models.speaker import CampPlusSpeaker, WeSpeaker
+    from qwen3_asr_swift_tpu_torch.models.speaker.campplus import CONFIG_CAMPPLUS
+
+    before = [c.value for c in counters]
+    t_phase = time.perf_counter()
+    voices = two_voices(60, seed=13)
+    rng = np.random.default_rng(14)
+
+    def timed_call(fn, *a):
+        fn(*a)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # WeSpeaker
+    wes = WeSpeaker.init_random_on_device(0, device=dev)
+    host = WeSpeaker(tree_to(wes.params, "cpu"), device="cpu")
+    clip = voices[: WESPEAKER_S * SR]
+    stage = np.zeros((1, wes.bucket_samples(len(clip))), np.float32)
+    stage[0, : len(clip)] = clip
+    n = np.asarray([len(clip)])
+    single, s_wall, s_peak = timed_call(wes.embed_raw, stage, n)
+    rel = rel_l2(single, host.embed_raw(stage, n))
+    starts = rng.integers(0, len(voices) - 24000, WESPEAKER_CLIPS)
+    clips = [voices[s: s + 24000] for s in starts]
+    batch, b_wall, b_peak = timed_call(wes.embed_batch, clips)
+    rows = max(rel_l2(batch[i], wes.embed(c)) for i, c in enumerate(clips[:8]))
+    stage_b = np.stack([np.pad(c, (0, 32000 - len(c))) for c in clips[:8]])
+    n_b = np.full(len(stage_b), 24000)
+    rel_b = rel_l2(wes.embed_raw(stage_b, n_b), host.embed_raw(stage_b, n_b))
+    log(f"speaker: WeSpeaker (published widths, {wes.embed_dim}-d) embed of {WESPEAKER_S} s "
+        f"{1e3 * s_wall:.2f} ms (peak {s_peak:.2f} GiB); embed_batch of {WESPEAKER_CLIPS} x 1.5 s "
+        f"{1e3 * b_wall:.2f} ms = {1e3 * b_wall / WESPEAKER_CLIPS:.3f} ms an embedding (peak "
+        f"{b_peak:.2f} GiB); card vs host raw rel L2 {rel:.3e} single, {rel_b:.3e} on 8 batch "
+        f"rows (tol {SPEAKER_TOL:g}); batch rows vs embed {rows:.3e} (tol "
+        f"{SPEAKER_BATCH_TOL:g}); on {dev_name} ({power})")
+    if not (rel <= SPEAKER_TOL and rel_b <= SPEAKER_TOL and rows <= SPEAKER_BATCH_TOL):
+        raise AssertionError(f"wespeaker: card vs host {rel} / {rel_b}, rows vs embed {rows}")
+    del host
+
+    # CAM++
+    cam = CampPlusSpeaker.init_random_on_device(CONFIG_CAMPPLUS, 0, device=dev)
+    host = CampPlusSpeaker(CONFIG_CAMPPLUS, tree_to(cam.params, "cpu"), device="cpu")
+    clip = voices[: CAMPPLUS_S * SR]
+    single, s_wall, s_peak = timed_call(cam.embed, clip)
+    rel = rel_l2(single, host.embed(clip))
+    lengths = rng.integers(2 * SR, 6 * SR, CAMPPLUS_CLIPS)
+    clips = [voices[i * SR: i * SR + n] for i, n in enumerate(lengths)]
+    batch, b_wall, b_peak = timed_call(cam.embed_batch, clips)
+    rows = max(rel_l2(batch[i], cam.embed(c)) for i, c in enumerate(clips))
+    rel_b = rel_l2(batch, host.embed_batch(clips))
+    log(f"speaker: CAM++ CONFIG_CAMPPLUS ({cam.embedding_dim}-d) embed of {CAMPPLUS_S} s "
+        f"{1e3 * s_wall:.2f} ms (peak {s_peak:.2f} GiB); embed_batch of {CAMPPLUS_CLIPS} clips of "
+        f"2-6 s {1e3 * b_wall:.2f} ms = {1e3 * b_wall / CAMPPLUS_CLIPS:.3f} ms an embedding "
+        f"(peak {b_peak:.2f} GiB); card vs host rel L2 {rel:.3e} single, {rel_b:.3e} batch (tol "
+        f"{SPEAKER_TOL:g}); batch rows vs embed {rows:.3e} (tol {SPEAKER_BATCH_TOL:g}); on "
+        f"{dev_name} ({power})")
+    if not (rel <= SPEAKER_TOL and rel_b <= SPEAKER_TOL and rows <= SPEAKER_BATCH_TOL):
+        raise AssertionError(f"campplus: card vs host {rel} / {rel_b}, rows vs embed {rows}")
+    del host
+
+    # clone_voice with the card's CAM++
+    cut = dataclasses.replace(CONFIG_05B, num_layers=2, flow=dataclasses.replace(
+        CONFIG_05B.flow, dit=dataclasses.replace(CONFIG_05B.flow.dit, depth=2)))
+    tts = CosyVoiceTTS.init_random_on_device(cut, 0, device=dev)
+    ref = voices[3 * SR: 9 * SR]
+    tts.clone_voice("cloned", ref, SR, speaker_model=cam)
+    stored = tts.voices["cloned"].embedding
+    want = cam.embed(ref)[: cut.flow.spk_embed_dim]
+    log(f"speaker: clone_voice on CosyVoice CONFIG_05B (2 + 2 layers) with the card's CAM++: "
+        f"stored vector of {len(stored)} equal to embed: {bool(np.array_equal(stored, want))}")
+    if not np.array_equal(stored, want):
+        raise AssertionError("clone_voice stored another vector than CAM++'s embed")
+    del tts
+    check_counters_still("speaker", counters, before)
+    log(f"speaker: phase {time.perf_counter() - t_phase:.1f} s")
+    return wes
+
+
+class EnergySilero:
+    """A Silero VAD whose random probabilities (its chunk program runs on
+    the card) have an energy decision laid over them, a 512-sample chunk
+    at a time, as phase agent does: what the pipeline's windows need is
+    speech where the synthetic voices speak."""
+
+    def __init__(self, vad):
+        self.vad = vad
+
+    def detect_speech(self, audio, sample_rate=SR):
+        from qwen3_asr_swift_tpu_torch.models.silero_vad import VADConfig, binarize
+
+        probs = self.vad.speech_probabilities(audio, sample_rate)
+        n = len(probs)
+        energy = np.abs(np.pad(audio, (0, n * 512 - len(audio)))).reshape(n, 512).mean(1)
+        return binarize(np.where(energy > 0.05, 0.9, 0.05).astype(np.float32), VADConfig())
+
+
+def phase_diarize(wes, dev, counters, dev_name, power):
+    """``DiarizationPipeline(SileroVAD, WeSpeaker)`` on the card over
+    ``DIARIZE_S`` s of two synthetic voices: the random Silero runs with an
+    energy decision laid over it (:class:`EnergySilero`), WeSpeaker is phase
+    speaker's. At least 20 windows; the labels from the card's embeddings
+    equal those from the host's embeddings of the same windows, unless a
+    merge distance of the linkage lies within 1e-4 of the threshold. Wall,
+    windows, ms a window, segments."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.diarization import (DiarizationPipeline,
+                                                              agglomerative_cluster)
+    from qwen3_asr_swift_tpu_torch.models.silero_vad import SileroVAD
+    from qwen3_asr_swift_tpu_torch.models.speaker import WeSpeaker
+
+    before = [c.value for c in counters]
+    t_phase = time.perf_counter()
+    audio = two_voices(DIARIZE_S, seed=15)
+    seen = []
+    embed_batch = wes.embed_batch
+
+    def recording(clips, sr=SR):
+        out = embed_batch(clips, sr)
+        seen.append((list(clips), out))
+        return out
+
+    pipe = DiarizationPipeline(EnergySilero(SileroVAD.init_random(0, device=dev)), wes)
+    pipe.diarize(audio[: 10 * SR])
+    with patch.object(wes, "embed_batch", recording):
+        seen.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        segs = pipe.diarize(audio, num_speakers=None)
+        wall = time.perf_counter() - t0
+        labels2 = [s.speaker for s in pipe.diarize(audio, num_speakers=2)]
+    clips, card = seen[0]
+    host = WeSpeaker(tree_to(wes.params, "cpu"), device="cpu").embed_batch(clips)
+    thr = pipe.cfg.cluster_threshold
+    got = agglomerative_cluster(card, thr, None, pipe.cfg.max_speakers)
+    want = agglomerative_cluster(host, thr, None, pipe.cfg.max_speakers)
+    got2 = agglomerative_cluster(card, thr, 2)
+    want2 = agglomerative_cluster(host, thr, 2)
+    from scipy.cluster.hierarchy import linkage
+    from scipy.spatial.distance import squareform
+
+    dist = np.clip(1.0 - card @ card.T, 0.0, None)
+    np.fill_diagonal(dist, 0.0)
+    margin = float(np.abs(linkage(squareform(dist, checks=False), "average")[:, 2] - thr).min())
+    log(f"diarize: {DIARIZE_S} s of two voices, {len(clips)} windows: wall {wall:.3f} s = "
+        f"{1e3 * wall / len(clips):.2f} ms a window; {len(segs)} segments, "
+        f"{len(set(got.tolist()))} speaker(s) at the threshold, {len(set(labels2))} with "
+        f"num_speakers=2; card vs host embeddings rel L2 {rel_l2(card, host):.3e}; labels equal "
+        f"{bool((got == want).all())} (threshold) / {bool((got2 == want2).all())} (2 speakers); "
+        f"nearest merge distance to the threshold {margin:.3e}; on {dev_name} ({power})")
+    if len(clips) < 20 or not segs:
+        raise AssertionError(f"diarize: {len(clips)} windows, {len(segs)} segments")
+    if not ((got == want).all() or margin <= 1e-4) or not (got2 == want2).all():
+        raise AssertionError(f"diarize: labels card {got.tolist()} host {want.tolist()}")
+    check_counters_still("diarize", counters, before)
+    log(f"diarize: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def music(seconds: float, rate: int = 44100, seed: int = 16) -> np.ndarray:
+    """Stereo: a bass line, a vibrato lead and noise hits, panned apart."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    bass = 0.3 * np.sin(2 * np.pi * 55 * t * (1 + (t % 2 > 1)))
+    lead = 0.2 * np.sin(2 * np.pi * 440 * t * (1 + 0.01 * np.sin(2 * np.pi * 5 * t)))
+    hits = 0.1 * rng.standard_normal(len(t)) * ((t * 4) % 1 < 0.1)
+    return np.stack([bass + 0.7 * lead + hits, bass + 0.3 * lead + hits]).astype(np.float32)
+
+
+def phase_separate(dev, counters, dev_name, power):
+    """Open-Unmix at ``init_umx_params``' defaults (1,487 bins, hidden 512,
+    stereo), 4 stems, fp32, drawn on the card: card vs host CPU on
+    ``SEPARATE_CHECK_S`` s, each stem within ``SEPARATE_TOL`` of max |host|;
+    ``separate`` of ``SEPARATE_S`` s at 44.1 kHz (1,292 frames): RTF, device
+    ms by range (STFT, fc, BiLSTM, Wiener, iSTFT), loop iterations, idle
+    share, peak memory; the STFT alone under CUDA events beside its range
+    and its bound."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.separation import SourceSeparator
+    from qwen3_asr_swift_tpu_torch.models.separation import model as sep_mod
+
+    before = [c.value for c in counters]
+    t_phase = time.perf_counter()
+    card = SourceSeparator.init_random_on_device(0, device=dev)
+    host = SourceSeparator({s: tree_to(p, "cpu") for s, p in card.stem_params.items()},
+                           device="cpu")
+    audio = music(SEPARATE_S)
+    check = audio[:, : SEPARATE_CHECK_S * 44100]
+    got, want = card.separate(check, 44100), host.separate(check, 44100)
+    errs = {s: float(np.abs(got[s] - want[s]).max() / np.abs(want[s]).max()) for s in want}
+    log(f"separate (a) card vs host CPU, {SEPARATE_CHECK_S} s: " + ", ".join(
+        f"{s} {e:.3e}" for s, e in errs.items()) + f" of max |host| (tol {SEPARATE_TOL:g})")
+    if not all(e <= SEPARATE_TOL for e in errs.values()):
+        raise AssertionError(f"separate card vs host: {errs}")
+    del host
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = card.separate(audio, 44100)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loop = dict(card.last_loop)
+    ranges, busy, prof_wall = profiled(
+        sep_mod, {"stft": "stft", "umx_forward_stems": "fc", "bilstm_stems": "bilstm",
+                  "wiener_masks": "wiener", "istft": "istft"},
+        lambda: card.separate(audio, 44100), "separate.")
+    log(f"separate (b) 4 stems, {SEPARATE_S} s stereo at 44.1 kHz ({loop['frames']} frames): "
+        f"{wall:.3f} s, RTF {wall / SEPARATE_S:.4f}; loop {loop['iterations']} iterations (4 "
+        f"stems x 2 directions in each); peak memory {peak:.2f} GiB; on {dev_name} ({power})")
+    log(f"separate under the profiler: wall {prof_wall:.3f} s, device busy {busy:.2f} ms (idle "
+        f"{100 * (1 - busy / 1e3 / prof_wall):.1f} %); device ms: STFT "
+        f"{ranges.get('stft', 0.0):.3f}, fc {ranges.get('fc', 0.0):.3f}, BiLSTM "
+        f"{ranges.get('bilstm', 0.0):.3f}, Wiener {ranges.get('wiener', 0.0):.3f}, iSTFT "
+        f"{ranges.get('istft', 0.0):.3f}, other {ranges.get('other', 0.0):.3f}; on {dev_name} "
+        f"({power})")
+    x = torch.from_numpy(audio).to(dev)
+    frames, bins = audio.shape[1] // sep_mod.HOP + 1, sep_mod.N_FFT // 2 + 1
+    log("separate: " + stage_check(
+        "STFT", ranges.get("stft", 0.0), lambda: sep_mod.stft(x, frames),
+        4 * (x.numel() + 2 * sep_mod.N_FFT * bins + 2 * len(audio) * frames * bins),
+        2 * 2 * len(audio) * frames * sep_mod.N_FFT * bins))
+    del x
+    if sorted(out) != sorted(card.stem_params) or not all(
+            o.shape == audio.shape and np.isfinite(o).all() for o in out.values()):
+        raise AssertionError(f"separate: {[(s, o.shape) for s, o in out.items()]}")
+    check_counters_still("separate", counters, before)
+    log(f"separate: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_translate(dev, counters, dev_name, power):
+    """MADLAD-400 ``CONFIG_3B`` (vocab 256,000, d_model 1024, 16 x 128 heads,
+    d_ff 8192, 32 + 32 layers): (a) at its widths cut to 2 + 2 layers, fp32,
+    real EOS, drawn on the card: card vs host CPU encoder output within
+    ``TRANSLATE_ENC_TOL`` of max |host|, the first step's logits within
+    ``TRANSLATE_TOL`` relative L2, ``TRANSLATE_CHECK_TOKENS`` greedy ids equal
+    or parting at a near-tie; (b) the 3B in bf16 (as ``from_pretrained``
+    loads it) drawn on the card, a ``TRANSLATE_IDS``-id source,
+    ``TRANSLATE_TOKENS`` greedy tokens with EOS set outside the vocabulary
+    for this run only: tokens/s, encoder ms, device ms a token, idle share,
+    peak memory."""
+    import dataclasses
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.core.params import tree_tensors
+    from qwen3_asr_swift_tpu_torch.models.translation import CONFIG_3B, MADLADTranslator
+    from qwen3_asr_swift_tpu_torch.models.translation import model as t5
+
+    before = [c.value for c in counters]
+    t_phase = time.perf_counter()
+    ids = np.random.default_rng(17).integers(3, CONFIG_3B.vocab_size, TRANSLATE_IDS).tolist()
+    ids[-1] = CONFIG_3B.eos_token_id
+
+    # (a) card vs host at 2 + 2 layers, fp32
+    cut = dataclasses.replace(CONFIG_3B, num_encoder_layers=2, num_decoder_layers=2)
+    t0 = time.perf_counter()
+    card = MADLADTranslator.init_random_on_device(cut, 0, device=dev)
+    host = MADLADTranslator(cut, tree_to(card.params, "cpu"), device="cpu")
+    runs = {}
+    with torch.inference_mode():
+        for where, m in (("card", card), ("host", host)):
+            arr, valid = m.prepare(ids)
+            enc = t5.t5_encode(m.params, cut, arr, valid).float().cpu()
+            logits = []
+            out, steps, _ = t5.greedy_translate(
+                m.params, cut, arr, valid, TRANSLATE_CHECK_TOKENS,
+                on_step=lambda step, lg: logits.append(lg[0].float().cpu()))
+            runs[where] = (enc, out[0, :steps].tolist(), logits)
+    enc_err = (runs["card"][0] - runs["host"][0]).abs().max().item() / \
+        runs["host"][0].abs().max().item()
+    log(f"translate (a) CONFIG_3B widths at 2 + 2 layers, fp32: encoder card vs host "
+        f"{enc_err:.3e} of max |host| (tol {TRANSLATE_ENC_TOL:g}); {len(runs['card'][1])} / "
+        f"{len(runs['host'][1])} steps; {time.perf_counter() - t0:.1f} s with the host's share")
+    if not enc_err <= TRANSLATE_ENC_TOL:
+        raise AssertionError(f"translate encoder card vs host {enc_err}")
+    first = rel_l2(runs["card"][2][0], runs["host"][2][0])
+    if not first <= TRANSLATE_TOL:
+        raise AssertionError(f"translate first-step logits rel L2 {first}")
+    token_parting("translate (a)", runs["card"][1], runs["host"][1], runs["card"][2],
+                  runs["host"][2], tol=TRANSLATE_TOL)
+    del card, host, runs
+
+    # (b) the 3B in bf16, timed
+    t0 = time.perf_counter()
+    model = MADLADTranslator.init_random_on_device(CONFIG_3B, 0, device=dev,
+                                                   dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_tensors(model.params))
+    log(f"translate weights: CONFIG_3B ({n_params / 1e9:.3f} G parameters, bf16) drawn on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    model.cfg = dataclasses.replace(CONFIG_3B, eos_token_id=CONFIG_3B.vocab_size)
+    model.translate_ids(ids[:16], max_new=8)
+    arr, valid = model.prepare(ids)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t5.t5_encode(model.params, model.cfg, arr, valid)
+        torch.cuda.synchronize()
+        enc_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    out = model.translate_ids(ids, max_new=TRANSLATE_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms, _, kernels, prof_wall = range_device_ms(
+        lambda: model.translate_ids(ids, max_new=TRANSLATE_TOKENS), "translate.")
+    busy = sum(kernels.values()) / 1e3
+    log(f"translate (b) CONFIG_3B bf16, {TRANSLATE_IDS} ids -> {len(out)} tokens: {wall:.3f} s = "
+        f"{len(out) / wall:.2f} tokens/s (encoder {enc_ms:.2f} ms); loop {model.last_loop}; "
+        f"peak memory {peak:.2f} GiB ({resident:.2f} resident); on {dev_name} ({power})")
+    log(f"translate under the profiler: wall {prof_wall:.3f} s, device busy {busy:.2f} ms = "
+        f"{busy / TRANSLATE_TOKENS:.3f} ms a token with the encoder (idle "
+        f"{100 * (1 - busy / 1e3 / prof_wall):.1f} %); on {dev_name} ({power})")
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:4]:
+        log(f"  device {us / 1e3:9.2f} ms  {name[:100]}")
+    if len(out) != TRANSLATE_TOKENS or model.last_loop["steps"] != TRANSLATE_TOKENS:
+        raise AssertionError(f"translate: {len(out)} tokens, loop {model.last_loop}")
+    del model
+    check_counters_still("translate", counters, before)
+    log(f"translate: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_cli(dev_name):
     """``python -m qwen3_asr_swift_tpu_torch.cli`` on the card (its default
     device) with ``--random-weights``: transcribe, transcribe-batch, align,
-    vad, vad-stream, speak, denoise, respond, vibevoice, kokoro and
-    voxcpm2, one process each, all started together; each
-    must exit 0 and print the reference's JSON keys (vad-stream: its event
-    lines)."""
+    vad (each engine: silero, pyannote, firered), vad-stream, diarize,
+    embed-speaker (WeSpeaker and CAM++), speak, denoise, separate,
+    translate, respond, vibevoice, kokoro and voxcpm2, one process each, all
+    started together; each must exit 0 and print the reference's JSON keys
+    (vad-stream: its event lines), and ``diarize --engine sortformer`` must
+    exit non-zero naming the roadmap. Prints each subcommand's wall."""
     import tempfile
 
     from qwen3_asr_swift_tpu_torch.audio.io import write_wav
@@ -4148,7 +4761,10 @@ def phase_cli(dev_name):
     keys = {"transcribe": {"text", "confidence", "duration", "rtf"},
             "transcribe-batch": {"file", "text", "confidence"},
             "align": {"word", "start", "end"}, "vad": {"start", "end"},
+            "diarize": {"start", "end", "speaker"},
+            "embed-speaker": {"dim", "norm", "embedding"},
             "speak": {"output", "seconds"}, "denoise": {"output"},
+            "separate": {"vocals", "drums", "bass", "other"}, "translate": {"note", "ids"},
             "respond": {"output", "seconds"}, "vibevoice": {"output", "seconds"},
             "kokoro": {"output", "seconds", "voices"}, "voxcpm2": {"output", "seconds"}}
     with tempfile.TemporaryDirectory() as d:
@@ -4157,25 +4773,35 @@ def phase_cli(dev_name):
         clip = os.path.join(d, "clip.wav")
         write_wav(clip, (0.3 * np.sin(2 * np.pi * 220 * t) * (t > 1)
                          + 0.01 * rng.standard_normal(len(t))).astype(np.float32), 16000)
-        runs = {"transcribe": [clip, "--max-tokens", "8"],
-                "transcribe-batch": [clip, clip, "--max-tokens", "8"],
-                "align": [clip, "hello big world"], "vad": [clip], "vad-stream": [clip],
-                "speak": ["hello", "--output", os.path.join(d, "out.wav")],
-                "denoise": [clip, "--output", os.path.join(d, "denoised.wav")],
-                "respond": [clip, "--output", os.path.join(d, "response.wav")],
-                "vibevoice": ["hello", "--output", os.path.join(d, "vibevoice.wav")],
-                "kokoro": ["hello", "--output", os.path.join(d, "kokoro.wav")],
-                "voxcpm2": ["hello", "--output", os.path.join(d, "voxcpm2.wav")]}
+        runs = {"transcribe": ["transcribe", clip, "--max-tokens", "8"],
+                "transcribe-batch": ["transcribe-batch", clip, clip, "--max-tokens", "8"],
+                "align": ["align", clip, "hello big world"], "vad": ["vad", clip],
+                "vad pyannote": ["vad", clip, "--engine", "pyannote"],
+                "vad firered": ["vad", clip, "--engine", "firered"],
+                "vad-stream": ["vad-stream", clip], "diarize": ["diarize", clip],
+                "diarize sortformer": ["diarize", clip, "--engine", "sortformer"],
+                "embed-speaker": ["embed-speaker", clip],
+                "embed-speaker campplus": ["embed-speaker", clip, "--model", "campplus"],
+                "speak": ["speak", "hello", "--output", os.path.join(d, "out.wav")],
+                "denoise": ["denoise", clip, "--output", os.path.join(d, "denoised.wav")],
+                "separate": ["separate", clip, "--output-prefix", os.path.join(d, "stem")],
+                "translate": ["translate", "hello"],
+                "respond": ["respond", clip, "--output", os.path.join(d, "response.wav")],
+                "vibevoice": ["vibevoice", "hello", "--output", os.path.join(d, "vibevoice.wav")],
+                "kokoro": ["kokoro", "hello", "--output", os.path.join(d, "kokoro.wav")],
+                "voxcpm2": ["voxcpm2", "hello", "--output", os.path.join(d, "voxcpm2.wav")]}
         t0 = time.perf_counter()
-        procs = {name: subprocess.Popen(
-            [sys.executable, "-m", "qwen3_asr_swift_tpu_torch.cli", name, "--random-weights",
-             *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
-            for name, args in runs.items()}
+        procs, walls = {}, {}
+        for name, args in runs.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "qwen3_asr_swift_tpu_torch.cli", args[0],
+                 "--random-weights", *args[1:]], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
         outs = {}
         try:
             for name, p in procs.items():
                 outs[name] = p.communicate(timeout=300)
+                walls[name] = time.perf_counter() - t0
         finally:
             for p in procs.values():
                 if p.poll() is None:
@@ -4184,20 +4810,30 @@ def phase_cli(dev_name):
         wall = time.perf_counter() - t0
         for name, p in procs.items():
             out, err = outs[name]
+            if name == "diarize sortformer":
+                if p.returncode == 0 or "ROADMAP" not in err:
+                    raise AssertionError(f"cli {name}: exit {p.returncode}: {err[-500:]}")
+                log(f"cli {name}: exit {p.returncode}, {err.strip().splitlines()[-1][:160]!r}")
+                continue
             if p.returncode != 0:
                 raise AssertionError(f"cli {name}: exit {p.returncode}: {err[-2000:]}")
+            # the CLI prints its own wall on stderr as "[N.Ns]"
+            own = err.strip().splitlines()[-1] if err.strip() else "?"
             if name == "vad-stream":
                 got = {line.split()[-1] for line in out.splitlines()}
                 if not got <= {"speech_started", "speech_ended"}:
                     raise AssertionError(f"cli vad-stream printed {out[:500]}")
-                log(f"cli {name}: exit 0, {len(out.splitlines())} event lines")
+                log(f"cli {name}: exit 0, {len(out.splitlines())} event lines, {own}")
                 continue
             obj = json.loads(out)
             items = obj if isinstance(obj, list) else [obj]
-            if any(set(i) != keys[name] for i in items) or (name != "vad" and not items):
+            want = keys[name.split()[0]]
+            if any(set(i) != want for i in items) or (
+                    name.split()[0] not in ("vad", "diarize") and not items):
                 raise AssertionError(f"cli {name}: keys {[sorted(i) for i in items]}")
-            log(f"cli {name}: exit 0, keys {sorted(keys[name])}: {out.strip()[:160]!r}")
-        log(f"cli: {len(procs)} subcommands on {dev_name} in {wall:.1f} s (in parallel)")
+            log(f"cli {name}: exit 0, keys {sorted(want)}, {own} in the process, "
+                f"{walls[name]:.1f} s to its exit: {out.strip()[:120]!r}")
+        log(f"cli: {len(procs)} runs on {dev_name} in {wall:.1f} s (in parallel)")
 
 
 def main() -> int:
@@ -4205,6 +4841,7 @@ def main() -> int:
 
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -4293,6 +4930,20 @@ def main() -> int:
     k1["launches_duplex"] = phase_duplex(s2s, K1_LAUNCHES, dev_name, power)
     del s2s
     mark("duplex")
+    counters = (K1_LAUNCHES, K3_LAUNCHES)
+    phase_pyannote(dev, counters, dev_name, power)
+    mark("pyannote")
+    phase_firered(dev, counters, dev_name, power)
+    mark("firered")
+    wes = phase_speaker(dev, counters, dev_name, power)
+    mark("speaker")
+    phase_diarize(wes, dev, counters, dev_name, power)
+    del wes
+    mark("diarize")
+    phase_separate(dev, counters, dev_name, power)
+    mark("separate")
+    phase_translate(dev, counters, dev_name, power)
+    mark("translate")
     phase_cli(dev_name)
     mark("cli")
     if "jax" in sys.modules:
@@ -4301,6 +4952,7 @@ def main() -> int:
     if ref:
         raise AssertionError(f"the JAX package was imported: {ref}")
 
+    log(f"whole run: {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": [k1, k2, k3]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name,
                                            "count": torch.cuda.device_count()}}))

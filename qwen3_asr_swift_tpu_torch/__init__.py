@@ -12,8 +12,12 @@ mirrors its layout so each module's counterpart is easy to find:
                on-device decoders (mu-law, pcm4, dpcm4)
     tokenizers/  the byte-level BPE tokenizer, the SentencePiece reader
     models/    Qwen3-ASR (encoder, decoder, batched transcription, beam,
-               streaming, aligner), Silero VAD, Qwen3-TTS, DeepFilterNet3
-               (enhancement), PersonaPlex with the Mimi codec
+               streaming, aligner), Silero VAD, Pyannote segmentation,
+               FireRed VAD, the speaker models (WeSpeaker, CAM++) and the
+               diarization pipeline, Qwen3-TTS, CosyVoice3, VibeVoice,
+               Kokoro, VoxCPM2, DeepFilterNet3 (enhancement), Open-Unmix
+               (separation), MADLAD-400 (translation), PersonaPlex with the
+               Mimi codec, Qwen3.5 chat
     serving/   the port's own SpeechServer (/health, /transcribe, /speak,
                /respond, /enhance, the /v1/realtime WebSocket) over the
                group batchers or the slot pools

@@ -2,10 +2,13 @@
 subcommands of ``qwen3_asr_swift_tpu/cli.py`` whose models are ported:
 ``transcribe``, ``transcribe-batch``, ``align``, ``speak`` (and its aliases
 ``qwen3-tts`` and ``qwen3-tts-coreml``), ``respond`` (PersonaPlex),
-``vad``, ``vad-stream``, ``denoise`` (DeepFilterNet3), ``chat`` (Qwen3.5),
-``vibevoice`` and ``vibevoice-encode-voice`` (VibeVoice), ``kokoro``
-(Kokoro-82M), ``voxcpm2`` (VoxCPM2) and ``serve``. The other families'
-subcommands are not in the parser yet (ROADMAP §1).
+``vad`` (Silero, Pyannote or FireRed), ``vad-stream``, ``diarize`` (the
+Silero + WeSpeaker pipeline), ``embed-speaker`` (WeSpeaker or CAM++),
+``denoise`` (DeepFilterNet3), ``separate`` (Open-Unmix), ``translate``
+(MADLAD-400), ``chat`` (Qwen3.5), ``vibevoice`` and
+``vibevoice-encode-voice`` (VibeVoice), ``kokoro`` (Kokoro-82M),
+``voxcpm2`` (VoxCPM2) and ``serve``. ``wake`` is not in the parser yet,
+and ``diarize --engine sortformer`` raises (ROADMAP §1).
 
 Every model runs on ``--device`` (default ``cuda``, the first card; a
 request for a card on a machine without one raises); nothing picks the CPU
@@ -114,21 +117,66 @@ def cmd_speak(args):
 
 def cmd_vad(args):
     engine = getattr(args, "engine", "silero")
-    if engine != "silero":
-        raise NotImplementedError(
-            f"the {engine} VAD is not ported yet (ROADMAP §1 item 3, the other families); "
-            f"use --engine silero")
-    from .models.silero_vad import SileroVAD
+    if engine == "pyannote":
+        from .models.pyannote import PyannoteVAD as Model
+    elif engine == "firered":
+        from .models.firered_vad import FireRedVAD as Model
+    else:
+        from .models.silero_vad import SileroVAD as Model
 
     if args.random_weights:
-        model = SileroVAD.init_random(device=args.device)
+        model = Model.init_random(device=args.device)
     elif args.model:
-        model = SileroVAD.from_pretrained(args.model, device=args.device)
+        model = Model.from_pretrained(args.model, device=args.device)
     else:
-        model = SileroVAD.from_pretrained(device=args.device)
+        # each engine has its own checkpoint default — passing the silero
+        # id to pyannote/firered would convert the wrong repo
+        model = Model.from_pretrained(device=args.device)
     audio, _ = _load_audio(args.audio)
     segs = model.detect_speech(audio)
     _print([{"start": round(s.start, 3), "end": round(s.end, 3)} for s in segs])
+
+
+def cmd_diarize(args):
+    audio, _ = _load_audio(args.audio)
+    if getattr(args, "engine", "pipeline") == "sortformer":
+        raise NotImplementedError(
+            "the Sortformer diarizer is not ported yet (ROADMAP §1 item 5, with Parakeet's "
+            "encoder); use --engine pipeline")
+    from .models.diarization import DiarizationPipeline
+    from .models.silero_vad import SileroVAD
+    from .models.speaker import WeSpeaker
+
+    if args.random_weights:
+        pipe = DiarizationPipeline(SileroVAD.init_random(device=args.device),
+                                   WeSpeaker.init_random(device=args.device))
+    else:
+        pipe = DiarizationPipeline(SileroVAD.from_pretrained(device=args.device),
+                                   WeSpeaker.from_pretrained(device=args.device))
+    segs = pipe.diarize(audio, num_speakers=args.num_speakers)
+    _print([{"start": round(s.start, 2), "end": round(s.end, 2), "speaker": int(s.speaker)}
+            for s in segs])
+
+
+def cmd_embed_speaker(args):
+    import numpy as np
+
+    if "campplus" in args.model.lower() or "cam++" in args.model.lower():
+        from .models.speaker import CampPlusSpeaker as Model
+    else:
+        from .models.speaker import WeSpeaker as Model
+
+    model = (Model.init_random(device=args.device) if args.random_weights
+             else Model.from_pretrained(args.model, device=args.device))
+    audio, _ = _load_audio(args.audio)
+    emb = model.embed(audio)
+    if args.compare:
+        other, _ = _load_audio(args.compare)
+        sim = float(np.dot(emb, model.embed(other)))
+        _print({"similarity": sim, "dim": len(emb)})
+    else:
+        _print({"dim": len(emb), "norm": float(np.linalg.norm(emb)),
+                "embedding": [round(float(x), 4) for x in emb[:8]] + ["..."]})
 
 
 def cmd_respond(args):
@@ -174,6 +222,35 @@ def cmd_denoise(args):
     out = model.enhance(audio, rate)
     write_wav(args.output, out.samples, out.sample_rate)
     _print({"output": args.output})
+
+
+def cmd_separate(args):
+    from .audio.io import read_wav, write_wav
+    from .models.separation import SourceSeparator
+
+    model = (SourceSeparator.init_random(device=args.device) if args.random_weights
+             else SourceSeparator.from_pretrained(args.model, device=args.device))
+    audio, rate = read_wav(args.audio)
+    stems = model.separate(audio, rate, stems=args.stems)
+    outs = {}
+    for stem, wav in stems.items():
+        path = args.output_prefix + f"_{stem}.wav"
+        write_wav(path, wav.mean(axis=0), 44100)
+        outs[stem] = path
+    _print(outs)
+
+
+def cmd_translate(args):
+    from .models.translation import MADLADTranslator, config_tiny
+
+    model = (MADLADTranslator.init_random(config_tiny(), device=args.device)
+             if args.random_weights else MADLADTranslator.from_pretrained(args.model,
+                                                                          device=args.device))
+    if args.random_weights:
+        _print({"note": "random weights — structural smoke only",
+                "ids": model.translate_ids([5, 9, 13, 1], max_new=8)})
+    else:
+        _print({"translation": model.translate(args.text, target_lang=args.target)})
 
 
 def cmd_vad_stream(args):
@@ -359,8 +436,22 @@ def build_parser() -> argparse.ArgumentParser:
                                            "selected engine's own)"),
         "--engine": dict(default="silero", choices=["silero", "pyannote", "firered"])})
     add("vad-stream", cmd_vad_stream, audio={}, **{"--model": dict(default="silero-vad-v5")})
+    add("diarize", cmd_diarize, audio={}, **{
+        "--num-speakers": dict(type=int, default=None),
+        "--engine": dict(default="pipeline", choices=["pipeline", "sortformer"])})
+    add("embed-speaker", cmd_embed_speaker, audio={}, **{
+        "--model": dict(default="wespeaker-resnet34"), "--compare": dict(default=None)})
     add("denoise", cmd_denoise, audio={}, **{
         "--model": dict(default="deepfilternet3"), "--output": dict(default="denoised.wav")})
+    sp = sub.add_parser("separate")
+    sp.set_defaults(fn=cmd_separate)
+    sp.add_argument("audio")
+    sp.add_argument("--random-weights", action="store_true")
+    sp.add_argument("--model", default="open-unmix/umxhq")
+    sp.add_argument("--stems", nargs="*", default=None)
+    sp.add_argument("--output-prefix", default="stem")
+    add("translate", cmd_translate, text={}, **{
+        "--model": dict(default="google/madlad400-3b-mt"), "--target": dict(default="en")})
     add("chat", cmd_chat, message={}, **{"--model": dict(default="Qwen/Qwen3.5-0.8B")})
     add("vibevoice", cmd_vibevoice, text={}, **{
         "--model": dict(default="microsoft/VibeVoice-Realtime-0.5B"),

@@ -1,8 +1,11 @@
 """The port's copy of the capability interfaces it implements, from
 ``qwen3_asr_swift_tpu/core/protocols.py``: ``SpeechRecognitionModel``,
-``SpeechGenerationModel``, ``SpeechToSpeechModel``,
-``VoiceActivityDetectionModel``, ``StreamingVADProvider``,
-``SpeechEnhancementModel``, ``ForcedAlignmentModel`` and ``PipelineLLM``.
+``StreamingRecognitionModel``, ``SpeechGenerationModel``,
+``SpeechToSpeechModel``, ``VoiceActivityDetectionModel``,
+``StreamingVADProvider``, ``SpeakerEmbeddingModel``,
+``SpeakerDiarizationModel``, ``SpeechEnhancementModel``,
+``ForcedAlignmentModel``, ``SourceSeparationModel``, ``WakeWordModel``,
+``TranslationModel`` and ``PipelineLLM``.
 """
 
 from __future__ import annotations
@@ -12,7 +15,8 @@ from typing import Any, Iterator, Optional, Sequence
 
 import numpy as np
 
-from .types import AlignedWord, AudioChunk, ModelMemoryStats, SpeechSegment, TranscriptionResult
+from .types import (AlignedWord, AudioChunk, DiarizedSegment, ModelMemoryStats,
+                    PartialTranscription, SpeechSegment, TranscriptionResult)
 
 
 class SpeechModel(abc.ABC):
@@ -58,6 +62,22 @@ class SpeechRecognitionModel(SpeechModel):
         ...
 
 
+class StreamingRecognitionModel(SpeechModel):
+    """Streaming ASR with explicit carried state."""
+
+    @abc.abstractmethod
+    def new_stream(self) -> Any:
+        """Return an initial stream state (opaque carry)."""
+
+    @abc.abstractmethod
+    def push_audio(self, state: Any, chunk: AudioChunk) -> tuple[Any, Sequence[PartialTranscription]]:
+        """Feed audio; returns (new_state, emitted partial/final events)."""
+
+    @abc.abstractmethod
+    def flush(self, state: Any) -> Sequence[PartialTranscription]:
+        """Finalize the stream, emitting any pending transcript."""
+
+
 class SpeechGenerationModel(SpeechModel):
     """TTS (reference: SpeechGenerationModel)."""
 
@@ -98,6 +118,30 @@ class StreamingVADProvider(abc.ABC):
         """Samples per VAD step at 16 kHz."""
 
 
+class SpeakerEmbeddingModel(SpeechModel):
+    """Speaker embedding extraction (reference: SpeakerEmbeddingModel)."""
+
+    @abc.abstractmethod
+    def embed(self, audio: np.ndarray, sample_rate: int = 16000) -> np.ndarray:
+        """Returns an L2-normalizable embedding vector."""
+
+    @staticmethod
+    def cosine_similarity(a: np.ndarray, b: np.ndarray) -> float:
+        na = a / (np.linalg.norm(a) + 1e-12)
+        nb = b / (np.linalg.norm(b) + 1e-12)
+        return float(np.dot(na, nb))
+
+
+class SpeakerDiarizationModel(SpeechModel):
+    """Diarization (reference: SpeakerDiarizationModel)."""
+
+    @abc.abstractmethod
+    def diarize(
+        self, audio: np.ndarray, sample_rate: int = 16000, num_speakers: Optional[int] = None, **kwargs
+    ) -> Sequence[DiarizedSegment]:
+        ...
+
+
 class SpeechToSpeechModel(SpeechModel):
     """Full-duplex speech-to-speech (reference: SpeechToSpeechModel)."""
 
@@ -119,6 +163,30 @@ class ForcedAlignmentModel(SpeechModel):
 
     @abc.abstractmethod
     def align(self, audio: np.ndarray, text: str, sample_rate: int = 16000, **kwargs) -> Sequence[AlignedWord]:
+        ...
+
+
+class SourceSeparationModel(SpeechModel):
+    """Music source separation into stems."""
+
+    @abc.abstractmethod
+    def separate(self, audio: np.ndarray, sample_rate: int, stems: Optional[Sequence[str]] = None) -> dict:
+        """Returns {stem_name: np.ndarray}."""
+
+
+class WakeWordModel(SpeechModel):
+    """Keyword spotting."""
+
+    @abc.abstractmethod
+    def detect(self, audio: np.ndarray, sample_rate: int = 16000) -> Sequence[tuple[str, float, float]]:
+        """Returns [(keyword, time_sec, score)]."""
+
+
+class TranslationModel(SpeechModel):
+    """Text-to-text translation (MADLAD analog)."""
+
+    @abc.abstractmethod
+    def translate(self, text: str, target_lang: str, **kwargs) -> str:
         ...
 
 

@@ -81,6 +81,16 @@ class SpeechSegment:
 
 
 @dataclasses.dataclass(frozen=True)
+class DiarizedSegment:
+    """A speech region attributed to a speaker."""
+
+    start: float
+    end: float
+    speaker: int
+    confidence: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class AlignedWord:
     """Forced-alignment output word with timestamps."""
 

@@ -275,7 +275,10 @@ def deltanet_forward(p, x, cfg: ChatConfig, state, valid=None):
     return out, (s.to(x.dtype), new_conv)
 
 
-def init_deltanet_state(cfg: ChatConfig, batch: int, dtype=torch.float32, device="cpu"):
+def init_deltanet_state(cfg: ChatConfig, batch: int, dtype=torch.float32, device="cuda"):
+    """A DeltaNet layer's zero state on ``device`` (the card unless the
+    caller passes the CPU)."""
+    device = resolve_device(device)
     nh, hd = cfg.linear_num_heads, cfg.linear_head_dim
     return (torch.zeros((batch, nh, hd, hd), dtype=dtype, device=device),
             torch.zeros((batch, 3 * nh * hd, cfg.conv_kernel - 1), dtype=dtype, device=device))
@@ -342,7 +345,10 @@ def chat_forward(params, cfg: ChatConfig, token_ids, states, positions, valid=No
     return tied_lm_head(x, params["embed_tokens"]).float(), new_states
 
 
-def init_states(cfg: ChatConfig, batch: int, max_len: int, dtype=torch.float32, device="cpu"):
+def init_states(cfg: ChatConfig, batch: int, max_len: int, dtype=torch.float32, device="cuda"):
+    """Every layer's zero state on ``device`` (the card unless the caller
+    passes the CPU)."""
+    device = resolve_device(device)
     states = []
     for i in range(cfg.num_layers):
         if cfg.layer_type(i) == "linear":

@@ -23,8 +23,9 @@ reference keys them. So one seed gives one output.
 
 Voice cloning: a CAM++ 192-d x-vector conditions the flow, and optional
 reference FSQ codes + mel anchor the LM prompt and the DiT ``cond`` slot.
-CAM++ itself is not ported yet (ROADMAP §1 item 3): :meth:`clone_voice`
-needs a speaker model from the caller.
+:meth:`clone_voice` embeds with the caller's speaker model, or with the
+port's CAM++ (``models/speaker/campplus.py``) loaded by ``from_pretrained``
+as the reference loads it.
 """
 
 from __future__ import annotations
@@ -394,14 +395,16 @@ class CosyVoiceTTS(SpeechGenerationModel):
 
     def clone_voice(self, name: str, audio: np.ndarray, sample_rate: int = 16000,
                     speaker_model=None) -> None:
-        """Embed reference audio with a speaker model (any object with
-        ``.embed(audio, sample_rate)``) and register it as a cloning voice.
-        The reference loads CAM++ when none is given; CAM++ is not ported
-        yet, so here that raises."""
+        """Embed reference audio with CAM++ and register it as a cloning
+        voice (reference: VoiceCloning.swift — CamPlusPlusSpeaker.embed →
+        flow spk conditioning). Pass a loaded ``CampPlusSpeaker`` (or any
+        object with ``.embed``); defaults to ``CampPlusSpeaker.from_pretrained()``
+        on the model's device (a local checkpoint directory: hub download
+        is not ported)."""
         if speaker_model is None:
-            raise NotImplementedError(
-                "CAM++ is not ported yet (ROADMAP §1 item 3, the speaker models): pass a "
-                "speaker_model with .embed(audio, sample_rate)")
+            from ..speaker.campplus import CampPlusSpeaker
+
+            speaker_model = CampPlusSpeaker.from_pretrained(device=self.device)
         emb = speaker_model.embed(np.asarray(audio, np.float32), sample_rate)
         self.register_voice(name, emb)
 

@@ -52,7 +52,7 @@ from ...core.protocols import SpeechGenerationModel
 from ...core.types import AudioChunk
 from ...device import resolve_device
 from ...ops.nn import (acc_dtype, conv1d, conv_transpose1d_full, layer_norm,
-                        linear, upcast)
+                        linear, lstm_loop, upcast)
 from .albert import AlbertConfig, albert_config_tiny, albert_forward, draw_albert_params
 from .phonemizer import VOCAB_SIZE, phonemize, phonemes_to_ids
 
@@ -232,7 +232,7 @@ def _bilstm(p, x: torch.Tensor, n_valid) -> torch.Tensor:
     ``n_valid`` an int or a 0-d tensor on x's device. Both directions step
     together, one loop iteration a step of device ops only (their products
     batched); torch gate order i, f, g, o, sums in fp32 (float64 in a
-    float64 run)."""
+    float64 run); the loop is ``ops/nn.py::lstm_loop``."""
     t = x.shape[1]
     xs = x.transpose(0, 1)                                   # [T, B, C]
     idx = (n_valid - 1 - torch.arange(t, device=x.device)).clamp(0, t - 1)
@@ -242,17 +242,7 @@ def _bilstm(p, x: torch.Tensor, n_valid) -> torch.Tensor:
     # (a matmul against wx[:, None] would broadcast wx to every step)
     xd = upcast(torch.stack([xs, xs[idx]]))
     gx = torch.bmm(xd.reshape(2, -1, xd.shape[-1]), wx).reshape(*xd.shape[:3], -1)
-    h = gx.new_zeros((2, xs.shape[1], wh.shape[1]))
-    c = torch.zeros_like(h)
-    bias = bias[:, None]
-    ys = []
-    for step in range(t):
-        gates = torch.baddbmm(gx[:, step], h, wh) + bias     # (x·wx + h·wh) + bias
-        i, f, _, o = torch.sigmoid(gates).chunk(4, dim=-1)
-        c = f * c + i * torch.tanh(gates.chunk(4, dim=-1)[2])
-        h = o * torch.tanh(c)
-        ys.append(h)
-    y = torch.stack(ys, dim=1).to(x.dtype)                   # [2, T, B, h]
+    y = lstm_loop(gx, wh, bias).to(x.dtype)                  # [2, T, B, h]
     return torch.cat([y[0], y[1][idx]], dim=-1).transpose(0, 1)   # un-reverse: an involution
 
 

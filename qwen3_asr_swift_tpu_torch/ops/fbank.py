@@ -67,17 +67,17 @@ def _povey_dft(frame_len: int = 400, n_fft: int = 512, preemph: float = 0.97
 def kaldi_fbank(audio: torch.Tensor, num_bins: int = 80, frame_len: int = 400, hop: int = 160,
                 n_fft: int = 512, preemph: float = 0.97, remove_dc: bool = True,
                 sample_rate: int = 16000) -> torch.Tensor:
-    """audio float [T] (raw [-1, 1]; ×32768 first for Kaldi's scale) →
-    log-mel [n_frames, num_bins] (snip-edges)."""
+    """audio float [..., T] (raw [-1, 1]; ×32768 first for Kaldi's scale)
+    → log-mel [..., n_frames, num_bins] (snip-edges)."""
     t = audio.shape[-1]
     n_frames = max(0, 1 + (t - frame_len) // hop)
     idx = (torch.arange(n_frames, device=audio.device)[:, None] * hop
            + torch.arange(frame_len, device=audio.device)[None, :])
-    frames = audio[idx]
+    frames = audio[..., idx]
     if remove_dc:
         frames = frames - frames.mean(dim=-1, keepdim=True)
     if preemph > 0:
-        shifted = torch.cat([frames[:, :1], frames[:, :-1]], dim=-1)
+        shifted = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
         frames = frames - preemph * shifted
     cos_m, sin_m = (torch.from_numpy(m).to(audio.device)
                     for m in _povey_dft(frame_len, n_fft, preemph))

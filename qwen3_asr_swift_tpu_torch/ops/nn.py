@@ -174,6 +174,26 @@ def tied_lm_head(hidden: torch.Tensor, table) -> torch.Tensor:
     return torch.matmul(hidden, table.T).float()
 
 
+def lstm_loop(gx: torch.Tensor, wh: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """W LSTMs' recurrences stepped together, one loop of device ops (each
+    BiLSTM direction, or each weight set, one entry of a batched product):
+    gx [W, T, B, 4h] holds every step's input product x·wx, taken before
+    the loop; wh [W, h, 4h]; bias [W, 4h] → hidden states [W, T, B, h].
+    Torch gate order i, f, g, o; a step sums (x·wx + h·wh) + bias, as the
+    reference's scans do."""
+    h = gx.new_zeros((gx.shape[0], gx.shape[2], wh.shape[1]))
+    c = torch.zeros_like(h)
+    bias = bias[:, None]
+    ys = []
+    for step in range(gx.shape[1]):
+        gates = torch.baddbmm(gx[:, step], h, wh) + bias
+        i, f, _, o = torch.sigmoid(gates).chunk(4, dim=-1)
+        c = f * c + i * torch.tanh(gates.chunk(4, dim=-1)[2])
+        h = o * torch.tanh(c)
+        ys.append(h)
+    return torch.stack(ys, dim=1)
+
+
 def conv1d(x: torch.Tensor, p, stride: int = 1, padding=0, groups: int = 1,
            dilation: int = 1) -> torch.Tensor:
     """NLC conv1d with the reference's layout, p: {"kernel": [width,

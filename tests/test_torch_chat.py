@@ -102,9 +102,27 @@ def inputs(b=2, t=7, seed=1):
     return ids, valid, pos
 
 
+def cpu_states(cfg, batch, max_len):
+    """The port's zero states on the CPU (its default device is the card)."""
+    return pm.init_states(cfg, batch, max_len, device="cpu")
+
+
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
+
+def test_states_default_to_the_card():
+    """The zero states follow the package's device rule: the card unless
+    the caller passes the CPU (on a machine without a card that raises)."""
+    cfg = pm.config_tiny()
+    states = cpu_states(cfg, 1, 4)
+    assert all(t.device.type == "cpu" for st in states for t in st if torch.is_tensor(t))
+    assert pm.init_deltanet_state(cfg, 1, device="cpu")[0].device.type == "cpu"
+    if not torch.cuda.is_available():
+        for make in (lambda: pm.init_states(cfg, 1, 4), lambda: pm.init_deltanet_state(cfg, 1)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                make()
+
 
 @pytest.mark.parametrize("which", ["dense", "packed"])
 def test_layers_and_forward_match(which, request):
@@ -114,7 +132,7 @@ def test_layers_and_forward_match(which, request):
     x = np.random.default_rng(2).standard_normal((2, 7, cfg.hidden_size)).astype(np.float32)
     for i in (0, cfg.full_attention_interval - 1):
         pj, pp = ref.params["layers"][i], port.params["layers"][i]
-        js, ps = jm.init_states(jcfg(cfg), 2, 16)[i], pm.init_states(cfg, 2, 16)[i]
+        js, ps = jm.init_states(jcfg(cfg), 2, 16)[i], cpu_states(cfg, 2, 16)[i]
         if cfg.layer_type(i) == "linear":
             want, (ws, wc) = jm.deltanet_forward(pj["deltanet"], jnp.asarray(x), jcfg(cfg), js,
                                                  jnp.asarray(valid))
@@ -132,7 +150,7 @@ def test_layers_and_forward_match(which, request):
     want, _ = jm.chat_forward(ref.params, jcfg(cfg), jnp.asarray(ids),
                               jm.init_states(jcfg(cfg), 2, 16), jnp.asarray(pos),
                               jnp.asarray(valid))
-    got, _ = pm.chat_forward(port.params, cfg, torch.from_numpy(ids), pm.init_states(cfg, 2, 16),
+    got, _ = pm.chat_forward(port.params, cfg, torch.from_numpy(ids), cpu_states(cfg, 2, 16),
                              torch.from_numpy(pos), torch.from_numpy(valid))
     assert got.dtype == torch.float32
     assert rel(got.numpy(), want) < TOL, rel(got.numpy(), want)
@@ -144,9 +162,9 @@ def test_prefill_decode_parity_and_left_pad(dense):
     port, _ = dense
     p, cfg = port.params, port.cfg
     ids = torch.tensor([[3, 5, 7, 11, 13]])
-    full, _ = pm.chat_forward(p, cfg, ids, pm.init_states(cfg, 1, 16), torch.arange(5)[None],
+    full, _ = pm.chat_forward(p, cfg, ids, cpu_states(cfg, 1, 16), torch.arange(5)[None],
                               torch.ones((1, 5), dtype=torch.bool))
-    states = pm.init_states(cfg, 1, 16)
+    states = cpu_states(cfg, 1, 16)
     l3, states = pm.chat_forward(p, cfg, ids[:, :3], states, torch.arange(3)[None],
                                  torch.ones((1, 3), dtype=torch.bool))
     assert rel(l3[0, 2].numpy(), full[0, 2].numpy()) < TOL
@@ -155,7 +173,7 @@ def test_prefill_decode_parity_and_left_pad(dense):
                                      torch.ones((1, 1), dtype=torch.bool))
         assert rel(lt[0, 0].numpy(), full[0, t].numpy()) < TOL, t
     padded = torch.tensor([[9, 9, 3, 5, 7]])
-    l_pad, _ = pm.chat_forward(p, cfg, padded, pm.init_states(cfg, 1, 16),
+    l_pad, _ = pm.chat_forward(p, cfg, padded, cpu_states(cfg, 1, 16),
                                torch.tensor([[0, 0, 0, 1, 2]]),
                                torch.tensor([[False, False, True, True, True]]))
     assert rel(l_pad[0, -1].numpy(), full[0, 2].numpy()) < TOL
@@ -250,7 +268,7 @@ def test_packed_table_tokens_match_reference_up_to_a_near_tie():
     jforward = jax.jit(jm.chat_forward, static_argnums=1)
     lj = generation_logits(jforward, jm.init_states, jnp.asarray, ref.params, jcfg(WIDE), want)
     with torch.inference_mode():
-        lp = generation_logits(pm.chat_forward, pm.init_states, torch.from_numpy, port.params,
+        lp = generation_logits(pm.chat_forward, cpu_states, torch.from_numpy, port.params,
                                WIDE, want)
     exact = dict(ref.params, embed_tokens=jquant.dequantize(ref.params["embed_tokens"],
                                                             WIDE.hidden_size))

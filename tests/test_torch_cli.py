@@ -1,6 +1,7 @@
 """The port's CLI (``python -m qwen3_asr_swift_tpu_torch.cli``), ``respond``,
-``denoise``, ``chat``, ``vibevoice``, ``vibevoice-encode-voice``, ``kokoro``
-and ``voxcpm2`` included.
+``denoise``, ``chat``, ``vibevoice``, ``vibevoice-encode-voice``, ``kokoro``,
+``voxcpm2``, the three ``vad`` engines, ``diarize``, ``embed-speaker``,
+``separate`` and ``translate`` included.
 
 Each ported subcommand runs through ``main([..., "--device", "cpu",
 "--random-weights"])``, prints the reference's JSON keys, and its result
@@ -27,8 +28,9 @@ from qwen3_asr_swift_tpu_torch.audio.io import load_audio, write_wav
 
 REPO = Path(__file__).resolve().parent.parent
 PORTED = ["transcribe", "transcribe-batch", "align", "speak", "qwen3-tts", "qwen3-tts-coreml",
-          "respond", "vad", "vad-stream", "denoise", "chat", "vibevoice",
-          "vibevoice-encode-voice", "kokoro", "voxcpm2", "serve"]
+          "respond", "vad", "vad-stream", "diarize", "embed-speaker", "denoise", "separate",
+          "translate", "chat", "vibevoice", "vibevoice-encode-voice", "kokoro", "voxcpm2",
+          "serve"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -248,8 +250,83 @@ def test_voxcpm2(capsys, clips, tmp_path, extra):
 
 @pytest.mark.parametrize("engine", ["pyannote", "firered"])
 def test_vad_other_engines_are_not_ported(capsys, clips, engine):
+    """The other two engines, which raised until they were ported, run with
+    their own random models and print the reference's keys and rounding:
+    the segments of a direct ``detect_speech``."""
+    from qwen3_asr_swift_tpu_torch.models.firered_vad import FireRedVAD
+    from qwen3_asr_swift_tpu_torch.models.pyannote import PyannoteVAD
+
+    out = json.loads(run(capsys, "vad", clips[1], "--random-weights", "--engine", engine))
+    model = {"pyannote": PyannoteVAD, "firered": FireRedVAD}[engine].init_random(device="cpu")
+    want = model.detect_speech(load_audio(clips[1], 16000)[0])
+    assert out == [{"start": round(s.start, 3), "end": round(s.end, 3)} for s in want]
+    assert jcli.build_parser().parse_args(["vad", "x", "--engine", engine]).model is None
+
+
+def test_diarize(capsys, clips):
+    """The pipeline engine over the random Silero and WeSpeaker: the
+    reference's keys and rounding, equal to a direct ``diarize``; the
+    Sortformer engine raises naming the roadmap."""
+    from qwen3_asr_swift_tpu_torch.models.diarization import DiarizationPipeline
+    from qwen3_asr_swift_tpu_torch.models.silero_vad import SileroVAD
+    from qwen3_asr_swift_tpu_torch.models.speaker import WeSpeaker
+
+    out = json.loads(run(capsys, "diarize", clips[1], "--random-weights", "--num-speakers", "1"))
+    pipe = DiarizationPipeline(SileroVAD.init_random(device="cpu"),
+                               WeSpeaker.init_random(device="cpu"))
+    want = pipe.diarize(load_audio(clips[1], 16000)[0], num_speakers=1)
+    assert out == [{"start": round(s.start, 2), "end": round(s.end, 2), "speaker": int(s.speaker)}
+                   for s in want]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(capsys, "vad", clips[0], "--random-weights", "--engine", engine)
+        run(capsys, "diarize", clips[1], "--random-weights", "--engine", "sortformer")
+
+
+@pytest.mark.parametrize("model", ["wespeaker-resnet34", "campplus"])
+def test_embed_speaker(capsys, clips, model):
+    """WeSpeaker (the default) or CAM++ (``campplus``/``cam++`` in the name):
+    the reference's keys, the first 8 values rounded to 4 places, and
+    ``--compare``'s dot product."""
+    from qwen3_asr_swift_tpu_torch.models.speaker import CampPlusSpeaker, WeSpeaker
+
+    out = json.loads(run(capsys, "embed-speaker", clips[1], "--random-weights", "--model", model))
+    m = (CampPlusSpeaker if model == "campplus" else WeSpeaker).init_random(device="cpu")
+    emb = m.embed(load_audio(clips[1], 16000)[0])
+    assert out == {"dim": len(emb), "norm": float(np.linalg.norm(emb)),
+                   "embedding": [round(float(x), 4) for x in emb[:8]] + ["..."]}
+    out = json.loads(run(capsys, "embed-speaker", clips[1], "--random-weights", "--model", model,
+                         "--compare", clips[0]))
+    other = m.embed(load_audio(clips[0], 16000)[0])
+    assert out == {"similarity": float(np.dot(emb, other)), "dim": len(emb)}
+
+
+def test_separate(capsys, clips, tmp_path):
+    """Open-Unmix at the published widths (random): one WAV a stem at
+    44.1 kHz, the stems' channel mean; a subset with ``--stems``."""
+    from qwen3_asr_swift_tpu_torch.audio.io import read_wav, wav_bytes
+    from qwen3_asr_swift_tpu_torch.models.separation import SourceSeparator
+
+    prefix = str(tmp_path / "stem")
+    out = json.loads(run(capsys, "separate", clips[0], "--random-weights", "--stems", "bass",
+                         "vocals", "--output-prefix", prefix))
+    assert out == {"bass": prefix + "_bass.wav", "vocals": prefix + "_vocals.wav"}
+    audio, rate = read_wav(open(clips[0], "rb").read())
+    model = SourceSeparator.init_random(device="cpu")
+    want = model.separate(audio, rate, stems=["bass", "vocals"])
+    heard, rate = read_wav(open(out["bass"], "rb").read())
+    assert rate == 44100
+    np.testing.assert_array_equal(heard, read_wav(wav_bytes(want["bass"].mean(axis=0),
+                                                            44100))[0])
+
+
+def test_translate(capsys):
+    """``config_tiny()`` under ``--random-weights``: the reference's keys and
+    its fixed source ids."""
+    from qwen3_asr_swift_tpu_torch.models.translation import MADLADTranslator, config_tiny
+
+    out = json.loads(run(capsys, "translate", "hello", "--random-weights"))
+    want = MADLADTranslator.init_random(config_tiny(), device="cpu").translate_ids([5, 9, 13, 1],
+                                                                                   max_new=8)
+    assert out == {"note": "random weights — structural smoke only", "ids": want}
 
 
 def _options(parser):

@@ -448,9 +448,25 @@ def test_dialogue_and_icl_voice_match(models):
     wav_close(got, want, exact)
 
 
-def test_clone_voice_needs_a_speaker_model(models):
+def test_clone_voice_needs_a_speaker_model(models, monkeypatch):
+    """Without a speaker model, ``clone_voice`` loads CAM++ with
+    ``CampPlusSpeaker.from_pretrained()`` on the model's device (the
+    reference's default; here a missing local checkpoint raises, as hub
+    download is not ported); a given model's ``embed`` is used as it is."""
+    from qwen3_asr_swift_tpu_torch.models.speaker import campplus
+
     port = models[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    seen = []
+
+    def from_pretrained(*args, **kw):
+        seen.append((args, kw))
+        return campplus.CampPlusSpeaker.init_random(device="cpu")
+
+    with monkeypatch.context() as m:
+        m.setattr(campplus.CampPlusSpeaker, "from_pretrained", from_pretrained)
+        port.clone_voice("x", np.full(16000, 0.1, np.float32))
+    assert seen == [((), {"device": port.device})] and "x" in port.voices
+    with pytest.raises(FileNotFoundError, match="CamPlusPlus"):
         port.clone_voice("x", np.zeros(16000, np.float32))
 
     class Embedder:

@@ -620,3 +620,117 @@ def test_int8_kv_and_group_dot_scales_on_the_card_are_the_hosts(card):
     want = k1.quant_matmul_groupdot(xs, p)
     got = k1.quant_matmul_groupdot(xs.to(card), {k: v.to(card) for k, v in p.items()})
     assert rel(got.cpu(), want) <= TOL
+
+
+# -- the speaker and VAD families, separation, translation: card vs host ------------
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def _voices(n, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000
+    f0 = np.where((t // 1.2).astype(int) % 2 == 0, 120.0, 230.0)
+    wave = sum(np.sin(2 * np.pi * np.cumsum(f0) / 16000 * k) / k for k in range(1, 5))
+    return (0.25 * wave * ((t % 1.2) < 0.9) + 0.01 * rng.standard_normal(n)).astype(np.float32)
+
+
+def test_tiny_pyannote_and_firered_on_card_match_host(card):
+    """Pyannote's batched windows and FireRed's one-pass and chunked paths on
+    the card within 1e-4 of the host (fp32 both)."""
+    import dataclasses
+
+    from qwen3_asr_swift_tpu_torch.models.firered_vad import FireRedVAD
+    from qwen3_asr_swift_tpu_torch.models.firered_vad import config_tiny as fr_tiny
+    from qwen3_asr_swift_tpu_torch.models.pyannote import PyannoteSegmentation
+
+    audio = _voices(16000 * 7)
+    host = PyannoteSegmentation.init_random(seed=1, device="cpu")
+    dev = PyannoteSegmentation(host.cfg, _tree_to(host.params, card), device=card)
+    want = host.speaker_activity(audio)
+    assert np.abs(dev.speaker_activity(audio) - want).max() <= 1e-4 * np.abs(want).max()
+    for cfg in (fr_tiny(), dataclasses.replace(fr_tiny(), max_frames=100)):
+        host = FireRedVAD.init_random(cfg, seed=2, device="cpu")
+        dev = FireRedVAD(cfg, _tree_to(host.params, card), device=card)
+        got, want = dev.frame_probabilities(audio), host.frame_probabilities(audio)
+        assert dev.last_path == host.last_path and np.abs(got - want).max() <= 1e-4
+
+
+def test_tiny_speaker_models_on_card_match_host(card):
+    """WeSpeaker at narrow widths (a clip near its bucket's edge, a batch of
+    three lengths) and CAM++ at ``config_tiny()``: card vs host within 1e-4
+    relative L2; batch rows on the card within 1e-5 of ``embed``."""
+    from qwen3_asr_swift_tpu_torch.models.speaker import CampPlusSpeaker, WeSpeaker
+    from qwen3_asr_swift_tpu_torch.models.speaker.model import init_wespeaker_params
+
+    tree = init_wespeaker_params(np.random.default_rng(3), embed_dim=16, channels=(8, 8, 16, 16))
+    host, dev = WeSpeaker(tree, device="cpu"), WeSpeaker(tree, device=card)
+    clips = [_voices(n, i) for i, n in enumerate((31500, 20000, 45000))]
+    got, want = dev.embed(clips[0]), host.embed(clips[0])
+    assert rel(torch.from_numpy(got), torch.from_numpy(want)) <= 1e-4
+    batch = dev.embed_batch(clips)
+    assert rel(torch.from_numpy(batch), torch.from_numpy(host.embed_batch(clips))) <= 1e-4
+    same = dev.embed_batch(clips[:2])
+    for i, c in enumerate(clips[:2]):
+        assert rel(torch.from_numpy(same[i]), torch.from_numpy(dev.embed(c))) <= 1e-5
+    host = CampPlusSpeaker.init_random(seed=4, device="cpu")
+    dev = CampPlusSpeaker(host.cfg, _tree_to(host.params, card), device=card)
+    for c in clips:
+        assert rel(torch.from_numpy(dev.embed(c)), torch.from_numpy(host.embed(c))) <= 1e-4
+
+
+def test_tiny_diarization_on_card_matches_host(card):
+    """The pipeline over a VAD that hears speech everywhere and a narrow
+    WeSpeaker on the card: segments and speakers equal the host's, with
+    the threshold and with ``num_speakers``."""
+    from qwen3_asr_swift_tpu_torch.core.types import SpeechSegment
+    from qwen3_asr_swift_tpu_torch.models.diarization import DiarizationPipeline
+    from qwen3_asr_swift_tpu_torch.models.speaker import WeSpeaker
+    from qwen3_asr_swift_tpu_torch.models.speaker.model import init_wespeaker_params
+
+    class Everywhere:
+        def detect_speech(self, audio, sample_rate=16000):
+            return [SpeechSegment(0.0, len(audio) / sample_rate)]
+
+    tree = init_wespeaker_params(np.random.default_rng(7), embed_dim=16, channels=(8, 8, 16, 16))
+    audio = _voices(16000 * 9, 3)
+    for num in (None, 2):
+        got, want = (DiarizationPipeline(Everywhere(), WeSpeaker(tree, device=dev)).diarize(
+            audio, num_speakers=num) for dev in (card, "cpu"))
+        assert [(s.start, s.end, s.speaker) for s in got] == \
+            [(s.start, s.end, s.speaker) for s in want]
+
+
+def test_tiny_separation_and_translation_on_card_match_host(card):
+    """Open-Unmix at hidden 16 (all stems, one loop): each stem within 1e-4
+    of max |host|; MADLAD at ``config_tiny()``: greedy ids equal and the
+    step logits within 1e-4."""
+    from qwen3_asr_swift_tpu_torch.models.separation import SourceSeparator
+    from qwen3_asr_swift_tpu_torch.models.separation.model import STEMS, init_umx_params
+    from qwen3_asr_swift_tpu_torch.models.translation import MADLADTranslator, config_tiny
+    from qwen3_asr_swift_tpu_torch.models.translation import model as t5
+
+    rng = np.random.default_rng(5)
+    stems = {s: init_umx_params(rng, hidden=16) for s in STEMS}
+    x = np.stack([_voices(44100, 1), _voices(44100, 2)])
+    want = SourceSeparator(stems, device="cpu").separate(x, 44100)
+    got = SourceSeparator(stems, device=card).separate(x, 44100)
+    for s in STEMS:
+        assert np.abs(got[s] - want[s]).max() <= 1e-4 * np.abs(want[s]).max(), s
+    host = MADLADTranslator.init_random(config_tiny(), seed=6, device="cpu")
+    dev = MADLADTranslator(host.cfg, _tree_to(host.params, card), device=card)
+    ids = rng.integers(2, 128, 19).tolist()
+    logits = {}
+    for where, m in (("host", host), ("card", dev)):
+        arr, valid = m.prepare(ids)
+        seen = logits[where] = []
+        t5.greedy_translate(m.params, m.cfg, arr, valid, 12, on_step=lambda s, lg: seen.append(
+            lg.float().cpu()))
+    for g, w in zip(logits["card"], logits["host"]):
+        assert rel(g, w) <= 1e-4
+    assert dev.translate_ids(ids, max_new=12) == host.translate_ids(ids, max_new=12)

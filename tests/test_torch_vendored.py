@@ -68,6 +68,11 @@ from qwen3_asr_swift_tpu.core import loader as j_loader
 from qwen3_asr_swift_tpu.models.kokoro import model as j_kokoro
 from qwen3_asr_swift_tpu.models.voxcpm2 import model as j_vox
 from qwen3_asr_swift_tpu.ui import store as j_store
+from qwen3_asr_swift_tpu.models.pyannote import model as j_pyannote
+from qwen3_asr_swift_tpu.models.firered_vad import model as j_firered
+from qwen3_asr_swift_tpu.models.speaker import campplus as j_campplus
+from qwen3_asr_swift_tpu.models.separation import model as j_separation
+from qwen3_asr_swift_tpu.models.translation import model as j_translation
 from qwen3_asr_swift_tpu_torch.audio import companding as p_comp
 from qwen3_asr_swift_tpu_torch.audio import io as p_io
 from qwen3_asr_swift_tpu_torch.core import config as p_config
@@ -116,6 +121,11 @@ from qwen3_asr_swift_tpu_torch.core import loader as p_loader
 from qwen3_asr_swift_tpu_torch.models.kokoro import model as p_kokoro
 from qwen3_asr_swift_tpu_torch.models.voxcpm2 import model as p_vox
 from qwen3_asr_swift_tpu_torch.ui import store as p_store
+from qwen3_asr_swift_tpu_torch.models.pyannote import model as p_pyannote
+from qwen3_asr_swift_tpu_torch.models.firered_vad import model as p_firered
+from qwen3_asr_swift_tpu_torch.models.speaker import campplus as p_campplus
+from qwen3_asr_swift_tpu_torch.models.separation import model as p_separation
+from qwen3_asr_swift_tpu_torch.models.translation import model as p_translation
 
 # the audio packages export the function ``resample`` over the module's name
 j_resample = importlib.import_module("qwen3_asr_swift_tpu.audio.resample")
@@ -309,6 +319,16 @@ def test_bpe_tokenizer_matches(text):
     (p_kokoro, j_kokoro, ["KokoroConfig", "config_tiny", "trim_and_fade"]),
     (p_vox, j_vox, ["ModDims", "VoxCPM2Config", "config_tiny", "cfm_time_span"]),
     (p_loader, j_loader, ["ModelSpec", "ModelSet", "ModelLoader", "MemoryTier"]),
+    (p_protocols, j_protocols, ["StreamingRecognitionModel", "SpeakerEmbeddingModel",
+                                "SpeakerDiarizationModel", "SourceSeparationModel",
+                                "WakeWordModel", "TranslationModel"]),
+    (p_types, j_types, ["DiarizedSegment"]),
+    (p_pyannote, j_pyannote, ["SegmentationConfig", "config_tiny", "binarize"]),
+    (p_firered, j_firered, ["FireRedVADConfig", "config_tiny"]),
+    (p_campplus, j_campplus, ["CampPlusConfig", "config_tiny", "_campplus_dft",
+                              "_htk_mel_banks", "prepare_frames"]),
+    (p_separation, j_separation, ["_dft", "signal_to_distortion_ratio"]),
+    (p_translation, j_translation, ["T5Config", "config_tiny"]),
 ])
 def test_copied_code_is_the_original(port, ref, names):
     """Whole copies keep their originals' source, so a fix to one shows as
@@ -336,6 +356,17 @@ def test_copied_code_is_the_original(port, ref, names):
     (p_kokoro.KokoroTTS, j_kokoro.KokoroTTS, ["available_voices", "_ref_s", "warm_up",
                                               "is_loaded"]),
     (p_vox.VoxCPM2TTS, j_vox.VoxCPM2TTS, ["warm_up", "unload", "is_loaded"]),
+    (p_pyannote.PyannoteSegmentation, j_pyannote.PyannoteSegmentation,
+     ["frames_per_window", "frame_duration", "unload", "is_loaded"]),
+    (p_pyannote.PyannoteVAD, j_pyannote.PyannoteVAD,
+     ["__init__", "detect_speech", "speech_probabilities", "warm_up", "unload", "is_loaded"]),
+    (p_firered.FireRedVAD, j_firered.FireRedVAD,
+     ["detect_speech", "speech_probabilities", "warm_up", "unload", "is_loaded"]),
+    (p_campplus.CampPlusSpeaker, j_campplus.CampPlusSpeaker,
+     ["embedding_dim", "warm_up", "unload", "is_loaded"]),
+    (p_separation.SourceSeparator, j_separation.SourceSeparator, ["warm_up", "is_loaded"]),
+    (p_translation.MADLADTranslator, j_translation.MADLADTranslator,
+     ["translate", "translate_stream"]),
 ])
 def test_copied_methods_are_the_originals(port, ref, names):
     for name in names:
@@ -601,7 +632,13 @@ def test_cosyvoice_vibevoice_constants_and_solver_match():
 WHOLE_COPIES = ["audio/ringbuffer.py", "audio/player.py", "ui/__init__.py", "ui/store.py",
                 "models/kokoro/phonemizer.py", "models/kokoro/phonemizer_i18n.py",
                 "models/kokoro/en_dict.py", "models/kokoro/convert.py",
-                "models/voxcpm2/convert.py"]
+                "models/voxcpm2/convert.py", "models/pyannote/convert.py",
+                "models/firered_vad/convert.py", "models/speaker/convert.py",
+                "models/speaker/campplus_convert.py", "models/separation/convert.py",
+                "models/translation/convert.py", "models/diarization/pipeline.py",
+                "models/pyannote/__init__.py", "models/firered_vad/__init__.py",
+                "models/speaker/__init__.py", "models/separation/__init__.py",
+                "models/translation/__init__.py"]
 
 
 @pytest.mark.parametrize("path", WHOLE_COPIES)
@@ -661,8 +698,114 @@ def test_models_package_lists_every_family():
     from qwen3_asr_swift_tpu_torch import models
 
     families = {"qwen3_asr", "silero_vad", "qwen3_tts", "cosyvoice", "vibevoice", "kokoro",
-                "voxcpm2", "enhancement", "personaplex", "chat"}
+                "voxcpm2", "enhancement", "personaplex", "chat", "pyannote", "firered_vad",
+                "speaker", "diarization", "separation", "translation"}
     on_disk = {d.name for d in (REPO / "qwen3_asr_swift_tpu_torch" / "models").iterdir()
                if (d / "__init__.py").exists()}
     assert on_disk == families
     assert all(f"``{f}``" in models.__doc__ for f in families)
+
+
+def test_speaker_vad_separation_translation_configs_match():
+    """The new families' configurations, published and tiny, equal the
+    reference's field for field, and so do the module constants."""
+    pairs = [(p_pyannote.SEGMENTATION_30, j_pyannote.SEGMENTATION_30),
+             (p_pyannote.config_tiny(), j_pyannote.config_tiny()),
+             (p_firered.CONFIG_FIRERED, j_firered.CONFIG_FIRERED),
+             (p_firered.config_tiny(), j_firered.config_tiny()),
+             (p_campplus.CONFIG_CAMPPLUS, j_campplus.CONFIG_CAMPPLUS),
+             (p_campplus.config_tiny(), j_campplus.config_tiny()),
+             (p_translation.CONFIG_3B, j_translation.CONFIG_3B),
+             (p_translation.config_tiny(), j_translation.config_tiny()),
+             (p_translation.config_tiny(64), j_translation.config_tiny(64))]
+    for got, want in pairs:
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert p_campplus.CONFIG_CAMPPLUS.head_out == j_campplus.CONFIG_CAMPPLUS.head_out == 320
+    for name in ("STEMS", "N_FFT", "HOP", "SR"):
+        assert getattr(p_separation, name) == getattr(j_separation, name), name
+    assert p_pyannote._POWERSET == j_pyannote._POWERSET
+    from qwen3_asr_swift_tpu.models.speaker import model as j_wes
+    from qwen3_asr_swift_tpu_torch.models.speaker import model as p_wes
+
+    assert p_wes.WeSpeaker.FBANK_BUCKETS_S == j_wes.WeSpeaker.FBANK_BUCKETS_S
+    assert (p_campplus.CampPlusSpeaker.FBANK_BUCKETS_S
+            == j_campplus.CampPlusSpeaker.FBANK_BUCKETS_S)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_copied_clustering_and_der_behave_as_the_originals(seed):
+    from qwen3_asr_swift_tpu.models.diarization import pipeline as j_pipe
+    from qwen3_asr_swift_tpu_torch.models.diarization import pipeline as p_pipe
+
+    rng = np.random.default_rng(seed)
+    emb = rng.standard_normal((25, 6))
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    for kw in ({"threshold": 0.4}, {"threshold": 0.4, "num_clusters": 3},
+               {"threshold": 0.01, "max_clusters": 4}):
+        np.testing.assert_array_equal(p_pipe.agglomerative_cluster(emb, **kw),
+                                      j_pipe.agglomerative_cluster(emb, **kw))
+    edges = np.sort(rng.uniform(0, 20, 12))
+    ref = [(edges[i], edges[i + 1], int(rng.integers(3))) for i in range(0, 12, 2)]
+    hyp = [(a + rng.uniform(-0.3, 0.3), b + rng.uniform(-0.3, 0.3), int(rng.integers(3)))
+           for a, b, _ in ref]
+    got = p_pipe.diarization_error_rate([p_types.DiarizedSegment(*r) for r in ref],
+                                        [p_types.DiarizedSegment(*h) for h in hyp])
+    want = j_pipe.diarization_error_rate([j_types.DiarizedSegment(*r) for r in ref],
+                                         [j_types.DiarizedSegment(*h) for h in hyp])
+    assert got == want
+
+
+def test_protocols_and_cosine_similarity_match():
+    a, b = np.random.default_rng(0).standard_normal((2, 16))
+    assert (p_protocols.SpeakerEmbeddingModel.cosine_similarity(a, b)
+            == j_protocols.SpeakerEmbeddingModel.cosine_similarity(a, b))
+    import qwen3_asr_swift_tpu_torch.core as p_core
+
+    for name in ("StreamingRecognitionModel", "SpeakerEmbeddingModel", "SpeakerDiarizationModel",
+                 "SourceSeparationModel", "WakeWordModel", "TranslationModel", "DiarizedSegment"):
+        assert getattr(p_core, name).__module__.startswith("qwen3_asr_swift_tpu_torch.core."), name
+    assert dataclasses.astuple(p_types.DiarizedSegment(0.5, 1.0, 2)) == \
+        dataclasses.astuple(j_types.DiarizedSegment(0.5, 1.0, 2))
+
+
+def test_new_families_import_nothing_of_the_jax_package():
+    """Running the new families and their CLI subcommands (``vad`` with
+    each engine, ``diarize``, ``embed-speaker`` with each model,
+    ``separate``, ``translate``) and ``clone_voice`` imports neither jax nor
+    any module of the JAX package."""
+    code = textwrap.dedent("""
+        import contextlib, io, os, sys, tempfile
+        import numpy as np
+        from qwen3_asr_swift_tpu_torch import cli
+        from qwen3_asr_swift_tpu_torch.audio.io import write_wav
+        from qwen3_asr_swift_tpu_torch.models import (diarization, firered_vad, pyannote,
+                                                      separation, speaker, translation)
+        from qwen3_asr_swift_tpu_torch.models.cosyvoice import CosyVoiceTTS, config_tiny
+        tts = CosyVoiceTTS.init_random(config_tiny(), device="cpu")
+        tts.clone_voice("v", np.full(16000, 0.1, np.float32),
+                        speaker_model=speaker.CampPlusSpeaker.init_random(device="cpu"))
+        with tempfile.TemporaryDirectory() as d:
+            clip = os.path.join(d, "clip.wav")
+            t = np.arange(32000) / 16000
+            write_wav(clip, (0.3 * np.sin(2 * np.pi * 200 * t) * (t > 0.5)).astype(np.float32),
+                      16000)
+            with contextlib.redirect_stdout(io.StringIO()):
+                for argv in (["vad", clip, "--engine", "pyannote"],
+                             ["vad", clip, "--engine", "firered"], ["diarize", clip],
+                             ["embed-speaker", clip], ["embed-speaker", clip, "--model", "cam++"],
+                             ["separate", clip, "--stems", "bass",
+                              "--output-prefix", os.path.join(d, "s")],
+                             ["translate", "hello"]):
+                    cli.main(["--device", "cpu", argv[0], "--random-weights", *argv[1:]])
+        assert "jax" not in sys.modules, [k for k in sys.modules if k.startswith("jax")]
+        ref = [k for k in sys.modules
+               if k == "qwen3_asr_swift_tpu" or k.startswith("qwen3_asr_swift_tpu.")]
+        assert not ref, ref
+        print("OK")
+    """)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=240, env=env, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("OK")
