@@ -182,10 +182,9 @@ Then the server's last three routes:
                ``--random-weights``: transcribe, transcribe-batch, align,
                vad (silero, pyannote, firered), vad-stream, diarize,
                embed-speaker (WeSpeaker, CAM++), speak, denoise, separate,
-               translate, respond, vibevoice, kokoro and voxcpm2, in
-               parallel, each exit 0 with the reference's JSON keys and its
-               wall printed; ``diarize --engine sortformer`` exits non-zero
-               naming the roadmap.
+               translate, respond, vibevoice, kokoro, voxcpm2, wake and
+               ``diarize --engine sortformer``, in parallel, each exit 0
+               with the reference's JSON keys and its wall printed.
 
 Then the conversational paths (chat and agent run after realtime, while
 the TTS model is still built; duplex after respond, on its 7B):
@@ -249,6 +248,32 @@ move; each phase prints its seconds):
                the 3B in bf16 (drawn on the card), a 48-id source, 64
                greedy tokens with EOS set outside the vocabulary for that
                run: tokens/s, encoder ms, device ms a token, idle, peak.
+
+Then the last families (after translate, before cli; random weights drawn
+on the card; K1's and K3's counters must not move; each phase prints its
+seconds):
+
+31. wake      — the Zipformer wake word at ``ZipformerConfig()`` (3.19M,
+               full depth), fp32, 60 s: batch frames card vs host within
+               1e-4, detections equal; a session in uneven pushes gives the
+               batch's frames within 1e-5; windows/s, RTF, device ms, idle;
+32. parakeet  — Parakeet TDT ``CONFIG_06B``: at 2 of 24 layers in fp32,
+               mel and encoder card vs host within 1e-4, tokens equal or
+               parting at a near-tie of the joint's logits; the 0.6B in
+               bf16 on 4 clips of 8-30 s: audio-s/s, device ms by stage,
+               the decode's steps and host reads, idle, peak;
+33. sortformer — ``CONFIG_SORTFORMER`` (18 × 512 then 18 × 192), fp32, 60 s
+               in 10 chunks: at 2 + 2 layers, predictions, speaker cache
+               and FIFO card vs host within 1e-4 chunk by chunk, segments
+               equal; the full model: ms a chunk, device ms, idle, peak;
+34. parakeet_stream — ``CONFIG_EOU_120M`` and ``CONFIG_NEMOTRON_06B``,
+               fp32: at 2 layers, each chunk's encoder frames card vs host
+               within 1e-4 and the results equal over 10 s; full depth over
+               30 s in 320 ms pushes: p50/p95 a push, device ms a chunk;
+35. omnilingual — ``CONFIG_300M`` and ``CONFIG_1B``'s widths at 2 layers,
+               fp32, log-probs card vs host within 1e-4 and ids equal; the
+               300M in bf16 on 30 s: RTF, device ms, idle, peak, and its
+               distance from an fp32 run on the card.
 
 Weights are random at the full width of each configuration, drawn on the
 card from a seeded ``torch.Generator`` (torch seed 0; packed there where a
@@ -4745,15 +4770,501 @@ def phase_translate(dev, counters, dev_name, power):
     log(f"translate: phase {time.perf_counter() - t_phase:.1f} s")
 
 
+WAKE_S = 60              # seconds of 16 kHz audio for the wake word (188 windows)
+WAKE_PROFILE_S = 10      # seconds of it under the profiler (31 windows; ~1,300 events a window)
+WAKE_PUSHES = (7440, 1, 5119, 16000, 333)   # the session's pushes, cycled
+WAKE_TOL = 1e-4          # batch frames, of max |host|, card vs host CPU (fp32 both)
+WAKE_SESSION_TOL = 1e-5  # the session's frames vs the batch's, of max |batch|, on the card
+PARAKEET_CLIPS_S = (8, 14, 22, 30)   # the bf16 batch (bucket 32 s)
+PARAKEET_CHECK_S = (8, 30)           # the card-vs-host batch at 2 of 24 layers, fp32
+PARAKEET_TOL = 1e-4      # mel and encoder output, of max |host|, card vs host CPU
+PARAKEET_TIE = 2 ** -4   # a parting step's largest joint-logit gap, of max |host|
+SORTFORMER_S = 60        # 10 chunks of 14 s windows (6 s core)
+SORTFORMER_TOL = 1e-4    # predictions, speaker cache and FIFO, of max |host|, card vs host
+STREAM_S = 30            # seconds pushed in 320 ms chunks
+STREAM_CHECK_S = 10      # the card-vs-host check at 2 layers (31 chunks)
+STREAM_TOL = 1e-4        # each chunk's encoder frames, of max |host|, card vs host CPU
+OMNI_S = 30              # seconds (the 40 s bucket)
+OMNI_CHECK_S = 10        # the card-vs-host check at 2 layers (the 10 s bucket)
+OMNI_TOL = 1e-4          # log-probs, of max |host|, card vs host CPU (fp32 both)
+
+
+def device_split(module, ranges, run, prefix):
+    """``profiled`` with the window's device busy ms and its idle share."""
+    ms, busy, wall = profiled(module, ranges, run, prefix)
+    return ms, busy, wall, 100 * (1 - busy / 1e3 / wall)
+
+
+def phase_wake(dev, counters, dev_name, power):
+    """The Zipformer wake word at ``ZipformerConfig()`` (3.19M parameters
+    with the transducer head; six stacks of one layer, full depth), fp32,
+    drawn on the card, on ``WAKE_S`` s: batch frames (fbank of the clip,
+    188 windows by index, one ``encode_chunk`` a window) card vs host CPU
+    within ``WAKE_TOL``, detections equal; a session over the same audio
+    in uneven pushes gives the batch's frames within ``WAKE_SESSION_TOL``
+    and its detections; windows/s, RTF, device ms a window, idle, peak."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.wakeword import Keyword, WakeWordDetector
+    from qwen3_asr_swift_tpu_torch.models.wakeword import model as wake_mod
+    from qwen3_asr_swift_tpu_torch.models.wakeword import zipformer as zip_mod
+
+    before = [c.value for c in counters]
+    t_phase = time.perf_counter()
+    keywords = [Keyword(k, [(ord(c) * 31) % 400 + 4 for c in k], threshold=0.1)
+                for k in ("hey assistant", "stop")]
+    card = WakeWordDetector.init_random(keywords, seed=0, device=dev)
+    host = WakeWordDetector(tree_to(card.params, "cpu"), keywords, device="cpu")
+    audio = two_voices(WAKE_S, seed=21)
+    card._batch_encoder_frames(audio[:SR])
+    t0 = time.perf_counter()
+    want = host._batch_encoder_frames(audio)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = card._batch_encoder_frames(audio)
+    enc_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    err = np.abs(got - want).max() / np.abs(want).max()
+    windows = got.shape[0] * 2 // card.config.chunk_size
+    t0 = time.perf_counter()
+    hits = card.make_kws_decoder().step_chunk(got)      # detect_keywords' host half
+    wall = enc_wall + time.perf_counter() - t0
+    host_hits = host.make_kws_decoder().step_chunk(want)
+    same = [(h.phrase, h.frame_index) for h in hits] == [(h.phrase, h.frame_index)
+                                                         for h in host_hits]
+    session = wake_mod.WakeWordSession(card, collect_encoder=True)
+    s_hits, at, i = [], 0, 0
+    while at < len(audio):
+        n = WAKE_PUSHES[i % len(WAKE_PUSHES)]
+        s_hits += session.push(audio[at: at + n])
+        at, i = at + n, i + 1
+    s_hits += session.finalize()
+    s_err = np.abs(np.concatenate(session.encoder_frames) - got).max() / np.abs(got).max()
+    s_same = [(h.phrase, h.frame_index) for h in s_hits] == [(h.phrase, h.frame_index)
+                                                             for h in hits]
+    log(f"wake (a) ZipformerConfig ({card.num_params() / 1e6:.2f}M), {WAKE_S} s = {windows} "
+        f"windows: frames card vs host {err:.3e} of max |host| (tol {WAKE_TOL:g}; host "
+        f"{host_s:.2f} s); detections {len(hits)} / {len(host_hits)}, equal {same}; the session "
+        f"in {i} pushes: frames vs batch {s_err:.3e} (tol {WAKE_SESSION_TOL:g}), detections "
+        f"equal {s_same}")
+    if not (err <= WAKE_TOL and s_err <= WAKE_SESSION_TOL and same and s_same
+            and np.isfinite(got).all()):
+        raise AssertionError(f"wake: card vs host {err}, session {s_err}, hits {same} {s_same}")
+    split = audio[: WAKE_PROFILE_S * SR]
+    split_windows = card._batch_encoder_frames(split).shape[0] * 2 // card.config.chunk_size
+    ms, busy, prof_wall, idle = device_split(
+        zip_mod, {"embed_chunk": "embed"}, lambda: card._batch_encoder_frames(split), "wake.")
+    log(f"wake (b) detection of {WAKE_S} s: {wall:.3f} s = {windows / wall:.1f} windows/s, "
+        f"RTF {wall / WAKE_S:.4f} (the encoder alone {enc_wall:.3f} s, the host's beam search "
+        f"the rest); {split_windows} windows under the profiler: wall {prof_wall:.3f} s, device "
+        f"busy {busy:.2f} ms = {busy / split_windows:.3f} ms a window (embed "
+        f"{ms.get('embed', 0.0):.2f} ms), idle "
+        f"{idle:.1f} %; peak memory {peak:.3f} GiB; on {dev_name} ({power})")
+    del card, host
+    check_counters_still("wake", counters, before)
+    log(f"wake: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def tdt_run(model, audios):
+    """``transcribe_batch`` with each decode step's joint output recorded:
+    (texts, [step: [B, V+1+D] fp32 numpy], the rows' valid encoder frames)."""
+    from qwen3_asr_swift_tpu_torch.models.parakeet import model as pk_mod
+    from qwen3_asr_swift_tpu_torch.models.parakeet.encoder import subsampled_length
+
+    width = model.cfg.vocab_size + 1 + model.cfg.num_duration_bins
+    steps, linear = [], pk_mod.linear
+
+    def record(x, p):
+        y = linear(x, p)
+        if y.dim() == 2 and y.shape[-1] == width:
+            steps.append(y.float().cpu().numpy())
+        return y
+    with patch.object(pk_mod, "linear", record):
+        texts = [r.text for r in model.transcribe_batch(audios)]
+    enc_len = subsampled_length(model.prepare(audios)[1]).tolist()
+    return texts, steps, enc_len
+
+
+def tdt_partings(ref_steps, got_steps, cfg, enc_len, max_tokens):
+    """Per row, the first step whose decision (token, or the duration after
+    a token) differs, replaying the reference's decisions: [(row, step,
+    reference logits, other logits)] over the part that decided."""
+    v = cfg.vocab_size + 1
+    out = []
+    for r in range(len(enc_len)):
+        t = n = 0
+        for s in range(min(len(ref_steps), len(got_steps))):
+            if not (t < enc_len[r] and n < max_tokens):
+                break
+            lr, lg = ref_steps[s][r], got_steps[s][r]
+            if lr[:v].argmax() != lg[:v].argmax():
+                out.append((r, s, lr[:v], lg[:v]))
+                break
+            if lr[:v].argmax() == cfg.blank_token_id:
+                t += 1
+                continue
+            if lr[v:].argmax() != lg[v:].argmax():
+                out.append((r, s, lr[v:], lg[v:]))
+                break
+            t += max(cfg.duration_bins[lr[v:].argmax()], 1)
+            n += lr[:v].argmax() >= cfg.first_text_token_id
+    return out
+
+
+def phase_parakeet(dev, counters, dev_name, power):
+    """Parakeet TDT ``CONFIG_06B`` (FastConformer 24 × 1024, vocab 8192):
+    (a) cut to 2 of 24 layers, fp32, drawn on the card: card vs host CPU on
+    ``PARAKEET_CHECK_S`` clips: mel and encoder output within
+    ``PARAKEET_TOL`` of max |host|, tokens equal or each row parting at a
+    near-tie of the joint's logits; (b) the 0.6B in bf16 (its default) on
+    ``PARAKEET_CLIPS_S``: audio-s/s, device ms by stage (mel, encoder,
+    decode), the decode's steps and host reads, idle, peak memory."""
+    import dataclasses
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.parakeet import CONFIG_06B, ParakeetASR
+    from qwen3_asr_swift_tpu_torch.models.parakeet import model as pk_mod
+    from qwen3_asr_swift_tpu_torch.models.parakeet.encoder import encode
+    from qwen3_asr_swift_tpu_torch.models.parakeet.mel import nemo_log_mel
+
+    before = [c.value for c in counters]
+    t_phase = time.perf_counter()
+    voices = two_voices(max(PARAKEET_CLIPS_S), seed=22)
+    check = [voices[: s * SR] for s in PARAKEET_CHECK_S]
+    cut = dataclasses.replace(CONFIG_06B, encoder_layers=2)
+    card = ParakeetASR.init_random(cut, 0, dtype=torch.float32, device=dev)
+    host = ParakeetASR(cut, tree_to(card.encoder_params, "cpu"),
+                       tree_to(card.decoder_params, "cpu"), dtype=torch.float32, device="cpu")
+    errs = {}
+    with torch.inference_mode():
+        outs = {}
+        for where, m in (("card", card), ("host", host)):
+            padded, n_valid, n_frames, _ = m.prepare(check)
+            mel, _ = nemo_log_mel(padded, n_valid, cut, n_frames)
+            enc, n_out = encode(m.encoder_params, mel, n_valid, cut)
+            outs[where] = mel.cpu(), enc.cpu(), n_out.cpu()
+    for i, name in enumerate(("mel", "encoder")):
+        got, want = outs["card"][i], outs["host"][i]
+        errs[name] = ((got - want).abs().max() / want.abs().max()).item()
+    t0 = time.perf_counter()
+    host_texts, host_steps, enc_len = tdt_run(host, check)
+    host_s = time.perf_counter() - t0
+    card_texts, card_steps, _ = tdt_run(card, check)
+    parts = tdt_partings(host_steps, card_steps, cut, enc_len, 1024)
+    log(f"parakeet (a) CONFIG_06B widths at 2 of 24 layers, fp32, {PARAKEET_CHECK_S} s: mel "
+        f"{errs['mel']:.3e}, encoder {errs['encoder']:.3e} of max |host| (tol {PARAKEET_TOL:g}); "
+        f"{[len(t.split()) for t in card_texts]} tokens, equal {card_texts == host_texts}; "
+        f"{len(host_steps)} / {len(card_steps)} decode steps; host {host_s:.1f} s")
+    if not (max(errs.values()) <= PARAKEET_TOL and torch.equal(outs["card"][2], outs["host"][2])):
+        raise AssertionError(f"parakeet card vs host: {errs}")
+    for r, s, lr, lg in parts:
+        gap, margin = np.abs(lr - lg).max(), lr.max() - lr[lg.argmax()]
+        log(f"parakeet (a): row {r} parts at step {s}: host margin {margin:.4g}, largest logit "
+            f"gap {gap:.4g} (near-tie if margin <= 2 x gap, gap <= {PARAKEET_TIE:g} of max |host|)")
+        if not (margin <= 2 * gap and gap <= PARAKEET_TIE * np.abs(lr).max()):
+            raise AssertionError(f"parakeet row {r} parts at step {s}: {margin}, {gap}")
+    if card_texts != host_texts and not parts:
+        raise AssertionError("parakeet: texts differ with no parting step")
+    del card, host, outs
+
+    t0 = time.perf_counter()
+    model = ParakeetASR.init_random(CONFIG_06B, 0, device=dev)
+    torch.cuda.synchronize()
+    log(f"parakeet weights: CONFIG_06B bf16 drawn on the card in {time.perf_counter() - t0:.1f} s")
+    clips = [voices[: s * SR] for s in PARAKEET_CLIPS_S]
+    model.transcribe_batch([c[: 2 * SR] for c in clips])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = model.transcribe_batch(clips)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loop = dict(model.last_loop)
+    ms, busy, prof_wall, idle = device_split(
+        pk_mod, {"nemo_log_mel": "mel", "encode": "encoder", "tdt_decode": "decode"},
+        lambda: model.transcribe_batch(clips), "parakeet.")
+    audio_s = sum(PARAKEET_CLIPS_S)
+    log(f"parakeet (b) CONFIG_06B bf16, {len(clips)} clips of {PARAKEET_CLIPS_S} s: "
+        f"{wall:.3f} s = {audio_s / wall:.1f} audio-s/s; {[len(r.text.split()) for r in res]} "
+        f"tokens; decode {loop['steps']} steps, {loop['reads']} host reads; peak memory "
+        f"{peak:.2f} GiB; on {dev_name} ({power})")
+    log(f"parakeet under the profiler: wall {prof_wall:.3f} s, device busy {busy:.2f} ms (idle "
+        f"{idle:.1f} %); device ms: mel {ms.get('mel', 0.0):.3f}, encoder "
+        f"{ms.get('encoder', 0.0):.3f}, decode {ms.get('decode', 0.0):.3f}, other "
+        f"{ms.get('other', 0.0):.3f}; on {dev_name} ({power})")
+    if not all(r.text for r in res) or loop["reads"] < 2:
+        raise AssertionError(f"parakeet: {[r.text[:20] for r in res]}, loop {loop}")
+    del model
+    check_counters_still("parakeet", counters, before)
+    log(f"parakeet: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def sortformer_chunks(model, audio):
+    """``diarize`` with each chunk's predictions and the speaker cache and
+    FIFO after it recorded: (segments, [(preds, cache, cache len, fifo, fifo
+    len)])."""
+    seen = []
+    run_chunk, update = model.run_chunk, model._update_state
+
+    def chunk(*a):
+        out = run_chunk(*a)
+        seen.append([out[0]])
+        return out
+
+    def state(embs):
+        update(embs)
+        seen[-1] += [model._spkcache.copy(), model._spk_len, model._fifo.copy(), model._fifo_len]
+    with patch.object(model, "run_chunk", chunk), patch.object(model, "_update_state", state):
+        segs = model.diarize(audio)
+    return segs, seen
+
+
+def phase_sortformer(dev, counters, dev_name, power):
+    """Sortformer ``CONFIG_SORTFORMER`` (FastConformer 18 × 512, then a 18 ×
+    192 transformer, 4 speakers), fp32, drawn on the card, on
+    ``SORTFORMER_S`` s (14 s windows, 6 s core): (a) at 2 + 2 layers card vs
+    host CPU chunk by chunk: the predictions, the speaker cache and the FIFO
+    within ``SORTFORMER_TOL`` of max |host|, their lengths equal, segments
+    equal; (b) the full model: ms a chunk, device ms a chunk, idle, peak."""
+    import dataclasses
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.diarization import sortformer as sf_mod
+
+    before = [c.value for c in counters]
+    t_phase = time.perf_counter()
+    audio = two_voices(SORTFORMER_S, seed=23)[:-160]    # 6,000 mel frames: 10 chunks
+    cut = dataclasses.replace(sf_mod.CONFIG_SORTFORMER, encoder_layers=2, tf_layers=2)
+    card = sf_mod.SortformerDiarizer.init_random(cut, 0, device=dev)
+    host = sf_mod.SortformerDiarizer(cut, tree_to(card.params, "cpu"), device="cpu")
+    t0 = time.perf_counter()
+    host_segs, host_seen = sortformer_chunks(host, audio)
+    host_s = time.perf_counter() - t0
+    card_segs, card_seen = sortformer_chunks(card, audio)
+    worst = 0.0
+    for got, want in zip(card_seen, host_seen):
+        for i in (0, 1, 3):
+            scale = max(np.abs(want[i]).max(), 1e-30)
+            worst = max(worst, np.abs(got[i] - want[i]).max() / scale)
+        if (got[2], got[4]) != (want[2], want[4]):
+            raise AssertionError(f"sortformer: cache/FIFO lengths {got[2::2]} vs {want[2::2]}")
+    same = [(s.start, s.end, s.speaker) for s in card_segs] == \
+        [(s.start, s.end, s.speaker) for s in host_segs]
+    log(f"sortformer (a) CONFIG_SORTFORMER widths at 2 + 2 layers, fp32, {SORTFORMER_S} s: "
+        f"{len(card_seen)} chunks; predictions, cache and FIFO card vs host at most {worst:.3e} "
+        f"of max |host| (tol {SORTFORMER_TOL:g}); cache {host_seen[-1][2]} rows, FIFO "
+        f"{host_seen[-1][4]}; {len(card_segs)} / {len(host_segs)} segments, equal {same}; host "
+        f"{host_s:.1f} s")
+    chunks = -(-(1 + len(audio) // cut.hop_length) // cut.core_mel)
+    if not (worst <= SORTFORMER_TOL and same and len(card_seen) == chunks):
+        raise AssertionError(f"sortformer card vs host: {worst}, segments {same}")
+    del card, host
+
+    t0 = time.perf_counter()
+    model = sf_mod.SortformerDiarizer.init_random(sf_mod.CONFIG_SORTFORMER, 0, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    model.diarize(audio[: 8 * SR])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    segs = model.diarize(audio)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms, busy, prof_wall, idle = device_split(
+        sf_mod, {"fastconformer_encode": "encoder", "_tf_block": "transformer"},
+        lambda: model.diarize(audio), "sortformer.")
+    log(f"sortformer (b) CONFIG_SORTFORMER (drawn in {draw_s:.1f} s), {SORTFORMER_S} s: "
+        f"{wall:.3f} s = {1e3 * wall / chunks:.1f} ms a chunk, {len(segs)} segments; peak memory "
+        f"{peak:.2f} GiB; under the profiler: wall {prof_wall:.3f} s, device busy {busy:.2f} ms "
+        f"= {busy / chunks:.2f} ms a chunk (encoder {ms.get('encoder', 0.0):.2f}, transformer "
+        f"{ms.get('transformer', 0.0):.2f}), idle {idle:.1f} %; on {dev_name} ({power})")
+    if not all(s.end > s.start for s in segs):
+        raise AssertionError(f"sortformer segments {segs[:3]}")
+    del model
+    check_counters_still("sortformer", counters, before)
+    log(f"sortformer: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def stream_chunks(model, audio):
+    """A session fed ``audio`` in pushes of one chunk, then finalized, with
+    each chunk's encoder frames recorded: (results, [frames], [push s])."""
+    from qwen3_asr_swift_tpu_torch.models.parakeet_streaming import model as ps_mod
+
+    frames, encode = [], ps_mod.encode_chunk
+
+    def record(*a):
+        out = encode(*a)
+        frames.append(out[0].float().cpu().numpy())
+        return out
+    spc = model.cfg.samples_per_chunk
+    session, out, walls = model.new_session(), [], []
+    with patch.object(ps_mod, "encode_chunk", record):
+        for at in range(0, len(audio), spc):
+            t0 = time.perf_counter()
+            out += session.push_audio(audio[at: at + spc])
+            walls.append(time.perf_counter() - t0)
+        out += session.finalize()
+    return out, frames, walls, session
+
+
+def phase_parakeet_stream(dev, counters, dev_name, power):
+    """Streaming Parakeet EOU ``CONFIG_EOU_120M`` (17 × 512) and Nemotron
+    ``CONFIG_NEMOTRON_06B`` (24 × 1024), fp32, drawn on the card: (a) each at
+    2 layers, card vs host CPU over ``STREAM_CHECK_S`` s chunk by chunk:
+    each chunk's encoder frames within ``STREAM_TOL`` of max |host|, the
+    results and tokens equal; (b) each at full depth over ``STREAM_S`` s in
+    320 ms pushes: p50/p95 of a push's wall against its 320 ms, device ms a
+    chunk, idle, peak memory."""
+    import dataclasses
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.parakeet_streaming import (
+        CONFIG_EOU_120M, CONFIG_NEMOTRON_06B, NemotronStreamingASR, ParakeetStreamingASR)
+    from qwen3_asr_swift_tpu_torch.models.parakeet_streaming import model as ps_mod
+
+    before = [c.value for c in counters]
+    t_phase = time.perf_counter()
+    audio = two_voices(STREAM_S, seed=24)
+    for name, cls, cfg in (("EOU 120M", ParakeetStreamingASR, CONFIG_EOU_120M),
+                           ("Nemotron 0.6B", NemotronStreamingASR, CONFIG_NEMOTRON_06B)):
+        cut = dataclasses.replace(cfg, encoder_layers=2)
+        card = cls.init_random(cut, 0, device=dev)
+        host = cls(cut, tree_to(card.encoder_params, "cpu"), tree_to(card.decoder_params, "cpu"),
+                   device="cpu")
+        check = audio[: STREAM_CHECK_S * SR]
+        t0 = time.perf_counter()
+        want, want_frames, _, want_s = stream_chunks(host, check)
+        host_s = time.perf_counter() - t0
+        got, got_frames, _, got_s = stream_chunks(card, check)
+        err = max(np.abs(g - w).max() / np.abs(w).max() for g, w in zip(got_frames, want_frames))
+        same = [(r.text, r.is_final, r.segment_index) for r in got] == \
+            [(r.text, r.is_final, r.segment_index) for r in want]
+        log(f"parakeet_stream (a) {name} widths at 2 layers, fp32, {STREAM_CHECK_S} s: "
+            f"{len(got_frames)} chunks; encoder frames card vs host at most {err:.3e} of max "
+            f"|host| (tol {STREAM_TOL:g}); {len(got_s._tokens)} / {len(want_s._tokens)} tokens, "
+            f"equal {got_s._tokens == want_s._tokens}; {len(got)} results, equal {same}; host "
+            f"{host_s:.1f} s")
+        if not (err <= STREAM_TOL and same and got_s._tokens == want_s._tokens):
+            raise AssertionError(f"parakeet_stream {name} card vs host: {err}, {same}")
+        del card, host
+
+        t0 = time.perf_counter()
+        model = cls.init_random(cfg, 0, device=dev)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        stream_chunks(model, audio[: 2 * SR])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, _, walls, session = stream_chunks(model, audio)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        chunk_ms = 1e3 * cfg.samples_per_chunk / SR
+        p50, p95 = (1e3 * np.percentile(walls, q) for q in (50, 95))
+        split = audio[: 8 * cfg.samples_per_chunk]
+        ms, busy, prof_wall, idle = device_split(
+            ps_mod, {"encode_chunk": "encoder", "rnnt_chunk_decode": "decode"},
+            lambda: stream_chunks(model, split), f"stream.{cfg.encoder_layers}.")
+        log(f"parakeet_stream (b) {name} ({cfg.encoder_layers} x {cfg.encoder_hidden}, drawn in "
+            f"{draw_s:.1f} s), {STREAM_S} s in {len(walls)} pushes of {chunk_ms:.0f} ms: a push "
+            f"p50 {p50:.2f} ms, p95 {p95:.2f} ms (RTF {p50 / chunk_ms:.3f} at p50); "
+            f"{len(session._tokens)} tokens, {len(res)} results; peak memory {peak:.3f} GiB; 8 "
+            f"chunks under the profiler: device busy {busy / 8:.3f} ms a chunk (encoder "
+            f"{ms.get('encoder', 0.0) / 8:.3f}, decode {ms.get('decode', 0.0) / 8:.3f}), idle "
+            f"{idle:.1f} %; on {dev_name} ({power})")
+        if not (len(walls) == -(-len(audio) // cfg.samples_per_chunk) and session._tokens):
+            raise AssertionError(f"parakeet_stream {name}: {len(walls)} pushes")
+        del model
+    check_counters_still("parakeet_stream", counters, before)
+    log(f"parakeet_stream: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_omnilingual(dev, counters, dev_name, power):
+    """Omnilingual CTC ``CONFIG_300M`` (wav2vec2 24 × 1024, vocab 10,288) and
+    ``CONFIG_1B``'s widths (1280, 20 heads, ffn 5120): (a) each at 2 layers,
+    fp32, drawn on the card, card vs host CPU on ``OMNI_CHECK_S`` s:
+    log-probs within ``OMNI_TOL`` of max |host|, CTC ids equal; (b) the 300M
+    drawn in fp32 on the card and run in bf16 (its default) on ``OMNI_S`` s:
+    RTF, device ms, idle, peak memory; the bf16 log-probs' distance from
+    the fp32 run's on the card."""
+    import dataclasses
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.omnilingual import CONFIG_1B, CONFIG_300M
+    from qwen3_asr_swift_tpu_torch.models.omnilingual import model as om_mod
+
+    before = [c.value for c in counters]
+    t_phase = time.perf_counter()
+    audio = two_voices(OMNI_S, seed=25)
+    check = audio[: OMNI_CHECK_S * SR]
+    for name, cfg in (("CONFIG_300M", CONFIG_300M), ("CONFIG_1B", CONFIG_1B)):
+        cut = dataclasses.replace(cfg, num_layers=2)
+        card = om_mod.OmnilingualASR.init_random(cut, 0, device=dev)
+        host = om_mod.OmnilingualASR(cut, tree_to(card.params, "cpu"), dtype=torch.float32,
+                                     device="cpu")
+        t0 = time.perf_counter()
+        want, nf = host.log_probs(check)
+        host_s = time.perf_counter() - t0
+        got, _ = card.log_probs(check)
+        got = got.cpu()
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        ids = [om_mod.ctc_greedy_collapse(x[:nf].argmax(-1).numpy(), cut.blank_id)
+               for x in (got, want)]
+        log(f"omnilingual (a) {name} widths at 2 of {cfg.num_layers} layers, fp32, "
+            f"{OMNI_CHECK_S} s ({nf} frames): log-probs card vs host {err:.3e} of max |host| "
+            f"(tol {OMNI_TOL:g}); {len(ids[0])} ids, equal {ids[0] == ids[1]}; host {host_s:.1f} s")
+        if not (err <= OMNI_TOL and ids[0] == ids[1]):
+            raise AssertionError(f"omnilingual {name} card vs host: {err}")
+        del card, host
+
+    t0 = time.perf_counter()
+    fp32 = om_mod.OmnilingualASR.init_random(CONFIG_300M, 0, device=dev)
+    model = om_mod.OmnilingualASR(CONFIG_300M, fp32.params, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    log(f"omnilingual weights: CONFIG_300M drawn on the card in {time.perf_counter() - t0:.1f} s")
+    model.transcribe(audio[:SR])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    res = model.transcribe(audio)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lp16, nf = model.log_probs(audio)
+    lp32, _ = fp32.log_probs(audio)
+    dist = ((lp16[:nf] - lp32[:nf]).abs().max() / lp32[:nf].abs().max()).item()
+    agree = (lp16[:nf].argmax(-1) == lp32[:nf].argmax(-1)).float().mean().item()
+    ms, busy, prof_wall, idle = device_split(om_mod, {"conv1d": "convs", "sdpa": "attention"},
+                                             lambda: model.transcribe(audio), "omni.")
+    log(f"omnilingual (b) CONFIG_300M bf16, {OMNI_S} s ({nf} frames): {wall:.3f} s, RTF "
+        f"{wall / OMNI_S:.4f}, {len(res.text.split())} ids; bf16 log-probs vs the fp32 run on the "
+        f"card {dist:.3e} of max |fp32|, frame argmaxes agreeing {100 * agree:.1f} %; peak "
+        f"memory {peak:.2f} GiB ({resident:.2f} resident); under the profiler: wall "
+        f"{prof_wall:.3f} s, device busy {busy:.2f} ms (convs {ms.get('convs', 0.0):.2f}, "
+        f"attention {ms.get('attention', 0.0):.2f}, other {ms.get('other', 0.0):.2f}), idle "
+        f"{idle:.1f} %; on {dev_name} ({power})")
+    if not (np.isfinite(lp16.float().cpu().numpy()).all() and res.text):
+        raise AssertionError("omnilingual: non-finite log-probs or no ids")
+    del model, fp32
+    check_counters_still("omnilingual", counters, before)
+    log(f"omnilingual: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_cli(dev_name):
     """``python -m qwen3_asr_swift_tpu_torch.cli`` on the card (its default
     device) with ``--random-weights``: transcribe, transcribe-batch, align,
     vad (each engine: silero, pyannote, firered), vad-stream, diarize,
     embed-speaker (WeSpeaker and CAM++), speak, denoise, separate,
-    translate, respond, vibevoice, kokoro and voxcpm2, one process each, all
-    started together; each must exit 0 and print the reference's JSON keys
-    (vad-stream: its event lines), and ``diarize --engine sortformer`` must
-    exit non-zero naming the roadmap. Prints each subcommand's wall."""
+    translate, respond, vibevoice, kokoro, voxcpm2, wake and ``diarize
+    --engine sortformer``, one process each, all started together; each
+    must exit 0 and print the reference's JSON keys (vad-stream: its event
+    lines; vad, diarize and wake may print an empty list). Prints each
+    subcommand's wall."""
     import tempfile
 
     from qwen3_asr_swift_tpu_torch.audio.io import write_wav
@@ -4766,7 +5277,8 @@ def phase_cli(dev_name):
             "speak": {"output", "seconds"}, "denoise": {"output"},
             "separate": {"vocals", "drums", "bass", "other"}, "translate": {"note", "ids"},
             "respond": {"output", "seconds"}, "vibevoice": {"output", "seconds"},
-            "kokoro": {"output", "seconds", "voices"}, "voxcpm2": {"output", "seconds"}}
+            "kokoro": {"output", "seconds", "voices"}, "voxcpm2": {"output", "seconds"},
+            "wake": {"keyword", "time", "score"}}
     with tempfile.TemporaryDirectory() as d:
         rng = np.random.default_rng(4)
         t = np.arange(3 * 16000) / 16000
@@ -4789,7 +5301,8 @@ def phase_cli(dev_name):
                 "respond": ["respond", clip, "--output", os.path.join(d, "response.wav")],
                 "vibevoice": ["vibevoice", "hello", "--output", os.path.join(d, "vibevoice.wav")],
                 "kokoro": ["kokoro", "hello", "--output", os.path.join(d, "kokoro.wav")],
-                "voxcpm2": ["voxcpm2", "hello", "--output", os.path.join(d, "voxcpm2.wav")]}
+                "voxcpm2": ["voxcpm2", "hello", "--output", os.path.join(d, "voxcpm2.wav")],
+                "wake": ["wake", clip]}
         t0 = time.perf_counter()
         procs, walls = {}, {}
         for name, args in runs.items():
@@ -4810,11 +5323,6 @@ def phase_cli(dev_name):
         wall = time.perf_counter() - t0
         for name, p in procs.items():
             out, err = outs[name]
-            if name == "diarize sortformer":
-                if p.returncode == 0 or "ROADMAP" not in err:
-                    raise AssertionError(f"cli {name}: exit {p.returncode}: {err[-500:]}")
-                log(f"cli {name}: exit {p.returncode}, {err.strip().splitlines()[-1][:160]!r}")
-                continue
             if p.returncode != 0:
                 raise AssertionError(f"cli {name}: exit {p.returncode}: {err[-2000:]}")
             # the CLI prints its own wall on stderr as "[N.Ns]"
@@ -4829,7 +5337,7 @@ def phase_cli(dev_name):
             items = obj if isinstance(obj, list) else [obj]
             want = keys[name.split()[0]]
             if any(set(i) != want for i in items) or (
-                    name.split()[0] not in ("vad", "diarize") and not items):
+                    name.split()[0] not in ("vad", "diarize", "wake") and not items):
                 raise AssertionError(f"cli {name}: keys {[sorted(i) for i in items]}")
             log(f"cli {name}: exit 0, keys {sorted(want)}, {own} in the process, "
                 f"{walls[name]:.1f} s to its exit: {out.strip()[:120]!r}")
@@ -4944,6 +5452,16 @@ def main() -> int:
     mark("separate")
     phase_translate(dev, counters, dev_name, power)
     mark("translate")
+    phase_wake(dev, counters, dev_name, power)
+    mark("wake")
+    phase_parakeet(dev, counters, dev_name, power)
+    mark("parakeet")
+    phase_sortformer(dev, counters, dev_name, power)
+    mark("sortformer")
+    phase_parakeet_stream(dev, counters, dev_name, power)
+    mark("parakeet_stream")
+    phase_omnilingual(dev, counters, dev_name, power)
+    mark("omnilingual")
     phase_cli(dev_name)
     mark("cli")
     if "jax" in sys.modules:

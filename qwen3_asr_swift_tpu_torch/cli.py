@@ -7,8 +7,8 @@ Silero + WeSpeaker pipeline), ``embed-speaker`` (WeSpeaker or CAM++),
 ``denoise`` (DeepFilterNet3), ``separate`` (Open-Unmix), ``translate``
 (MADLAD-400), ``chat`` (Qwen3.5), ``vibevoice`` and
 ``vibevoice-encode-voice`` (VibeVoice), ``kokoro`` (Kokoro-82M),
-``voxcpm2`` (VoxCPM2) and ``serve``. ``wake`` is not in the parser yet,
-and ``diarize --engine sortformer`` raises (ROADMAP §1).
+``voxcpm2`` (VoxCPM2), ``wake`` (the Zipformer keyword spotter) and
+``serve``; ``diarize --engine sortformer`` runs the Sortformer diarizer.
 
 Every model runs on ``--device`` (default ``cuda``, the first card; a
 request for a card on a machine without one raises); nothing picks the CPU
@@ -140,20 +140,23 @@ def cmd_vad(args):
 def cmd_diarize(args):
     audio, _ = _load_audio(args.audio)
     if getattr(args, "engine", "pipeline") == "sortformer":
-        raise NotImplementedError(
-            "the Sortformer diarizer is not ported yet (ROADMAP §1 item 5, with Parakeet's "
-            "encoder); use --engine pipeline")
-    from .models.diarization import DiarizationPipeline
-    from .models.silero_vad import SileroVAD
-    from .models.speaker import WeSpeaker
+        from .models.diarization import SortformerDiarizer
 
-    if args.random_weights:
-        pipe = DiarizationPipeline(SileroVAD.init_random(device=args.device),
-                                   WeSpeaker.init_random(device=args.device))
+        model = (SortformerDiarizer.init_random(device=args.device) if args.random_weights
+                 else SortformerDiarizer.from_pretrained(device=args.device))
+        segs = model.diarize(audio)
     else:
-        pipe = DiarizationPipeline(SileroVAD.from_pretrained(device=args.device),
-                                   WeSpeaker.from_pretrained(device=args.device))
-    segs = pipe.diarize(audio, num_speakers=args.num_speakers)
+        from .models.diarization import DiarizationPipeline
+        from .models.silero_vad import SileroVAD
+        from .models.speaker import WeSpeaker
+
+        if args.random_weights:
+            pipe = DiarizationPipeline(SileroVAD.init_random(device=args.device),
+                                       WeSpeaker.init_random(device=args.device))
+        else:
+            pipe = DiarizationPipeline(SileroVAD.from_pretrained(device=args.device),
+                                       WeSpeaker.from_pretrained(device=args.device))
+        segs = pipe.diarize(audio, num_speakers=args.num_speakers)
     _print([{"start": round(s.start, 2), "end": round(s.end, 2), "speaker": int(s.speaker)}
             for s in segs])
 
@@ -238,6 +241,20 @@ def cmd_separate(args):
         write_wav(path, wav.mean(axis=0), 44100)
         outs[stem] = path
     _print(outs)
+
+
+def cmd_wake(args):
+    from .models.wakeword import Keyword, WakeWordDetector
+
+    # deterministic char->token mapping (the real inventory comes from the
+    # model's BPE — these synthetic ids only serve --random-weights runs)
+    keywords = [Keyword(k, [(ord(c) * 31) % 400 + 4 for c in k], threshold=args.threshold)
+                for k in args.keywords]
+    model = (WakeWordDetector.init_random(keywords, device=args.device) if args.random_weights
+             else WakeWordDetector.from_pretrained(keywords=keywords, device=args.device))
+    audio, _ = _load_audio(args.audio)
+    _print([{"keyword": k, "time": round(t, 2), "score": round(s, 3)}
+            for k, t, s in model.detect(audio)])
 
 
 def cmd_translate(args):
@@ -450,6 +467,12 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--model", default="open-unmix/umxhq")
     sp.add_argument("--stems", nargs="*", default=None)
     sp.add_argument("--output-prefix", default="stem")
+    sp = sub.add_parser("wake")
+    sp.set_defaults(fn=cmd_wake)
+    sp.add_argument("audio")
+    sp.add_argument("--random-weights", action="store_true")
+    sp.add_argument("--keywords", nargs="+", default=["hey assistant"])
+    sp.add_argument("--threshold", type=float, default=0.25)
     add("translate", cmd_translate, text={}, **{
         "--model": dict(default="google/madlad400-3b-mt"), "--target": dict(default="en")})
     add("chat", cmd_chat, message={}, **{"--model": dict(default="Qwen/Qwen3.5-0.8B")})

@@ -6,8 +6,8 @@
 ``ml_dtypes``: numpy has no bfloat16, so a bf16 tensor is read through
 safetensors' torch reader and handed back as float32 (bf16 is a subset of
 fp32, so the values are the same). ``dequantize_mlx`` and ``quantize_mlx``
-are copies, and so are ``unflatten``, ``flatten`` and ``fuse_weight_norm``
-(the CosyVoice converter's weight-norm fusion).
+are copies, and so are ``unflatten``, ``relist``, ``flatten`` and
+``fuse_weight_norm`` (the CosyVoice converter's weight-norm fusion).
 """
 
 from __future__ import annotations
@@ -134,6 +134,21 @@ def unflatten(flat: Dict[str, np.ndarray], sep: str = ".") -> dict:
         for part in parts[:-1]:
             node = node.setdefault(part, {})
         node[parts[-1]] = value
+    return tree
+
+
+def relist(tree):
+    """Recursively turn dicts whose keys are all digit strings ("0","1",…)
+    back into lists — the inverse of flattening a tree that contains
+    lists of layer params."""
+    if isinstance(tree, dict):
+        if tree and all(isinstance(k, str) and k.isdigit() for k in tree):
+            # only a dense 0..n-1 index set is a flattened list; a gapped or
+            # offset set (e.g. "0","1","3") stays a dict rather than KeyError
+            indices = sorted(int(k) for k in tree)
+            if indices == list(range(len(tree))):
+                return [relist(tree[str(i)]) for i in indices]
+        return {k: relist(v) for k, v in tree.items()}
     return tree
 
 

@@ -1,9 +1,13 @@
-"""Speaker diarization pipeline + DER scoring. ``SortformerDiarizer``
-comes with Parakeet's encoder (ROADMAP §1 item 5)."""
+"""Speaker diarization pipeline + DER scoring."""
 
 from .pipeline import (  # noqa: F401
     DiarizationConfig,
     DiarizationPipeline,
     agglomerative_cluster,
     diarization_error_rate,
+)
+from .sortformer import (  # noqa: F401
+    CONFIG_SORTFORMER,
+    SortformerConfig,
+    SortformerDiarizer,
 )

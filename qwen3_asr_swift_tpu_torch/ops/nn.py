@@ -305,6 +305,35 @@ def conv2d_nchw(x: torch.Tensor, p, stride=(2, 2), padding=(1, 1)) -> torch.Tens
     return y
 
 
+def depthwise_conv2d(x: torch.Tensor, p, stride=(1, 1), padding=((0, 0), (0, 0))) -> torch.Tensor:
+    """NHWC depthwise conv (the reference's ``feature_group_count`` equal to
+    the channels), p: {"kernel": [kh, kw, 1, C] (HWIO), optional "bias":
+    [C]}; ``padding`` ((top, bottom), (left, right)); fp32 bias. fp32 and
+    float64 are a sum over the kh·kw taps of one shifted elementwise
+    product each into one buffer: exact products with no matmul and no
+    cuDNN (whose fp32 convs default to TF32). bf16 and fp16 go to
+    ``F.conv2d(groups=C)``."""
+    k = p["kernel"].to(x.dtype)
+    kh, kw, _, c = k.shape
+    sh, sw = stride
+    (pt, pb), (pl, pr) = padding
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb))
+    if x.dtype in (torch.bfloat16, torch.float16):
+        y = F.conv2d(xp.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), stride=stride,
+                     groups=c).permute(0, 2, 3, 1)
+    else:
+        b, hp, wp, _ = xp.shape
+        ho, wo = (hp - kh) // sh + 1, (wp - kw) // sw + 1
+        y = x.new_zeros((b, ho, wo, c))
+        for i in range(kh):
+            for j in range(kw):
+                y.addcmul_(xp[:, i:i + sh * (ho - 1) + 1:sh, j:j + sw * (wo - 1) + 1:sw],
+                           k[i, j, 0])
+    if "bias" in p:
+        y = upcast(y) + upcast(p["bias"])
+    return y.to(x.dtype)
+
+
 def conv2d(x: torch.Tensor, p, stride=(1, 1), padding=((1, 1), (1, 1))) -> torch.Tensor:
     """NHWC conv, p: {"kernel": HWIO, optional "bias": [O]} — the
     reference's public layout. Symmetric padding only."""

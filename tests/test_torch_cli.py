@@ -1,7 +1,8 @@
 """The port's CLI (``python -m qwen3_asr_swift_tpu_torch.cli``), ``respond``,
 ``denoise``, ``chat``, ``vibevoice``, ``vibevoice-encode-voice``, ``kokoro``,
 ``voxcpm2``, the three ``vad`` engines, ``diarize``, ``embed-speaker``,
-``separate`` and ``translate`` included.
+``separate``, ``translate``, ``wake`` and ``diarize --engine sortformer``
+included.
 
 Each ported subcommand runs through ``main([..., "--device", "cpu",
 "--random-weights"])``, prints the reference's JSON keys, and its result
@@ -30,7 +31,7 @@ REPO = Path(__file__).resolve().parent.parent
 PORTED = ["transcribe", "transcribe-batch", "align", "speak", "qwen3-tts", "qwen3-tts-coreml",
           "respond", "vad", "vad-stream", "diarize", "embed-speaker", "denoise", "separate",
           "translate", "chat", "vibevoice", "vibevoice-encode-voice", "kokoro", "voxcpm2",
-          "serve"]
+          "wake", "serve"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -265,8 +266,7 @@ def test_vad_other_engines_are_not_ported(capsys, clips, engine):
 
 def test_diarize(capsys, clips):
     """The pipeline engine over the random Silero and WeSpeaker: the
-    reference's keys and rounding, equal to a direct ``diarize``; the
-    Sortformer engine raises naming the roadmap."""
+    reference's keys and rounding, equal to a direct ``diarize``."""
     from qwen3_asr_swift_tpu_torch.models.diarization import DiarizationPipeline
     from qwen3_asr_swift_tpu_torch.models.silero_vad import SileroVAD
     from qwen3_asr_swift_tpu_torch.models.speaker import WeSpeaker
@@ -277,8 +277,35 @@ def test_diarize(capsys, clips):
     want = pipe.diarize(load_audio(clips[1], 16000)[0], num_speakers=1)
     assert out == [{"start": round(s.start, 2), "end": round(s.end, 2), "speaker": int(s.speaker)}
                    for s in want]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(capsys, "diarize", clips[1], "--random-weights", "--engine", "sortformer")
+
+
+def test_diarize_sortformer(capsys, clips):
+    """``--engine sortformer``, which raised until Sortformer was ported: the
+    random ``config_tiny()`` diarizer's segments with the reference's keys
+    and rounding, equal to a direct ``diarize``."""
+    from qwen3_asr_swift_tpu_torch.models.diarization import SortformerDiarizer
+
+    out = json.loads(run(capsys, "diarize", clips[1], "--random-weights", "--engine",
+                         "sortformer"))
+    want = SortformerDiarizer.init_random(device="cpu").diarize(load_audio(clips[1], 16000)[0])
+    assert out and out == [{"start": round(s.start, 2), "end": round(s.end, 2),
+                            "speaker": int(s.speaker)} for s in want]
+
+
+def test_wake(capsys, clips):
+    """``wake`` with the reference's synthetic keyword ids: the reference's
+    keys and rounding, equal to a direct ``detect`` on the same random
+    detector (an empty list is what random weights give)."""
+    from qwen3_asr_swift_tpu_torch.models.wakeword import Keyword, WakeWordDetector
+
+    out = json.loads(run(capsys, "wake", clips[1], "--random-weights", "--keywords", "hey there",
+                         "stop", "--threshold", "0.1"))
+    keywords = [Keyword(k, [(ord(c) * 31) % 400 + 4 for c in k], threshold=0.1)
+                for k in ("hey there", "stop")]
+    model = WakeWordDetector.init_random(keywords, device="cpu")
+    assert model.keywords[0].token_ids[:3] == [(ord(c) * 31) % 400 + 4 for c in "hey"]
+    assert out == [{"keyword": k, "time": round(t, 2), "score": round(s, 3)}
+                   for k, t, s in model.detect(load_audio(clips[1], 16000)[0])]
 
 
 @pytest.mark.parametrize("model", ["wespeaker-resnet34", "campplus"])

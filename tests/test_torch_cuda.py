@@ -585,6 +585,34 @@ def test_fp32_conv2d_is_full_precision_with_cudnn_defaults(card, cin, h, w):
     assert rel(got.cpu(), want) <= TOL
 
 
+@pytest.mark.parametrize("shape,k,stride,padding", [
+    ((1, 1601, 64, 256), 3, (2, 2), ((1, 1), (1, 1))),    # FastConformer's sub_dw2 (16 s)
+    ((1, 801, 32, 256), 3, (2, 2), ((1, 1), (1, 1))),     # and sub_dw3
+    ((1, 25, 19, 128), 7, (1, 1), ((0, 0), (3, 3)))])     # the Zipformer's ConvNeXt
+def test_fp32_depthwise_conv2d_is_full_precision_with_cudnn_defaults(card, shape, k, stride,
+                                                                      padding):
+    """fp32 ``depthwise_conv2d`` at the FastConformer's and the Zipformer's
+    published shapes within 1e-5 of max |host| with cuDNN's TF32 flag at its
+    default (True): its fp32 path is a sum of tap products, never cuDNN."""
+    from qwen3_asr_swift_tpu_torch.ops.nn import depthwise_conv2d
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True   # the default; the fixture turns it off
+    try:
+        g = torch.Generator().manual_seed(shape[1])
+        x = torch.randn(shape, generator=g)
+        p = {"kernel": torch.randn((k, k, 1, shape[-1]), generator=g) / k,
+             "bias": torch.randn((shape[-1],), generator=g) * 0.1}
+        want = depthwise_conv2d(x, p, stride=stride, padding=padding)
+        got = depthwise_conv2d(x.to(card), {n: v.to(card) for n, v in p.items()}, stride=stride,
+                               padding=padding)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert rel(got.cpu(), want) <= TOL
+
+
 @pytest.mark.parametrize("bits", [2, 4, 8])
 def test_quantize_tree_on_the_card_is_the_numpy_packing(card, bits):
     """``quantize_tree`` on the card packs as ``quantize_tree_np`` does on
@@ -734,3 +762,45 @@ def test_tiny_separation_and_translation_on_card_match_host(card):
     for g, w in zip(logits["card"], logits["host"]):
         assert rel(g, w) <= 1e-4
     assert dev.translate_ids(ids, max_new=12) == host.translate_ids(ids, max_new=12)
+
+
+def test_tiny_asr_engines_wake_word_and_sortformer_on_card_match_host(card):
+    """The last families at their tiny configs (the Zipformer at its own
+    3.19M), fp32, card vs host: the wake word's frames within 1e-4 and its
+    session's frames within 1e-5 of its batch on the card; Parakeet TDT's
+    and Omnilingual's tokens and streaming Parakeet's results equal;
+    Sortformer's segments equal."""
+    from qwen3_asr_swift_tpu_torch.models.diarization import SortformerDiarizer
+    from qwen3_asr_swift_tpu_torch.models.omnilingual import OmnilingualASR
+    from qwen3_asr_swift_tpu_torch.models.parakeet import ParakeetASR, config_tiny
+    from qwen3_asr_swift_tpu_torch.models.parakeet_streaming import ParakeetStreamingASR
+    from qwen3_asr_swift_tpu_torch.models.wakeword import (Keyword, WakeWordDetector,
+                                                           WakeWordSession)
+
+    audio = _voices(16000 * 3, 5)
+    host = WakeWordDetector.init_random([Keyword("hi", [5, 6])], seed=1, device="cpu")
+    dev = WakeWordDetector(_tree_to(host.params, "cpu"), host.keywords, device=card)
+    want, got = host._batch_encoder_frames(audio), dev._batch_encoder_frames(audio)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    session = WakeWordSession(dev, collect_encoder=True)
+    session.push(audio[:7000])
+    session.push(audio[7000:])
+    session.finalize()
+    assert np.abs(np.concatenate(session.encoder_frames) - got).max() <= 1e-5 * np.abs(got).max()
+    host = ParakeetASR.init_random(config_tiny(), seed=2, dtype=torch.float32, device="cpu")
+    dev = ParakeetASR(host.cfg, _tree_to(host.encoder_params, "cpu"),
+                      _tree_to(host.decoder_params, "cpu"), dtype=torch.float32, device=card)
+    clips = [audio, audio[:20000]]
+    assert [r.text for r in dev.transcribe_batch(clips)] == \
+        [r.text for r in host.transcribe_batch(clips)]
+    host = ParakeetStreamingASR.init_random(seed=3, device="cpu")
+    dev = ParakeetStreamingASR(host.cfg, _tree_to(host.encoder_params, "cpu"),
+                               _tree_to(host.decoder_params, "cpu"), device=card)
+    assert dev.transcribe(audio).text == host.transcribe(audio).text
+    host = OmnilingualASR.init_random(seed=4, device="cpu")
+    dev = OmnilingualASR(host.cfg, _tree_to(host.params, "cpu"), dtype=torch.float32, device=card)
+    assert dev.transcribe(audio).text == host.transcribe(audio).text
+    host = SortformerDiarizer.init_random(seed=5, device="cpu")
+    dev = SortformerDiarizer(host.cfg, _tree_to(host.params, "cpu"), device=card)
+    assert [(s.start, s.end, s.speaker) for s in dev.diarize(audio)] == \
+        [(s.start, s.end, s.speaker) for s in host.diarize(audio)]

@@ -73,6 +73,15 @@ from qwen3_asr_swift_tpu.models.firered_vad import model as j_firered
 from qwen3_asr_swift_tpu.models.speaker import campplus as j_campplus
 from qwen3_asr_swift_tpu.models.separation import model as j_separation
 from qwen3_asr_swift_tpu.models.translation import model as j_translation
+from qwen3_asr_swift_tpu.models.diarization import sortformer as j_sortformer
+from qwen3_asr_swift_tpu.models.omnilingual import model as j_omni
+from qwen3_asr_swift_tpu.models.parakeet import encoder as j_pk_enc
+from qwen3_asr_swift_tpu.models.parakeet import mel as j_pk_mel
+from qwen3_asr_swift_tpu.models.parakeet import model as j_pk
+from qwen3_asr_swift_tpu.models.parakeet_streaming import encoder as j_pks_enc
+from qwen3_asr_swift_tpu.models.parakeet_streaming import model as j_pks
+from qwen3_asr_swift_tpu.models.wakeword import model as j_wake
+from qwen3_asr_swift_tpu.models.wakeword import zipformer as j_zip
 from qwen3_asr_swift_tpu_torch.audio import companding as p_comp
 from qwen3_asr_swift_tpu_torch.audio import io as p_io
 from qwen3_asr_swift_tpu_torch.core import config as p_config
@@ -126,6 +135,15 @@ from qwen3_asr_swift_tpu_torch.models.firered_vad import model as p_firered
 from qwen3_asr_swift_tpu_torch.models.speaker import campplus as p_campplus
 from qwen3_asr_swift_tpu_torch.models.separation import model as p_separation
 from qwen3_asr_swift_tpu_torch.models.translation import model as p_translation
+from qwen3_asr_swift_tpu_torch.models.diarization import sortformer as p_sortformer
+from qwen3_asr_swift_tpu_torch.models.omnilingual import model as p_omni
+from qwen3_asr_swift_tpu_torch.models.parakeet import encoder as p_pk_enc
+from qwen3_asr_swift_tpu_torch.models.parakeet import mel as p_pk_mel
+from qwen3_asr_swift_tpu_torch.models.parakeet import model as p_pk
+from qwen3_asr_swift_tpu_torch.models.parakeet_streaming import encoder as p_pks_enc
+from qwen3_asr_swift_tpu_torch.models.parakeet_streaming import model as p_pks
+from qwen3_asr_swift_tpu_torch.models.wakeword import model as p_wake
+from qwen3_asr_swift_tpu_torch.models.wakeword import zipformer as p_zip
 
 # the audio packages export the function ``resample`` over the module's name
 j_resample = importlib.import_module("qwen3_asr_swift_tpu.audio.resample")
@@ -302,7 +320,7 @@ def test_bpe_tokenizer_matches(text):
     (p_engine, j_engine, ["_CEvent", "_CCallbacks", "_CConfig", "PipelineState",
                           "PipelineEventType", "PipelineEvent", "PipelineConfig", "tool_call"]),
     (p_chunker, j_chunker, ["chunk_text", "_joiner", "_flush"]),
-    (p_weights, j_weights, ["unflatten", "fuse_weight_norm", "flatten"]),
+    (p_weights, j_weights, ["unflatten", "relist", "fuse_weight_norm", "flatten"]),
     (p_cosy_convert, j_cosy_convert, ["_strip_prefixes", "_Keys", "convert_llm", "convert_flow",
                                       "convert_hift", "convert_checkpoint", "load_or_convert",
                                       "_tree_from_flat", "save_converted"]),
@@ -329,6 +347,14 @@ def test_bpe_tokenizer_matches(text):
                               "_htk_mel_banks", "prepare_frames"]),
     (p_separation, j_separation, ["_dft", "signal_to_distortion_ratio"]),
     (p_translation, j_translation, ["T5Config", "config_tiny"]),
+    (p_zip, j_zip, ["ZipformerConfig", "decoder_out", "joiner_logits"]),
+    (p_pk_mel, j_pk_mel, ["nemo_windowed_dft", "nemo_num_frames", "prepare_nemo_audio",
+                          "nemo_log_mel_reference"]),
+    (p_pk_enc, j_pk_enc, ["rel_pos_encoding"]),
+    (p_pks_enc, j_pks_enc, ["_rel_table"]),
+    (p_pks, j_pks, ["StreamingResult"]),
+    (p_sortformer, j_sortformer, ["SortformerConfig", "config_tiny"]),
+    (p_omni, j_omni, ["OmniConfig", "config_tiny", "conv_output_length", "ctc_greedy_collapse"]),
 ])
 def test_copied_code_is_the_original(port, ref, names):
     """Whole copies keep their originals' source, so a fix to one shows as
@@ -367,6 +393,19 @@ def test_copied_code_is_the_original(port, ref, names):
     (p_separation.SourceSeparator, j_separation.SourceSeparator, ["warm_up", "is_loaded"]),
     (p_translation.MADLADTranslator, j_translation.MADLADTranslator,
      ["translate", "translate_stream"]),
+    (p_wake.WakeWordDetector, j_wake.WakeWordDetector,
+     ["detect", "new_session", "num_params", "warm_up", "unload", "is_loaded"]),
+    (p_wake.WakeWordSession, j_wake.WakeWordSession, ["push"]),
+    (p_pk.ParakeetASR, j_pk.ParakeetASR,
+     ["_bucket_samples", "transcribe", "warm_up", "unload", "is_loaded"]),
+    (p_sortformer.SortformerDiarizer, j_sortformer.SortformerDiarizer,
+     ["reset_state", "_update_state", "_push_spkcache", "_binarize", "unload", "is_loaded"]),
+    (p_pks.StreamingSession, j_pks.StreamingSession,
+     ["push_audio", "finalize", "force_end_of_utterance", "_confidence"]),
+    (p_pks.ParakeetStreamingASR, j_pks.ParakeetStreamingASR,
+     ["new_session", "decode_tokens", "transcribe", "transcribe_stream", "warm_up", "unload",
+      "is_loaded"]),
+    (p_omni.OmnilingualASR, j_omni.OmnilingualASR, ["warm_up", "unload", "is_loaded"]),
 ])
 def test_copied_methods_are_the_originals(port, ref, names):
     for name in names:
@@ -638,7 +677,15 @@ WHOLE_COPIES = ["audio/ringbuffer.py", "audio/player.py", "ui/__init__.py", "ui/
                 "models/translation/convert.py", "models/diarization/pipeline.py",
                 "models/pyannote/__init__.py", "models/firered_vad/__init__.py",
                 "models/speaker/__init__.py", "models/separation/__init__.py",
-                "models/translation/__init__.py"]
+                "models/translation/__init__.py",
+                "models/wakeword/context_graph.py", "models/wakeword/kws_decoder.py",
+                "models/wakeword/convert.py", "models/parakeet/config.py",
+                "models/parakeet/convert.py", "models/parakeet_streaming/config.py",
+                "models/parakeet_streaming/convert.py", "models/omnilingual/convert.py",
+                "models/diarization/sortformer_convert.py",
+                "models/wakeword/__init__.py", "models/parakeet/__init__.py",
+                "models/parakeet_streaming/__init__.py", "models/omnilingual/__init__.py",
+                "models/diarization/__init__.py"]
 
 
 @pytest.mark.parametrize("path", WHOLE_COPIES)
@@ -699,7 +746,8 @@ def test_models_package_lists_every_family():
 
     families = {"qwen3_asr", "silero_vad", "qwen3_tts", "cosyvoice", "vibevoice", "kokoro",
                 "voxcpm2", "enhancement", "personaplex", "chat", "pyannote", "firered_vad",
-                "speaker", "diarization", "separation", "translation"}
+                "speaker", "diarization", "separation", "translation", "wakeword", "parakeet",
+                "parakeet_streaming", "omnilingual"}
     on_disk = {d.name for d in (REPO / "qwen3_asr_swift_tpu_torch" / "models").iterdir()
                if (d / "__init__.py").exists()}
     assert on_disk == families
@@ -770,16 +818,18 @@ def test_protocols_and_cosine_similarity_match():
 
 def test_new_families_import_nothing_of_the_jax_package():
     """Running the new families and their CLI subcommands (``vad`` with
-    each engine, ``diarize``, ``embed-speaker`` with each model,
-    ``separate``, ``translate``) and ``clone_voice`` imports neither jax nor
-    any module of the JAX package."""
+    each engine, ``diarize`` with each engine, ``embed-speaker`` with each
+    model, ``separate``, ``translate``, ``wake``), ``clone_voice``, and
+    Parakeet TDT, streaming Parakeet and Omnilingual at their tiny configs
+    imports neither jax nor any module of the JAX package."""
     code = textwrap.dedent("""
         import contextlib, io, os, sys, tempfile
         import numpy as np
         from qwen3_asr_swift_tpu_torch import cli
         from qwen3_asr_swift_tpu_torch.audio.io import write_wav
-        from qwen3_asr_swift_tpu_torch.models import (diarization, firered_vad, pyannote,
-                                                      separation, speaker, translation)
+        from qwen3_asr_swift_tpu_torch.models import (diarization, firered_vad, omnilingual,
+                                                      parakeet, parakeet_streaming, pyannote,
+                                                      separation, speaker, translation, wakeword)
         from qwen3_asr_swift_tpu_torch.models.cosyvoice import CosyVoiceTTS, config_tiny
         tts = CosyVoiceTTS.init_random(config_tiny(), device="cpu")
         tts.clone_voice("v", np.full(16000, 0.1, np.float32),
@@ -795,8 +845,13 @@ def test_new_families_import_nothing_of_the_jax_package():
                              ["embed-speaker", clip], ["embed-speaker", clip, "--model", "cam++"],
                              ["separate", clip, "--stems", "bass",
                               "--output-prefix", os.path.join(d, "s")],
-                             ["translate", "hello"]):
+                             ["translate", "hello"], ["wake", clip],
+                             ["diarize", clip, "--engine", "sortformer"]):
                     cli.main(["--device", "cpu", argv[0], "--random-weights", *argv[1:]])
+        clip = np.full(24000, 0.1, np.float32)
+        parakeet.ParakeetASR.init_random(parakeet.config_tiny(), device="cpu").transcribe(clip)
+        parakeet_streaming.ParakeetStreamingASR.init_random(device="cpu").transcribe(clip)
+        omnilingual.OmnilingualASR.init_random(device="cpu").transcribe(clip)
         assert "jax" not in sys.modules, [k for k in sys.modules if k.startswith("jax")]
         ref = [k for k in sys.modules
                if k == "qwen3_asr_swift_tpu" or k.startswith("qwen3_asr_swift_tpu.")]
