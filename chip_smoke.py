@@ -87,7 +87,7 @@ Then Qwen3-TTS, at the 1.7B widths (talker 2048 × 28, code predictor
              relative L2; a greedy synthesis of 48 frames in bf16 under
              ``quant_compute="fused"`` (K1's launches must equal the count
              worked out from the code and the frames run) and
-             ``"groupdot"`` (no K1): finite audio of frames × 1920 samples,
+             of 16 under ``"groupdot"`` (no K1): finite audio of frames × 1920 samples,
              frames/s, RTF, and the device ms a frame of the talker step,
              the code-predictor chain and the codec (profiler ranges); K1
              against its plain version at the frame loop's 1-row shapes,
@@ -254,7 +254,7 @@ on the card; K1's and K3's counters must not move; each phase prints its
 seconds):
 
 31. wake      — the Zipformer wake word at ``ZipformerConfig()`` (3.19M,
-               full depth), fp32, 60 s: batch frames card vs host within
+               full depth), fp32, 30 s: batch frames card vs host within
                1e-4, detections equal; a session in uneven pushes gives the
                batch's frames within 1e-5; windows/s, RTF, device ms, idle;
 32. parakeet  — Parakeet TDT ``CONFIG_06B``: at 2 of 24 layers in fp32,
@@ -269,11 +269,27 @@ seconds):
 34. parakeet_stream — ``CONFIG_EOU_120M`` and ``CONFIG_NEMOTRON_06B``,
                fp32: at 2 layers, each chunk's encoder frames card vs host
                within 1e-4 and the results equal over 10 s; full depth over
-               30 s in 320 ms pushes: p50/p95 a push, device ms a chunk;
+               15 s in 320 ms pushes: p50/p95 a push, device ms a chunk;
 35. omnilingual — ``CONFIG_300M`` and ``CONFIG_1B``'s widths at 2 layers,
                fp32, log-probs card vs host within 1e-4 and ids equal; the
                300M in bf16 on 30 s: RTF, device ms, idle, peak, and its
-               distance from an fp32 run on the card.
+               distance from an fp32 run on the card;
+36. shard     — the multi-device path (``parallel/``, ``Qwen3ASR.shard``,
+               ``PersonaPlex.shard``): world 1 in this process, then ranks
+               spawned over gloo (2 on one card; NCCL and ``min(cards, 4)``
+               ranks with two or more, plus a dp run of the ASR), each with
+               tp = world: the slice's model (packed 4-bit, int8 KV, dpcm4,
+               fp32) on 8 clips of 3-30 s at 100 greedy tokens, and the 7B
+               PersonaPlex (bf16, packed) for 24 greedy frames; every row's
+               tokens and the codes equal to world 1's or parting first at
+               a near-tie, every earlier call within 5e-2 relative L2; the
+               teacher-forced 0.6B step within 1e-4 (fp32 table and KV),
+               2e-4 (int8 KV) and 4x world 1's own reordering floor (packed
+               table, bf16 activations), the 7B's first text logits within
+               1e-3 (fp32, 4 layers) and 4x its floor (bf16); K1 and K3 on
+               every rank's shard at tp 2 and 4 against their plain
+               versions, and their launches equal to the code's counts a
+               rank; rank walls and a collective's ms (information).
 
 Weights are random at the full width of each configuration, drawn on the
 card from a seeded ``torch.Generator`` (torch seed 0; packed there where a
@@ -716,6 +732,25 @@ def k3_inputs(dev, b, seed):
     return input_sets(make, 2 * b * hkv * length * (d + 4))
 
 
+def k3_hold(label, got32, got, ref):
+    """K3's fp32 output ``got32`` within ``K3_TOL`` of the plain version's
+    ``ref``, its bf16 output ``got`` within ``K3_BF16_TOL`` of ``ref``
+    rounded and bit for bit ``got32`` rounded. Returns (max abs error, its
+    share of max |ref|) of each output."""
+    import torch
+
+    torch.cuda.synchronize()
+    err, rel = rel_err(got32, ref)
+    err16, rel16 = rel_err(got, ref.to(torch.bfloat16))
+    if not rel <= K3_TOL:
+        raise AssertionError(f"{label}: rel error {rel} > {K3_TOL} (fp32 out)")
+    if not rel16 <= K3_BF16_TOL:
+        raise AssertionError(f"{label}: rel error {rel16} > {K3_BF16_TOL} (bf16 out)")
+    if not (got.dtype == torch.bfloat16 and torch.equal(got, got32.to(torch.bfloat16))):
+        raise AssertionError(f"{label}: the bf16 output is not the fp32 output rounded")
+    return err, rel, err16, rel16
+
+
 def k3_case(dev, b, seed, call=None, yardsticks=True):
     """K3 at ``b`` rows on ``k3_inputs``, called as the decoder calls it:
     ``call``, by default the wrapper with ``out_dtype=torch.bfloat16``. Its
@@ -762,12 +797,8 @@ def k3_case(dev, b, seed, call=None, yardsticks=True):
             k, v = k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)
         return q.float(), k, v, valid[:, None, None, :]
 
-    got32, got = k3(*sets[0]), call(*sets[0])
-    ref = attention_int8.decode_attention_int8_ref(*sets[0])
-    torch.cuda.synchronize()
-    err, rel = rel_err(got32, ref)
-    err16, rel16 = rel_err(got, ref.to(bf16))
-    rounded = got.dtype == bf16 and torch.equal(got, got32.to(bf16))
+    got, ref = call(*sets[0]), attention_int8.decode_attention_int8_ref(*sets[0])
+    err, rel, err16, rel16 = k3_hold(f"K3 B={b}", k3(*sets[0]), got, ref)
     calls = [(call, sets)]
     lib_rel = float("nan")
     if yardsticks:
@@ -787,19 +818,13 @@ def k3_case(dev, b, seed, call=None, yardsticks=True):
     b_ms, b_by = bound(n_bytes, 4 * b * hq * length * d, PEAK_BF16_TC)
     log(f"K3 B={b} Hq={hq} Hkv={hkv} L={length} D={d} fp32 out: max_abs_err={err:.3e} "
         f"rel={rel:.3e} (tol {K3_TOL:g}); bf16 out: max_abs_err={err16:.3e} rel={rel16:.3e} "
-        f"(tol {K3_BF16_TOL:g}), = fp32 out rounded: {rounded}; timed with bf16 out: "
+        f"(tol {K3_BF16_TOL:g}), = fp32 out rounded: True; timed with bf16 out: "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"device: kernel_ms={dev_ms:.4f} plain_ms={plain_dev_ms:.4f} library_ms={lib_dev_ms:.4f} "
         f"(sdpa fp32, enable_gqa={gqa}, rel {lib_rel:.1e}) bound_ms={b_ms:.4f} ({b_by}) "
         f"bound/kernel={b_ms / dev_ms:.3f} kernel/library={dev_ms / lib_dev_ms:.2f} "
         f"kernels/call={per_call:g} ({'profiler' if not from_events else 'CUDA events'}); "
         f"by kernel: " + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items()))
-    if not rel <= K3_TOL:
-        raise AssertionError(f"K3 B={b}: rel error {rel} > {K3_TOL} (fp32 out)")
-    if not rel16 <= K3_BF16_TOL:
-        raise AssertionError(f"K3 B={b}: rel error {rel16} > {K3_BF16_TOL} (bf16 out)")
-    if not rounded:
-        raise AssertionError(f"K3 B={b}: the bf16 output is not the fp32 output rounded")
     return {"b": b, "length": length, "d": d, "max_abs_err": max(err, err16), "ms": ms,
             "plain_ms": plain_ms, "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_dev_ms,
@@ -1722,6 +1747,7 @@ def phase_align(dev, dev_name, power):
 
 TTS_TOL = 5e-2          # first frame's logits, relative L2, card vs host CPU (phase step's limit)
 TTS_FRAMES = 48         # 3.84 s of audio
+TTS_GROUPDOT_FRAMES = 16   # the group-dot synthesis's frame cap (1.28 s; depth cut)
 TTS_TEXT = "Hello from one card. This sentence is spoken by the port."
 # the profiled synthesis: the profiler's event tree takes ~4 s of host time
 # a frame to build (on the H100 machine's host), so few frames
@@ -1996,8 +2022,8 @@ def phase_tts(dev, k1_counter, dev_name, power):
     code predictor packed 4-bit group 64 on the card): the first frame's
     logits card vs host CPU (fp32 both), then a greedy synthesis of
     ``TTS_FRAMES`` frames in bf16 under ``quant_compute="fused"`` (K1's
-    launches must equal ``tts_k1_launches``) and ``"groupdot"`` (no K1).
-    Returns (the bf16 fused model, K1's launches under fused, K1's frame
+    launches must equal ``tts_k1_launches``) and of ``TTS_GROUPDOT_FRAMES``
+    under ``"groupdot"`` (no K1). Returns (the bf16 fused model, K1's launches under fused, K1's frame
     timing)."""
     import dataclasses
 
@@ -2056,7 +2082,8 @@ def phase_tts(dev, k1_counter, dev_name, power):
         torch.cuda.synchronize()
         k1_counter.reset()
         t0 = time.perf_counter()
-        out = m.synthesize(TTS_TEXT, sampling=sampling)
+        out = m.synthesize(TTS_TEXT, sampling=sampling if label == "fused" else
+                           dataclasses.replace(sampling, max_frames=TTS_GROUPDOT_FRAMES))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = k1_counter.value
@@ -2423,7 +2450,8 @@ def cosy_logits_run(model, text, gumbel):
     return out.cpu().numpy(), int(n), seen
 
 
-def token_parting(label, card, host, card_logits, host_logits, gumbel=None, tol=None):
+def token_parting(label, card, host, card_logits, host_logits, gumbel=None, tol=None,
+                  names=("card", "host")):
     """Check two token lists equal, or parting at a near-tie (ROADMAP §3
     entry 9's rule, both halves): every step's logits up to and including
     the first parting (all of them where none) within ``tol`` (default
@@ -2431,28 +2459,29 @@ def token_parting(label, card, host, card_logits, host_logits, gumbel=None, tol=
     and at the parting the host's score margin between its token and the
     card's (its logits plus the step's Gumbel draws where sampled, greedy
     where ``gumbel`` is None) within twice the largest card-vs-host logit
-    gap."""
+    gap. ``names``: what the two runs are called in the log."""
     tol = COSY_TOL if tol is None else tol
+    c_name, h_name = names
     n = min(len(card), len(host))
     part = next((i for i in range(n) if card[i] != host[i]), None)
     last = n - 1 if part is None else part
     rels = [rel_l2(card_logits[i], host_logits[i]) for i in range(last + 1)]
     worst = max(rels)
-    log(f"{label}: the logits of steps 0..{last} card vs host, rel L2 at most {worst:.3e} "
-        f"(step {rels.index(worst)}; first {rels[0]:.3e}; tol {tol:g})")
+    log(f"{label}: the logits of steps 0..{last} {c_name} vs {h_name}, rel L2 at most "
+        f"{worst:.3e} (step {rels.index(worst)}; first {rels[0]:.3e}; tol {tol:g})")
     if not worst <= tol:
         raise AssertionError(f"{label}: logits rel L2 {worst} > {tol} at step "
                              f"{rels.index(worst)}")
     if part is None:
-        log(f"{label}: tokens equal card vs host ({n} tokens)")
+        log(f"{label}: tokens equal {c_name} vs {h_name} ({n} tokens)")
         return
     lh, lc = host_logits[part], card_logits[part]
     g = 0.0 if gumbel is None else gumbel[part, 0].cpu()
     a, b = int(host[part]), int(card[part])
     margin = ((lh + g)[a] - (lh + g)[b]).item()
     gap = (lh - lc).abs().max().item()
-    log(f"{label}: tokens part at step {part}: host {a}, card {b}; host score margin "
-        f"{margin:.6g}, largest logit gap {gap:.6g} (near-tie if margin <= 2 x gap)")
+    log(f"{label}: tokens part at step {part}: {h_name} {a}, {c_name} {b}; {h_name} score "
+        f"margin {margin:.6g}, largest logit gap {gap:.6g} (near-tie if margin <= 2 x gap)")
     if not margin <= 2 * gap:
         raise AssertionError(f"{label}: tokens part at step {part} with margin {margin} > 2 x "
                              f"{gap}")
@@ -3433,16 +3462,18 @@ def phase_enhance(dev_name, power):
         raise AssertionError(f"POST /enhance: {status} {ctype}, {len(wav)} samples at {wav_rate}")
 
 
-def respond_k1_launches(cfg, frames: int, prefill_rows: int) -> int:
+def respond_k1_launches(cfg, frames: int, prefill_rows: int, per_layer: int = 4,
+                        head: int = 1) -> int:
     """K1's launches in one ``respond`` of ``frames`` frames (every frame
     the loop ran) from the code: the prompt prefill's products (qkv, o,
-    gate_up and down a layer) when it has at most 256 rows, and each
-    frame's temporal step (the same four a layer) and text head. The
+    gate_up and down a layer; q, k, v, o, gate, up and down, ``per_layer``
+    7, on a tp mesh) when it has at most 256 rows, and each frame's
+    temporal step (the same a layer) and text head (``head``: packed). The
     depformer's banks and Mimi are dense."""
     from qwen3_asr_swift_tpu_torch.ops.quant import KERNEL_MAX_ROWS
 
-    per_frame = 4 * cfg.num_layers + 1
-    return (4 * cfg.num_layers if prefill_rows <= KERNEL_MAX_ROWS else 0) + frames * per_frame
+    per_frame = per_layer * cfg.num_layers + head
+    return (per_layer * cfg.num_layers if prefill_rows <= KERNEL_MAX_ROWS else 0) + frames * per_frame
 
 
 def respond_user_audio(seconds: float, seed: int = 7, rate: int = 24000) -> np.ndarray:
@@ -3480,7 +3511,7 @@ def respond_first_frame(model, user, text_token=None, dep_tokens=None):
             dep_tokens = uc[:, :, 0].cpu()
         dep = pp.depformer_forward_logits(model.params, cfg, hidden,
                                           torch.tensor([text_token], device=dev),
-                                          dep_tokens.to(dev))
+                                          dep_tokens.to(dev), model._mesh)
     return text_logits[0].float().cpu(), dep[0, 0].float().cpu(), text_token, dep_tokens, uc.cpu()
 
 
@@ -4770,7 +4801,7 @@ def phase_translate(dev, counters, dev_name, power):
     log(f"translate: phase {time.perf_counter() - t_phase:.1f} s")
 
 
-WAKE_S = 60              # seconds of 16 kHz audio for the wake word (188 windows)
+WAKE_S = 30              # seconds of 16 kHz audio for the wake word (93 windows)
 WAKE_PROFILE_S = 10      # seconds of it under the profiler (31 windows; ~1,300 events a window)
 WAKE_PUSHES = (7440, 1, 5119, 16000, 333)   # the session's pushes, cycled
 WAKE_TOL = 1e-4          # batch frames, of max |host|, card vs host CPU (fp32 both)
@@ -4781,7 +4812,7 @@ PARAKEET_TOL = 1e-4      # mel and encoder output, of max |host|, card vs host C
 PARAKEET_TIE = 2 ** -4   # a parting step's largest joint-logit gap, of max |host|
 SORTFORMER_S = 60        # 10 chunks of 14 s windows (6 s core)
 SORTFORMER_TOL = 1e-4    # predictions, speaker cache and FIFO, of max |host|, card vs host
-STREAM_S = 30            # seconds pushed in 320 ms chunks
+STREAM_S = 15            # seconds pushed in 320 ms chunks
 STREAM_CHECK_S = 10      # the card-vs-host check at 2 layers (31 chunks)
 STREAM_TOL = 1e-4        # each chunk's encoder frames, of max |host|, card vs host CPU
 OMNI_S = 30              # seconds (the 40 s bucket)
@@ -5255,6 +5286,588 @@ def phase_omnilingual(dev, counters, dev_name, power):
     log(f"omnilingual: phase {time.perf_counter() - t_phase:.1f} s")
 
 
+SHARD_CLIPS_S = (3, 5, 8, 12, 16, 20, 25, 30)   # the 8 clips of phase shard (bucket 32 s)
+SHARD_TOKENS = 100       # their greedy decode budget
+SHARD_PP_FRAMES = 24     # PersonaPlex's frames (depth cut in frames only)
+SHARD_PP_FP32_LAYERS = 4  # the fp32 7B's depth (full width) for its teacher-forced frame
+# teacher-forced steps, relative L2, tp against world 1 on the same card:
+SHARD_STEP_TOL = 1e-4    # the 0.6B with its table dequantized to fp32 and a float32 cache
+SHARD_PP_TOL = 1e-3      # the fp32 7B's first text logits
+# the 0.6B with an int8 cache (fp32 table): a code flips where a value lies
+# at a rounding edge; read 5.4e-5 to 9.4e-5 at tp 2 and 4, twice the largest
+SHARD_INT8_TOL = 2e-4
+# bf16 activations (the packed table's rows: the configuration as it runs):
+# at most this many times world 1's own distance from world 1 run with q/k/v
+# and gate/up unfused and the plain product in place of K1 (the same
+# function with every product's fp32 sums in another order, prefill and step)
+SHARD_FLOOR_TIMES = 4
+SHARD_TIMEOUT_S = 600    # the ranks' join timeout
+
+
+#: the teacher-forced step's variants (:func:`shard_asr_run`), by key
+STEP_KEYS = {"step_logits": "fp32 table and KV", "step_logits_int8": "int8 KV",
+             "step_logits_bf16": "packed table (bf16) and int8 KV"}
+
+
+def shard_clips():
+    rng = np.random.default_rng(5)
+    return [(0.1 * rng.standard_normal(int(s * SR))).astype(np.float32) for s in SHARD_CLIPS_S]
+
+
+def sampler_calls(fn, calls):
+    """``fn`` (a sampler taking the logits first) that also keeps each
+    call's logits (fp32) and chosen tokens in ``calls``, on the device."""
+    def run(logits, *args, **kw):
+        tok = fn(logits, *args, **kw)
+        calls.append((logits.float().clone(), tok.clone()))
+        return tok
+
+    return run
+
+
+def shard_asr_run(model, clips, counters, tok0=None, transcribe: bool = True,
+                  keep_cache: bool = False):
+    """One greedy ``transcribe_batch`` of ``clips`` at ``SHARD_TOKENS`` with
+    every sampler call kept and the launch counters reset just before it,
+    and a teacher-forced decode step: prefill, then one step fed ``tok0``
+    (the first tokens of world 1; its own when None) three ways: as the
+    model is (the packed table's rows come back in bf16, the reference's
+    rule, so every activation of the decoder is bf16); with the table
+    dequantized to the model's fp32; and so with a float32 KV cache too.
+    K1 runs every packed linear in all three, K3 the int8 ones.
+    ``transcribe`` False: the step alone. ``keep_cache``: also the int8
+    cache's layer 0 and mask after the packed step (``cache0``, on the
+    device). Returns a dict of host values."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr.decoder import decode_step
+    from qwen3_asr_swift_tpu_torch.ops.quant import dequantize
+    from qwen3_asr_swift_tpu_torch.ops.sampling import SamplingOptions
+
+    out = shard_transcribe(model, clips, counters) if transcribe else {}
+    params = model.decoder_params
+    table = params["embed_tokens"]
+    dense = dict(params, embed_tokens=dequantize(table, model.cfg.decoder.hidden_size))
+    kv = model.kv_dtype
+    with torch.inference_mode():
+        st = model.prestage(clips)
+        lo, hi = st.rows.start, st.rows.stop
+        audio = model._encode(st)
+        first = None
+        for key, tree, kv_dtype in (("step_logits_bf16", params, kv),
+                                    ("step_logits_int8", dense, kv),
+                                    ("step_logits", dense, torch.float32)):
+            model.decoder_params, model.kv_dtype = tree, kv_dtype
+            state = model._gen_start(*audio, model._prompt(st.b, None, None), 4,
+                                     SamplingOptions(max_tokens=4))
+            if first is None:
+                first = state.tokens[:, 0].cpu()
+            tok = first if tok0 is None else tok0[lo:hi]
+            logits, cache = decode_step(tree, model.cfg.decoder, tok.to(model.device),
+                                        state.cache, model._mesh)
+            if keep_cache and key == "step_logits_bf16":
+                out["cache0"] = (cache.layers[0], cache.valid)
+            if model._mesh is not None and st.dp > 1:
+                logits = model._mesh.dp_gather(logits)
+            out[key] = logits.float().cpu().numpy()
+        model.decoder_params, model.kv_dtype = params, kv
+        if model._mesh is not None and st.dp > 1:
+            first = model._mesh.dp_gather(first.to(model.device)).cpu()
+    out["tok0"] = first
+    return out
+
+
+def shard_transcribe(model, clips, counters):
+    """The greedy ``transcribe_batch`` of :func:`shard_asr_run`; its sampler
+    calls as host arrays (logits [calls, rows, vocab], tokens [calls, rows])."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr import model as asr_model
+    from qwen3_asr_swift_tpu_torch.ops.sampling import SamplingOptions
+
+    model.transcribe_batch(clips[:2], options=SamplingOptions(max_tokens=2))  # allocator warm-up
+    calls = []
+    with patch.object(asr_model, "sample_token", sampler_calls(asr_model.sample_token, calls)):
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        model.transcribe_batch(clips, options=SamplingOptions(max_tokens=SHARD_TOKENS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.name: c.value for c in counters}
+    steps = model.last_loop["decode_steps"]
+    logits = torch.stack([c[0] for c in calls]).cpu().numpy()
+    tokens = torch.stack([c[1] for c in calls]).cpu().numpy()
+    return {"calls": (logits, tokens), "rows": model.last_staging["rows"], "steps": steps,
+            "wall": wall, "launches": launches,
+            "k1_from_code": asr_k1_launches(steps, model.decoder_params),
+            "k3_from_code": steps * model.cfg.decoder.num_layers}
+
+
+def packed_in(tree) -> int:
+    """The packed linears of a tree (dicts holding ``codes``)."""
+    return sum(1 for _ in packed_paths(tree))
+
+
+def packed_paths(tree, path=""):
+    """(path, packed linear) for every dict of ``tree`` holding ``codes``."""
+    if isinstance(tree, dict):
+        if "codes" in tree:
+            yield path, tree
+            return
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return
+    for k, v in items:
+        yield from packed_paths(v, f"{path}/{k}" if path else str(k))
+
+
+def asr_k1_launches(steps: int, params) -> int:
+    """K1's launches of one greedy ``transcribe_batch`` of at most 256 rows
+    from the decoder tree the code runs: the prefill's LM head (a packed
+    table), then each decode step's packed products (qkv, o, gate_up, down
+    a layer fused; q, k, v, o, gate, up, down on a tp mesh) and LM head; the
+    prefill's other products have more than 256 rows and take the plain
+    version."""
+    head = packed_in(params["embed_tokens"])
+    return head + steps * (packed_in(params["layers"]) + head)
+
+
+def shard_k1_check(sub, cfg, shard_fn, rows: int, label: str):
+    """K1 on every rank's shard of ``sub`` (a layer and the head of a whole
+    packed tree), cut by the model's own ``shard_fn`` for each rank of tp 2
+    and tp 4, against its plain version on the same bf16 input of ``rows``
+    rows: a column-parallel shard (fewer outputs) on the whole input, a
+    row-parallel one (fewer inputs) on the rank's slice of it; and each
+    row-parallel product's tp sum against the plain product of the whole
+    weight. Each within ``K1_TOL`` of max |plain|. Returns the largest
+    errors (kernel vs plain, sum vs whole)."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.ops import quant
+    from qwen3_asr_swift_tpu_torch.parallel.mesh import Mesh
+
+    whole = dict(packed_paths(sub))
+    dev = next(iter(whole.values()))["codes"].device
+    g = torch.Generator(device=dev).manual_seed(12)
+    xs = {}
+
+    def x_of(width):
+        if width not in xs:
+            xs[width] = torch.randn((rows, width), generator=g, device=dev).to(torch.bfloat16)
+        return xs[width]
+
+    worst, worst_sum, shapes = 0.0, 0.0, set()
+    for tp in (2, 4):
+        sums = {}
+        for r in range(tp):
+            for path, p in packed_paths(shard_fn(sub, cfg, Mesh(dp=1, tp=tp, rank=r))):
+                w = whole.get(path)
+                if w is not None and p["codes"].shape == w["codes"].shape:
+                    continue                          # whole on every rank
+                width = p["codes"].shape[1] * 8       # 4-bit codes: 8 a word
+                if w is not None and p["codes"].shape[0] == w["codes"].shape[0]:
+                    x = x_of(w["codes"].shape[1] * 8)[:, r * width:(r + 1) * width].contiguous()
+                    kind = "row"
+                else:
+                    x = x_of(width)
+                    kind = "column"
+                got = quant.quant_matmul_cuda(x, p)
+                _, rel = rel_err(got, quant.quant_matmul(x, p))
+                if not rel <= K1_TOL:
+                    raise AssertionError(f"K1 {label} {path} tp {tp} rank {r} ({kind}): rel "
+                                         f"error {rel} > {K1_TOL}")
+                worst = max(worst, rel)
+                shapes.add((tp, path.split("/")[-1], kind, tuple(x.shape), p["codes"].shape[0]))
+                if kind == "row":
+                    sums[path] = sums.get(path, 0) + got
+        for path, total in sums.items():
+            w = whole[path]
+            _, rel = rel_err(total, quant.quant_matmul(x_of(w["codes"].shape[1] * 8), w))
+            if not rel <= K1_TOL:
+                raise AssertionError(f"K1 {label} {path} tp {tp}: the ranks' sum, rel error "
+                                     f"{rel} > {K1_TOL} of the whole product")
+            worst_sum = max(worst_sum, rel)
+    log(f"shard K1 {label}: every rank's shard at tp 2 and 4, bf16 x, kernel vs plain at most "
+        f"{worst:.3e} of max |plain|, row-parallel tp sums vs the whole product {worst_sum:.3e} "
+        f"(tol {K1_TOL:g}); shapes (tp, name, kind, x, out): "
+        + ", ".join(f"{t} {n} {k} {x[0]}x{x[1]}->{o}" for t, n, k, x, o in sorted(shapes)))
+    return worst, worst_sum
+
+
+def shard_k3_check(layer, valid, num_heads: int):
+    """K3 on every rank's kv heads, at tp 2 and tp 4, of world 1's int8
+    cache after phase shard's teacher-forced step (its B and L, its mask),
+    with a bf16 q of the rank's query heads, held as phase k3 holds it
+    (:func:`k3_hold`). Returns the largest relative errors (fp32, bf16 out)."""
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.ops import attention_int8
+
+    k3 = attention_int8.decode_attention_int8
+    g = torch.Generator(device=valid.device).manual_seed(13)
+    b, hkv, length, d = layer.k.shape
+    worst = [0.0, 0.0]
+    for tp in (2, 4):
+        for r in range(tp):
+            heads = slice(r * hkv // tp, (r + 1) * hkv // tp)
+            kv = [t[:, heads].contiguous() for t in (layer.k, layer.k_scale, layer.v,
+                                                       layer.v_scale)]
+            q = torch.randn((b, num_heads // tp, 1, d), generator=g,
+                            device=valid.device).to(torch.bfloat16)
+            args = (q, *kv, valid)
+            _, rel, _, rel16 = k3_hold(f"K3 shard tp {tp} rank {r}", k3(*args),
+                                       k3(*args, out_dtype=torch.bfloat16),
+                                       attention_int8.decode_attention_int8_ref(*args))
+            worst = [max(worst[0], rel), max(worst[1], rel16)]
+    log(f"shard K3: every rank's heads at tp 2 (Hq {num_heads // 2}, Hkv {hkv // 2}) and tp 4 "
+        f"(Hq {num_heads // 4}, Hkv {hkv // 4}), B {b}, L {length}, D {d}, world 1's int8 cache "
+        f"and mask: fp32 out at most {worst[0]:.3e} (tol {K3_TOL:g}), bf16 out {worst[1]:.3e} "
+        f"(tol {K3_BF16_TOL:g}), bf16 = fp32 rounded")
+    return worst
+
+
+def rank_device():
+    """The card a spawned rank was given (``parallel.spawn`` selects it)."""
+    import torch
+
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def shard_pp_step(model, text_token=None, dep_tokens=None):
+    """PersonaPlex's teacher-forced first frame: the text and codebook-0
+    logits after the prompt's prefill (the depformer fed the given text
+    token and tokens): {text_logits, cb0_logits, text_token, dep_tokens}, on
+    the host."""
+    text, cb0, tok, dep, _ = respond_first_frame(model, respond_user_audio(RESPOND_USER_S),
+                                                 text_token, dep_tokens)
+    return {"text_logits": text.numpy(), "cb0_logits": cb0.numpy(), "text_token": tok,
+            "dep_tokens": dep}
+
+
+def shard_pp_cut():
+    """The 7B at ``SHARD_PP_FP32_LAYERS`` layers (full width), drawn in fp32."""
+    import dataclasses
+
+    from qwen3_asr_swift_tpu_torch.models.personaplex import CONFIG_7B
+
+    return dataclasses.replace(CONFIG_7B, num_layers=SHARD_PP_FP32_LAYERS)
+
+
+def shard_pp_run(model, k1_counter):
+    """PersonaPlex: a greedy ``respond`` of ``SHARD_PP_FRAMES`` frames with
+    every sampler call kept (host logits [rows, vocab] and tokens [rows] a
+    call) and K1's counter reset just before it."""
+    import dataclasses
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.models.personaplex import PersonaSampling
+    from qwen3_asr_swift_tpu_torch.models.personaplex import model as pp
+
+    user = respond_user_audio(RESPOND_USER_S)
+    greedy = PersonaSampling(audio_temperature=0.0, text_temperature=0.0,
+                             max_steps=SHARD_PP_FRAMES)
+    spf = model.cfg.mimi.samples_per_frame
+    model.respond(user[:2 * spf], 24000, sampling=dataclasses.replace(greedy, max_steps=2))
+    calls = []
+    with patch.object(pp, "_sample_topk", sampler_calls(pp._sample_topk, calls)):
+        torch.cuda.synchronize()
+        k1_counter.reset()
+        t0 = time.perf_counter()
+        reply = model.respond(user, 24000, sampling=greedy)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = k1_counter.value
+    frames = model.last_loop["frames_run"]
+    k1_from_code = respond_k1_launches(
+        model.cfg, frames, type(model).VOICE_PROMPT_CAP + type(model).PROMPT_CAP,
+        per_layer=packed_in(model.params["layers"][0]), head=packed_in(model.params["text_head"]))
+    return {"samples": reply.samples, "calls": [(lg.cpu().numpy(), t.cpu().numpy())
+                                                for lg, t in calls],
+            "frames": frames, "wall": wall, "launches": launches, "k1_from_code": k1_from_code}
+
+
+def collective_ms(mesh, shape, dev, n: int = 200) -> float:
+    """ms each of ``n`` back-to-back tp sums of an fp32 ``shape`` (after 10
+    warm ones), synchronized once around them: a window of its own, apart
+    from the timed runs."""
+    import torch
+
+    x = torch.ones(shape, device=dev)
+    for _ in range(10):
+        mesh.tp_sum(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        mesh.tp_sum(x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def shard_rank(rank, dp, tp, asr_tok0, pp_text_token, pp_dep_tokens, dp_split, out_dir):
+    """One rank of phase shard (a spawned process): the slice's model in
+    fp32 cut over tp (and, with ``dp_split``, over dp), then the 7B cut
+    over tp (fp32 at ``SHARD_PP_FP32_LAYERS`` layers, bf16 whole); every
+    count and wall of this rank. The ASR runs' sampler logits go to
+    ``out_dir`` (a .npy each), the rest comes back."""
+    import gc
+
+    import torch
+
+    import qwen3_asr_swift_tpu_torch.parallel.mesh as mesh_mod
+    from qwen3_asr_swift_tpu_torch.core.params import init_random_params, param_bytes
+    from qwen3_asr_swift_tpu_torch.models.personaplex import CONFIG_7B, PersonaPlex
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr import CONFIG_SMALL
+    from qwen3_asr_swift_tpu_torch.ops.attention_int8 import K3_LAUNCHES
+    from qwen3_asr_swift_tpu_torch.ops.quant import K1_LAUNCHES
+    from qwen3_asr_swift_tpu_torch.parallel import make_mesh
+
+    t_start = time.perf_counter()
+    dev = rank_device()
+    count = [0]
+    plain_sum = mesh_mod._sum
+
+    def counted_sum(x, group):
+        count[0] += 1
+        return plain_sum(x, group)
+
+    mesh_mod._sum = counted_sum
+    out = {}
+    meshes = [("tp", make_mesh(dp=dp, tp=tp))]
+    if dp_split:
+        meshes.append(("dp", make_mesh(dp=dp * tp, tp=1)))
+    out["mesh"] = repr(meshes[0][1])
+    clips = shard_clips()
+    for name, mesh in meshes:
+        weights = init_random_params(CONFIG_SMALL, 0, quant_bits=4, device=dev)
+        model = build_model(*weights, dev, torch.float32).shard(mesh=mesh)
+        del weights
+        a = shard_asr_run(model, clips, (K1_LAUNCHES, K3_LAUNCHES), asr_tok0)
+        logits, tokens = a.pop("calls")
+        path = os.path.join(out_dir, f"asr_{name}_{rank}.npy")
+        np.save(path, logits)
+        a["calls"] = (path, tokens)
+        out["asr_" + name] = a
+        del model, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    tp_mesh = meshes[0][1]
+    pp = PersonaPlex.init_random_on_device(shard_pp_cut(), 0, device=dev, dtype=torch.float32,
+                                           quant_bits=4).shard(mesh=tp_mesh)
+    out["pp_step"] = shard_pp_step(pp, pp_text_token, pp_dep_tokens)
+    del pp
+    gc.collect()
+    torch.cuda.empty_cache()
+    pp = PersonaPlex.init_random_on_device(CONFIG_7B, 0, device=dev, dtype=torch.bfloat16,
+                                           quant_bits=4).shard(mesh=tp_mesh)
+    out["pp_step_bf16"] = shard_pp_step(pp, pp_text_token, pp_dep_tokens)
+    out["pp"] = shard_pp_run(pp, K1_LAUNCHES)
+    out["pp_bytes"] = param_bytes(pp.params)
+    del pp
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["collectives"] = count[0]
+    out["collective_ms"] = {shape: collective_ms(tp_mesh, shape, dev)
+                            for shape in ((8, 1024), (1, 4096))}
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def shard_partings(label, got_calls, want_calls, rows):
+    """:func:`token_parting` for each row of a rank's sampler calls
+    (``got_calls``: its rows ``rows`` of world 1's ``want_calls``), every
+    call's logits up to the first parting within ``STEP_TOL``. Calls are
+    (logits [calls, rows, vocab], tokens [calls, rows]) or a list of
+    (logits [rows, vocab], tokens [rows])."""
+    import torch
+
+    def per_row(calls, row):
+        if isinstance(calls, tuple):
+            logits, tokens = calls
+            return tokens[:, row], [torch.from_numpy(logits[i, row]) for i in range(len(logits))]
+        return (np.array([t[row] for _, t in calls]),
+                [torch.from_numpy(lg[row]) for lg, _ in calls])
+
+    for j, row in enumerate(range(rows.start, rows.stop)):
+        got, got_logits = per_row(got_calls, j)
+        want, want_logits = per_row(want_calls, row)
+        token_parting(f"{label} row {row}", got, want, got_logits, want_logits, tol=STEP_TOL,
+                      names=("rank", "world 1"))
+
+
+def phase_shard(dev, counters, dev_name, power):
+    """The multi-device path on this machine's cards: ranks spawned over
+    NCCL (``min(cards, 4)`` ranks) with two or more cards, else 2 ranks
+    sharing the one card over gloo. World 1 runs first in this process on
+    the same card and the same weights (torch seed 0): the slice's model
+    (packed 4-bit, int8 KV, dpcm4 wire, fp32) on 8 clips of 3-30 s at 100
+    greedy tokens and a teacher-forced decode step; the 7B PersonaPlex
+    (bf16, packed 4-bit) for its first frame and a greedy ``respond`` of
+    ``SHARD_PP_FRAMES`` frames, and cut to ``SHARD_PP_FP32_LAYERS`` layers
+    in fp32 for its first frame. World 1 also runs both steps unfused
+    with the plain product in place of K1 (the bf16 steps' floor), and holds
+    K1 and K3 against their plain versions on every rank's shard at tp 2
+    and 4 (:func:`shard_k1_check`, :func:`shard_k3_check`). Then each rank
+    runs the same with tp = world (and on two or more cards also dp =
+    world for the ASR). Fails unless, on every rank, each row's tokens and
+    the codes equal world 1's or part first at a near-tie with every
+    earlier call's logits within ``STEP_TOL`` (:func:`token_parting`), the
+    0.6B's step lies within ``SHARD_STEP_TOL`` (fp32), ``SHARD_INT8_TOL``
+    (int8 KV) and ``SHARD_FLOOR_TIMES`` times its floor (bf16), the 7B's
+    first text logits within ``SHARD_PP_TOL`` (fp32) and
+    ``SHARD_FLOOR_TIMES`` times their floor (bf16), and each rank's K1 and
+    K3 launches equal the code's counts. Returns (K1's launches, K3's
+    launches) on rank 0."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.core.params import init_random_params
+    from qwen3_asr_swift_tpu_torch.models.personaplex import CONFIG_7B, PersonaPlex
+    from qwen3_asr_swift_tpu_torch.models.personaplex.model import (shard_persona_params,
+                                                                    unfuse_temporal_params)
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr import CONFIG_SMALL
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr.decoder import (shard_decoder,
+                                                                    unfuse_for_sharding)
+    from qwen3_asr_swift_tpu_torch.ops import quant
+    from qwen3_asr_swift_tpu_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    k1_counter, k3_counter = counters
+    cards = torch.cuda.device_count()
+    world = min(cards, 4) if cards >= 2 else 2
+    backend = "nccl" if cards >= 2 else "gloo"
+    dp_split = cards >= 2
+    log(f"shard: {world} ranks over {backend} on {cards} card(s) of {dev_name} ({power}); "
+        f"tp = {world}" + (f", and dp = {world} for the ASR" if dp_split else ""))
+
+    # world 1, this process, the same card
+    clips = shard_clips()
+    t0 = time.perf_counter()
+    weights = init_random_params(CONFIG_SMALL, 0, quant_bits=4, device=dev)
+    one = build_model(*weights, dev, torch.float32)
+    del weights
+    ref = shard_asr_run(one, clips, counters, keep_cache=True)
+    dec = one.decoder_params
+    one.decoder_params = unfuse_for_sharding(dec, one.cfg.decoder)
+    with patch.object(quant, "KERNEL_MAX_ROWS", 0):    # the plain product throughout
+        floor = shard_asr_run(one, clips, counters, ref["tok0"], transcribe=False)
+    one.decoder_params = dec
+    floors = {k: rel_l2(floor[k], ref[k]) for k in STEP_KEYS}
+    limits = {"step_logits": SHARD_STEP_TOL, "step_logits_int8": SHARD_INT8_TOL,
+              "step_logits_bf16": SHARD_FLOOR_TIMES * floors["step_logits_bf16"]}
+    shard_k1_check({"layers": [dec["layers"][0]], "embed_tokens": dec["embed_tokens"]},
+                   one.cfg.decoder, shard_decoder, len(clips), "ASR")
+    shard_k3_check(*ref.pop("cache0"), one.cfg.decoder.num_heads)
+    del one, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    pp_model = PersonaPlex.init_random_on_device(shard_pp_cut(), 0, device=dev,
+                                                 dtype=torch.float32, quant_bits=4)
+    pp_step = shard_pp_step(pp_model)
+    text_token, dep_tokens = pp_step["text_token"], pp_step["dep_tokens"]
+    del pp_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    pp_model = PersonaPlex.init_random_on_device(CONFIG_7B, 0, device=dev, dtype=torch.bfloat16,
+                                                 quant_bits=4)
+    pp_step_bf16 = shard_pp_step(pp_model, text_token, dep_tokens)
+    p = pp_model.params
+    pp_model.params = unfuse_temporal_params(p, pp_model.cfg)
+    with patch.object(quant, "KERNEL_MAX_ROWS", 0):
+        pp_floor = rel_l2(shard_pp_step(pp_model, text_token, dep_tokens)["text_logits"],
+                          pp_step_bf16["text_logits"])
+    pp_model.params = p
+    pp_limit = SHARD_FLOOR_TIMES * pp_floor
+    shard_k1_check({"layers": [p["layers"][0]], "text_head": p["text_head"]}, pp_model.cfg,
+                   shard_persona_params, 1, "PersonaPlex")
+    pp_ref = shard_pp_run(pp_model, k1_counter)
+    del pp_model, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t0
+    log(f"shard world 1: {len(clips)} clips of {SHARD_CLIPS_S[0]}-{SHARD_CLIPS_S[-1]} s, "
+        f"{ref['steps']} decode steps in {ref['wall']:.3f} s (fp32, launches {ref['launches']}, "
+        f"from the code K1 {ref['k1_from_code']}, K3 {ref['k3_from_code']}); the floor, world "
+        f"1 with q/k/v and gate/up unfused and the plain product in place of K1, "
+        f"teacher-forced step rel L2: "
+        + ", ".join(f"{STEP_KEYS[k]} {v:.3e}" for k, v in floors.items())
+        + f"; PersonaPlex bf16 first text logits {pp_floor:.3e}; PersonaPlex "
+          f"{pp_ref['frames']} frames in {pp_ref['wall']:.3f} s; {t_one:.1f} s in all")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="qs_shard_") as out_dir:
+        ranks = spawn(shard_rank, world,
+                      args=(1, world, torch.from_numpy(np.asarray(ref["tok0"])), text_token,
+                            dep_tokens, dp_split, out_dir),
+                      device="cuda", backend=backend, timeout=SHARD_TIMEOUT_S, threads=None)
+        t_ranks = time.perf_counter() - t0
+        bad = []
+        for r, out in enumerate(ranks):
+            log(f"shard rank {r}: {out['mesh']}: {out['seconds']:.1f} s, {out['collectives']} "
+                f"collectives in the runs; apart, in a window of back-to-back sums: "
+                + ", ".join(f"[{s[0]}, {s[1]}] fp32 {ms:.4f} ms each"
+                            for s, ms in out["collective_ms"].items())
+                + f" ({backend}{' between ranks sharing one card, not NVLink' if cards < 2 else ''}"
+                  f"); PersonaPlex shard {out['pp_bytes'] / 2**30:.2f} GiB")
+            for name in ("tp",) + (("dp",) if dp_split else ()):
+                a = out["asr_" + name]
+                lo, hi = a["rows"]
+                want_k1, want_k3 = a["k1_from_code"], a["k3_from_code"]
+                got = a["launches"]
+                rels = {k: rel_l2(a[k], ref[k]) for k in STEP_KEYS}
+                log(f"shard rank {r} ASR {name}: rows [{lo}, {hi}) of {len(clips)}, {a['steps']} "
+                    f"decode steps in {a['wall']:.3f} s; teacher-forced step logits rel L2 "
+                    + ", ".join(f"{STEP_KEYS[k]} {v:.3e} (tol {limits[k]:.3e})"
+                                for k, v in rels.items())
+                    + f"; launches {got}, from the code K1 {want_k1}, K3 {want_k3}")
+                if got.get("quant_matmul_cuda") != want_k1 or got.get(
+                        "decode_attention_int8") != want_k3:
+                    bad.append(f"rank {r} ASR {name}: launches {got}, the code says K1 "
+                               f"{want_k1}, K3 {want_k3}")
+                bad += [f"rank {r} ASR {name}: {STEP_KEYS[k]} step logits rel L2 {v} > "
+                        f"{limits[k]}" for k, v in rels.items() if not v <= limits[k]]
+            p = out["pp"]
+            text_rel = rel_l2(out["pp_step"]["text_logits"], pp_step["text_logits"])
+            cb0_rel = rel_l2(out["pp_step"]["cb0_logits"], pp_step["cb0_logits"])
+            text_bf16 = rel_l2(out["pp_step_bf16"]["text_logits"], pp_step_bf16["text_logits"])
+            log(f"shard rank {r} PersonaPlex: {p['frames']} frames in {p['wall']:.3f} s; first "
+                f"frame's text logits rel L2 in fp32 ({SHARD_PP_FP32_LAYERS} layers) "
+                f"{text_rel:.3e} (tol {SHARD_PP_TOL:g}), codebook-0 {cb0_rel:.3e}; in bf16 "
+                f"{text_bf16:.3e} (tol {pp_limit:.3e}); K1 launches {p['launches']}, from the "
+                f"code {p['k1_from_code']}")
+            if p["launches"] != p["k1_from_code"]:
+                bad.append(f"rank {r} PersonaPlex: K1 launched {p['launches']}, the code says "
+                           f"{p['k1_from_code']}")
+            if not text_rel <= SHARD_PP_TOL:
+                bad.append(f"rank {r} PersonaPlex: fp32 text logits rel L2 {text_rel} > "
+                           f"{SHARD_PP_TOL}")
+            if not text_bf16 <= pp_limit:
+                bad.append(f"rank {r} PersonaPlex: bf16 text logits rel L2 {text_bf16} > "
+                           f"{pp_limit}")
+            if bad:
+                raise AssertionError("phase shard: " + "; ".join(bad))
+            for name in ("tp",) + (("dp",) if dp_split else ()):
+                a = out["asr_" + name]
+                path, tokens = a["calls"]
+                shard_partings(f"shard rank {r} ASR {name}", (np.load(path), tokens),
+                               ref["calls"], range(*a["rows"]))
+            shard_partings(f"shard rank {r} PersonaPlex", p["calls"], pp_ref["calls"], range(1))
+            if not any(t[0] != w[0] for (_, t), (_, w) in zip(p["calls"], pp_ref["calls"])) and (
+                    len(p["samples"]) != len(pp_ref["samples"])
+                    or not np.array_equal(p["samples"], pp_ref["samples"])):
+                raise AssertionError(f"phase shard: rank {r} PersonaPlex: the same codes gave "
+                                     "other samples")
+    log(f"shard: ranks {t_ranks:.1f} s (spawn, draws, runs); phase {time.perf_counter() - t_phase:.1f} s")
+    a = ranks[0]["asr_tp"]["launches"]
+    return a["quant_matmul_cuda"], a["decode_attention_int8"]
+
+
 def phase_cli(dev_name):
     """``python -m qwen3_asr_swift_tpu_torch.cli`` on the card (its default
     device) with ``--random-weights``: transcribe, transcribe-batch, align,
@@ -5462,6 +6075,8 @@ def main() -> int:
     mark("parakeet_stream")
     phase_omnilingual(dev, counters, dev_name, power)
     mark("omnilingual")
+    k1["launches_shard"], k3["launches_shard"] = phase_shard(dev, counters, dev_name, power)
+    mark("shard")
     phase_cli(dev_name)
     mark("cli")
     if "jax" in sys.modules:

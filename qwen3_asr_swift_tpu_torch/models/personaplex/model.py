@@ -32,7 +32,19 @@ The full-duplex :class:`RealtimeSession` (``PersonaPlex.realtime_session``)
 runs one 80 ms frame a call: streaming Mimi encode, the temporal step with
 the stream delays, the text sampler and the depformer over the session's
 rolling repetition histories, streaming Mimi decode; ``batch`` sessions
-step together. Not ported yet: ``shard``.
+step together.
+
+:meth:`PersonaPlex.shard` spreads the model over a tp mesh of ranks
+(``parallel/``, one process a device, each running the same conversation):
+the temporal layers are column- (q/k/v, gate/up) and row-parallel (o,
+down: a sum over tp each), the text head column-parallel with its logits
+gathered before the sampler, the depformer banks ``[steps, in, out]``
+split on ``out`` for ``in_proj``/``gating_in``/``dep_heads_bank`` (each of
+the fused q|k|v and gate|value blocks split alike) and on ``in`` for
+``out_proj``/``gating_out``; Mimi stays whole. Packed temporal products
+run K1 on each rank's shard. Every rank samples from the gathered logits
+with its own ``torch.Generator`` seeded alike, so every rank draws the
+same tokens.
 """
 
 from __future__ import annotations
@@ -52,9 +64,11 @@ from ...core.types import AudioChunk
 from ...device import resolve_device
 from ...ops.attention import NEG_INF, sdpa
 from ...ops.kv_cache import after_prefill, after_token, cache_kv, init_cache, write_prompt, write_token
-from ...ops.nn import fuse_qkv_gate_up, linear, rms_norm, split_linear, swiglu_mlp
+from ...ops.nn import (fuse_qkv_gate_up, linear, out_features, rms_norm, row_linear,
+                       swiglu_mlp, unfuse_qkv_gate_up)
 from ...ops.quant import cast_tree, quantize_tree
 from ...ops.rope import apply_rope, rope_angles
+from ...parallel.mesh import sharded
 from .mimi import (MimiConfig, init_mimi_decoder_stream, init_mimi_encoder_stream,
                    init_mimi_params, mimi_decode, mimi_decode_frame, mimi_encode,
                    mimi_encode_frame)
@@ -231,21 +245,7 @@ def fuse_temporal_params(params) -> dict:
 def unfuse_temporal_params(params, cfg: PersonaPlexConfig) -> dict:
     """Exact inverse of :func:`fuse_temporal_params` (output-row slices)."""
     d = cfg.num_heads * cfg.head_dim
-    out = dict(params)
-    layers = []
-    for p in params["layers"]:
-        p = dict(p)
-        if "qkv_proj" in p:
-            p["q_proj"], p["k_proj"], p["v_proj"] = split_linear(p.pop("qkv_proj"), (d, 2 * d))
-        mlp = dict(p["mlp"])
-        if "gate_up_proj" in mlp:
-            gu = mlp.pop("gate_up_proj")
-            inter = (gu["codes"].shape[0] if "codes" in gu else gu["kernel"].shape[1]) // 2
-            mlp["gate_proj"], mlp["up_proj"] = split_linear(gu, (inter,))
-            p["mlp"] = mlp
-        layers.append(p)
-    out["layers"] = layers
-    return out
+    return unfuse_qkv_gate_up(params, d, d)
 
 
 def embed_frame(params, cfg: PersonaPlexConfig, text_tok, user_codes, agent_codes):
@@ -308,7 +308,21 @@ def depformer_provided_tokens(user_codes, step: int, user_frames: int, cfg: Pers
     return torch.cat([agent_bank, cb0[:, None].long(), ac.long()], dim=1)
 
 
-def _temporal_layer(p, x, positions, mask, layer_kv, cfg, decode: bool, cursor: int = 0):
+def temporal_heads(params, cfg: PersonaPlexConfig) -> int:
+    """The temporal heads this rank's tree holds (all unless tp cut them)."""
+    p = params["layers"][0]
+    return cfg.num_heads if "q_proj" not in p else out_features(p["q_proj"]) // cfg.head_dim
+
+
+def text_logits(params, cfg: PersonaPlexConfig, hidden, mesh=None) -> torch.Tensor:
+    """The text head's fp32 logits, gathered over tp where it is cut."""
+    logits = linear(hidden, params["text_head"]).float()
+    head = sharded(mesh, out_features(params["text_head"]), cfg.text_vocab)
+    return logits if head is None else mesh.tp_gather(logits, dim=-1)
+
+
+def _temporal_layer(p, x, positions, mask, layer_kv, cfg, decode: bool, cursor: int = 0,
+                    mesh=None):
     b, t, _ = x.shape
     hd = cfg.head_dim
     h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
@@ -316,9 +330,9 @@ def _temporal_layer(p, x, positions, mask, layer_kv, cfg, decode: bool, cursor: 
         qkv = linear(h, p["qkv_proj"]).reshape(b, t, 3, cfg.num_heads, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     else:
-        q = linear(h, p["q_proj"]).reshape(b, t, cfg.num_heads, hd)
-        k = linear(h, p["k_proj"]).reshape(b, t, cfg.num_heads, hd)
-        v = linear(h, p["v_proj"]).reshape(b, t, cfg.num_heads, hd)
+        q = linear(h, p["q_proj"]).reshape(b, t, -1, hd)
+        k = linear(h, p["k_proj"]).reshape(b, t, -1, hd)
+        v = linear(h, p["v_proj"]).reshape(b, t, -1, hd)
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     cos, sin = cos[:, None], sin[:, None]
     q = apply_rope(q.transpose(1, 2), cos, sin)
@@ -331,14 +345,18 @@ def _temporal_layer(p, x, positions, mask, layer_kv, cfg, decode: bool, cursor: 
     else:
         write_prompt(layer_kv, k, v)
         attn = sdpa(q, k, v, 1.0 / np.sqrt(hd), mask)
-    x = x + linear(attn.transpose(1, 2).reshape(b, t, -1), p["o_proj"])
+    x = x + row_linear(attn.transpose(1, 2).reshape(b, t, -1), p["o_proj"],
+                       sharded(mesh, q.shape[1], cfg.num_heads))
     h2 = rms_norm(x, p["post_attention_layernorm"]["weight"], cfg.rms_norm_eps)
-    return x + swiglu_mlp(h2, p["mlp"])
+    gate = p["mlp"].get("gate_proj")
+    return x + swiglu_mlp(h2, p["mlp"], None if gate is None else
+                          sharded(mesh, out_features(gate), cfg.intermediate_size))
 
 
-def temporal_prefill(params, cfg, embeds, valid, cache):
+def temporal_prefill(params, cfg, embeds, valid, cache, mesh=None):
     """The prompt through every temporal layer into ``cache`` (in place).
-    embeds [B, T, d], valid [B, T] bool → (hidden [B, T, d], cache)."""
+    embeds [B, T, d], valid [B, T] bool → (hidden [B, T, d], cache).
+    ``mesh``: the tree is this tp rank's shard."""
     t = embeds.shape[1]
     dev = embeds.device
     vi = valid.to(torch.int32)
@@ -348,19 +366,19 @@ def temporal_prefill(params, cfg, embeds, valid, cache):
     mask = torch.where((cols <= rows) & valid[:, None, :], 0.0, NEG_INF).to(torch.float32)[:, None]
     x = embeds
     for p, layer_kv in zip(params["layers"], cache.layers):
-        x = _temporal_layer(p, x, positions, mask, layer_kv, cfg, False)
+        x = _temporal_layer(p, x, positions, mask, layer_kv, cfg, False, mesh=mesh)
     x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
     return x, after_prefill(cache, valid, t)
 
 
-def temporal_step(params, cfg, embeds, cache):
+def temporal_step(params, cfg, embeds, cache, mesh=None):
     """One frame: embeds [B, 1, d] → (hidden [B, d], cache advanced)."""
     positions = cache.positions[:, None]
     written = torch.arange(cache.valid.shape[1], device=embeds.device)[None, :] == cache.cursor
     mask = torch.where(cache.valid | written, 0.0, NEG_INF).to(torch.float32)[:, None, None, :]
     x = embeds
     for p, layer_kv in zip(params["layers"], cache.layers):
-        x = _temporal_layer(p, x, positions, mask, layer_kv, cfg, True, cache.cursor)
+        x = _temporal_layer(p, x, positions, mask, layer_kv, cfg, True, cache.cursor, mesh)
     x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
     return x[:, 0], after_token(cache)
 
@@ -392,14 +410,40 @@ def _sample_topk(logits, generator: Optional[torch.Generator], top_k: int, tempe
     return torch.argmax(lg, dim=-1)
 
 
-def _depformer_step(params, cfg: PersonaPlexConfig, x, step: int, k_caches, v_caches):
+def _bank_sum(h, bank, mesh):
+    """``h @ bank`` of a row-parallel bank slice, summed over tp: each
+    rank's partial in fp32 (none rounds before the sum), the sum rounded
+    once to h's dtype."""
+    if mesh is None:
+        return torch.matmul(h, bank)
+    return mesh.tp_sum(torch.matmul(h.float(), bank.float())).to(h.dtype)
+
+
+def _dep_heads(params, cfg: PersonaPlexConfig) -> int:
+    """The depformer heads this rank's ``in_proj`` bank holds."""
+    return params["dep_layers"][0]["in_proj"].shape[-1] // 3 // (cfg.dep_d_model // cfg.dep_heads)
+
+
+def _dep_logits(params, cfg: PersonaPlexConfig, x, step: int, mesh=None):
+    """Codebook ``step``'s head on the depformer output, gathered over tp
+    where the bank is cut."""
+    bank = params["dep_heads_bank"]
+    logits = torch.matmul(x, bank[step])
+    head = sharded(mesh, bank.shape[-1], cfg.audio_card)
+    return logits if head is None else mesh.tp_gather(logits, dim=-1)
+
+
+def _depformer_step(params, cfg: PersonaPlexConfig, x, step: int, k_caches, v_caches,
+                    mesh=None):
     """One depformer forward (t=1) at codebook position ``step``: the
     step's weight banks, a ``dep_context``-window attention with no
     positional encoding, gated-SiLU FFN. The caches [B, nh, S, dh] a layer
-    are written in place."""
+    are written in place (this rank's heads under tp)."""
     b = x.shape[0]
-    dd, nh = cfg.dep_d_model, cfg.dep_heads
-    dh = dd // nh
+    dd = cfg.dep_d_model
+    dh = dd // cfg.dep_heads
+    nh = _dep_heads(params, cfg)
+    attn_mesh = sharded(mesh, nh, cfg.dep_heads)
     cols = torch.arange(cfg.num_codebooks, device=x.device)
     mask = torch.where((cols <= step) & (cols > step - cfg.dep_context), 0.0,
                        NEG_INF).to(torch.float32)[None, None, None, :]
@@ -410,17 +454,19 @@ def _depformer_step(params, cfg: PersonaPlexConfig, x, step: int, k_caches, v_ca
         k_caches[li][:, :, step] = qkv[:, 0, 1].to(k_caches[li].dtype)
         v_caches[li][:, :, step] = qkv[:, 0, 2].to(v_caches[li].dtype)
         attn = sdpa(q, k_caches[li], v_caches[li], 1.0 / np.sqrt(dh), mask)
-        attn = attn.transpose(1, 2).reshape(b, 1, dd)
-        x = x + torch.matmul(attn, p["out_proj"][step])
+        attn = attn.transpose(1, 2).reshape(b, 1, nh * dh)
+        x = x + _bank_sum(attn, p["out_proj"][step], attn_mesh)
         h2 = rms_norm(x, p["norm2"]["weight"], cfg.rms_norm_eps)
         gate, value = torch.matmul(h2, p["gating_in"][step]).chunk(2, dim=-1)
-        x = x + torch.matmul(torch.nn.functional.silu(gate) * value, p["gating_out"][step])
+        ffn_mesh = sharded(mesh, gate.shape[-1], cfg.dep_ff)
+        x = x + _bank_sum(torch.nn.functional.silu(gate) * value, p["gating_out"][step],
+                          ffn_mesh)
     return x
 
 
-def _dep_caches(cfg: PersonaPlexConfig, b: int, like: torch.Tensor):
+def _dep_caches(cfg: PersonaPlexConfig, b: int, like: torch.Tensor, heads: int = None):
     dh = cfg.dep_d_model // cfg.dep_heads
-    shape = (b, cfg.dep_heads, cfg.num_codebooks, dh)
+    shape = (b, heads or cfg.dep_heads, cfg.num_codebooks, dh)
     return ([like.new_zeros(shape) for _ in range(cfg.dep_layers)],
             [like.new_zeros(shape) for _ in range(cfg.dep_layers)])
 
@@ -432,22 +478,22 @@ def _dep_input(params, temporal_hidden, step: int, prev_emb):
 
 def depformer_generate(params, cfg: PersonaPlexConfig, temporal_hidden, text_token,
                        generator: Optional[torch.Generator], sampling: PersonaSampling,
-                       provided=None, history=None):
+                       provided=None, history=None, mesh=None):
     """The 16 codebooks of one frame: step k's input is
     ``dep_in[k](temporal_hidden) + emb(prev)``, prev the sampled text token
     at k = 0 (``dep_text_emb``) and the previous code after; heads apply to
     the hidden state directly. ``provided`` [B, 16] forces tokens (-1 =
     sample); ``history`` [B, 16, W] holds each codebook's recent codes for
     the audio repetition penalty. temporal_hidden [B, d]; text_token [B] →
-    codes int64 [B, 16]."""
+    codes int64 [B, 16]. ``mesh``: the banks are this tp rank's shard."""
     b = temporal_hidden.shape[0]
-    k_caches, v_caches = _dep_caches(cfg, b, temporal_hidden)
+    k_caches, v_caches = _dep_caches(cfg, b, temporal_hidden, _dep_heads(params, cfg))
     prev_emb = params["dep_text_emb"][text_token]
     codes = []
     for step in range(cfg.num_codebooks):
         x = _depformer_step(params, cfg, _dep_input(params, temporal_hidden, step, prev_emb),
-                            step, k_caches, v_caches)
-        logits = torch.matmul(x[:, 0], params["dep_heads_bank"][step])
+                            step, k_caches, v_caches, mesh)
+        logits = _dep_logits(params, cfg, x[:, 0], step, mesh)
         code = _sample_topk(logits, generator, sampling.audio_top_k, sampling.audio_temperature,
                             history=None if history is None else history[:, step],
                             penalty=sampling.audio_repetition_penalty)
@@ -460,21 +506,40 @@ def depformer_generate(params, cfg: PersonaPlexConfig, temporal_hidden, text_tok
 
 
 def depformer_forward_logits(params, cfg: PersonaPlexConfig, temporal_hidden, text_token,
-                             audio_tokens):
+                             audio_tokens, mesh=None):
     """Teacher-forced depformer logits: step k's input is the GIVEN previous
     token (text at k = 0, audio_tokens[:, k-1] after).
     → [B, num_codebooks, audio_card]."""
     b = temporal_hidden.shape[0]
-    k_caches, v_caches = _dep_caches(cfg, b, temporal_hidden)
+    k_caches, v_caches = _dep_caches(cfg, b, temporal_hidden, _dep_heads(params, cfg))
     prev_emb = params["dep_text_emb"][text_token]
     logits = []
     for step in range(cfg.num_codebooks):
         x = _depformer_step(params, cfg, _dep_input(params, temporal_hidden, step, prev_emb),
-                            step, k_caches, v_caches)
-        logits.append(torch.matmul(x[:, 0], params["dep_heads_bank"][step]))
+                            step, k_caches, v_caches, mesh)
+        logits.append(_dep_logits(params, cfg, x[:, 0], step, mesh))
         if step < cfg.num_codebooks - 1:
             prev_emb = params["dep_embed"][step][audio_tokens[:, step]]
     return torch.stack(logits, dim=1)
+
+
+def shard_persona_params(params, cfg: PersonaPlexConfig, mesh) -> dict:
+    """This rank's shard of the temporal transformer and depformer by
+    ``PERSONAPLEX_RULES``: the temporal q/k/v and gate/up are unfused so
+    that each projection takes its own rule, and re-fused only where tp
+    leaves them whole; the depformer's fused banks are cut block by block."""
+    from ...parallel import PERSONAPLEX_RULES, shard_pytree
+
+    layer, dep = r"((?:.*/)?layers/\d+/)", r"(.*dep_layers/\d+/)"
+    p = shard_pytree(
+        unfuse_temporal_params(params, cfg), mesh, PERSONAPLEX_RULES,
+        heads=((r"(?:.*/)?layers/\d+/(q_proj|k_proj|v_proj|o_proj)/", cfg.num_heads),
+               (r".*dep_layers/\d+/(in_proj|out_proj)$", cfg.dep_heads)),
+        fused=((r".*dep_layers/\d+/in_proj$", 3), (r".*dep_layers/\d+/gating_in$", 2)),
+        ties=(layer + r"(q_proj|k_proj|v_proj|o_proj)/",
+              layer + r"mlp/(gate_proj|up_proj|down_proj)/",
+              dep + r"(in_proj|out_proj)$", dep + r"(gating_in|gating_out)$"))
+    return fuse_temporal_params(p) if mesh.tp == 1 else p
 
 
 class PersonaPlex(SpeechToSpeechModel):
@@ -501,6 +566,7 @@ class PersonaPlex(SpeechToSpeechModel):
         self.params = cast_tree(fuse_temporal_params(p), dtype)
         del p
         self.mimi_params = params_from_jax(mimi_params, self.device, torch.float32)
+        self._mesh = None  # set by shard()
         #: snapshot directory (set by from_pretrained) — named voice presets
         self.model_dir: Optional[str] = None
         #: frames the last conversation loop ran, and its host reads of the
@@ -832,7 +898,7 @@ class PersonaPlex(SpeechToSpeechModel):
         k = cfg.temporal_codebooks
         b, v_cap = voice_embeds.shape[:2]
         p_cap = prompt_reads.shape[2]
-        cache = init_cache(cfg.num_layers, b, cfg.num_heads, v_cap + p_cap + max_steps,
+        cache = init_cache(cfg.num_layers, b, temporal_heads(p, cfg), v_cap + p_cap + max_steps,
                            cfg.head_dim, kv_dtype or self.dtype, device=dev)
         reads = prompt_reads.transpose(1, 2).reshape(b * p_cap, -1)      # [B·P, 17]
         prompt_emb = embed_frame(p, cfg, reads[:, 0], reads[:, 1 + k:], reads[:, 1:1 + k])
@@ -842,14 +908,15 @@ class PersonaPlex(SpeechToSpeechModel):
         n_prompt = torch.as_tensor(n_prompt, device=dev).reshape(-1, 1)
         valid = torch.cat([torch.arange(v_cap, device=dev)[None] < n_voice,
                            torch.arange(p_cap, device=dev)[None] < n_prompt], dim=1)
-        _, cache = temporal_prefill(p, cfg, embeds, valid.expand(b, -1), cache)
+        _, cache = temporal_prefill(p, cfg, embeds, valid.expand(b, -1), cache, self._mesh)
         return cache
 
     def _frame_hidden(self, cache, text_prev, user_read, agent_prev):
         """One temporal step: (hidden [1, d], text logits [1, V] fp32)."""
         embeds = embed_frame(self.params, self.cfg, text_prev, user_read, agent_prev)
-        hidden, cache = temporal_step(self.params, self.cfg, embeds[:, None].to(self.dtype), cache)
-        return hidden, linear(hidden, self.params["text_head"]).float()
+        hidden, cache = temporal_step(self.params, self.cfg, embeds[:, None].to(self.dtype), cache,
+                                      self._mesh)
+        return hidden, text_logits(self.params, self.cfg, hidden, self._mesh)
 
     @torch.inference_mode()
     def _converse(self, user_codes, voice_embeds, n_voice: int, prompt_reads, n_prompt: int,
@@ -913,7 +980,7 @@ class PersonaPlex(SpeechToSpeechModel):
                 start = min(max(start, 0), max_steps - rep_w)
                 audio_hist = agent_out[:, :, start:start + rep_w]
             codes = depformer_generate(self.params, cfg, hidden, text_tok, generator, sampling,
-                                       provided=provided, history=audio_hist)
+                                       provided=provided, history=audio_hist, mesh=self._mesh)
             agent_out[:, :, step] = torch.where(live[:, None], codes, agent_out[:, :, step])
             counted = step >= user_frames
             if counted:
@@ -984,6 +1051,22 @@ class PersonaPlex(SpeechToSpeechModel):
     def _decode(self, codes: torch.Tensor) -> np.ndarray:
         """Agent codes [1, 16, F] → 24 kHz samples [F·1920] on the host."""
         return mimi_decode(self.mimi_params, self.cfg.mimi, codes)[0].float().cpu().numpy()
+
+    def shard(self, mesh=None, dp: Optional[int] = None, tp: Optional[int] = None
+              ) -> "PersonaPlex":
+        """Spread the temporal transformer and the depformer over a mesh of
+        ranks by ``PERSONAPLEX_RULES`` (the 7B's d-4096 layers are the tp
+        target; Mimi, a small conv codec, stays whole). Every rank calls
+        this with the same arguments on the same weights. Returns self.
+
+            model = PersonaPlex.init_random_on_device(device=f"cuda:{rank}").shard(tp=2)
+        """
+        from ...parallel import make_mesh
+
+        mesh = mesh or make_mesh(dp=dp, tp=tp, device=self.device)
+        self.params = shard_persona_params(self.params, self.cfg, mesh)
+        self._mesh = mesh
+        return self
 
     def respond(self, audio: np.ndarray, sample_rate: int = 16000,
                 sampling: Optional[PersonaSampling] = None, max_extra_s: float = 4.0,
@@ -1164,18 +1247,20 @@ class RealtimeSession:
                                          device=enc.device),
                               enc[:, :1], self._user1[:, 1:k]], dim=1)
         embeds = embed_frame(p, cfg, self._text, user_read, self._agent)[:, None]
-        hidden, self._cache = temporal_step(p, cfg, embeds.to(model.dtype), self._cache)
+        hidden, self._cache = temporal_step(p, cfg, embeds.to(model.dtype), self._cache,
+                                            model._mesh)
         # both repetition penalties run over the session's own rolling
         # histories every frame (unlike respond(), whose text history starts
         # after the user's turn)
         rep_on = sampling.repetition_window > 0
-        text_tok = _sample_topk(linear(hidden, p["text_head"]).float(), self._generator,
+        text_tok = _sample_topk(text_logits(p, cfg, hidden, model._mesh), self._generator,
                                 sampling.text_top_k, sampling.text_temperature,
                                 history=self._text_hist if rep_on else None,
                                 penalty=sampling.text_repetition_penalty)
         codes = depformer_generate(p, cfg, hidden, text_tok, self._generator, sampling,
                                    provided=provided,
-                                   history=self._audio_hist if rep_on else None)
+                                   history=self._audio_hist if rep_on else None,
+                                   mesh=model._mesh)
         self._audio_hist = torch.cat([self._audio_hist[:, :, 1:], codes[:, :, None]], dim=2)
         self._text_hist = torch.cat([self._text_hist[:, 1:], text_tok[:, None]], dim=1)
         wav, self._dec = mimi_decode_frame(

@@ -61,7 +61,7 @@ def beam_search(model, audio_tokens, n_audio, prompt, max_new: int, beam: int,
 
     step = 1
     while step < max_new and not bool(fin.all()):   # the reference's loop condition
-        logits, cache = decode_step(model.decoder_params, dcfg, tok, cache)
+        logits, cache = decode_step(model.decoder_params, dcfg, tok, cache, model._mesh)
         logp = torch.log_softmax(logits.float(), dim=-1)
         logp = torch.where(fin[:, None], pad_row[None, :], logp)
         cand = (scores[:, None] + logp).reshape(b, k * v)

@@ -27,8 +27,26 @@ and decode chunk holds a gate slot and syncs before releasing it; a
 request's first chunk rides the latency lane, and a single gated clip runs
 encode, prefill and its first chunk under one latency slot.
 
+:meth:`Qwen3ASR.shard` spreads the model over a (dp, tp) mesh of ranks
+(``parallel/``), one process a device, every rank calling
+``transcribe_batch`` with the same batch (SPMD) and getting every result:
+
+- dp splits the batch into contiguous row ranges, padded with copies of
+  the last clip so that dp divides it; each rank stages, encodes and
+  decodes its rows, and the tokens and logprobs are gathered over dp;
+- tp cuts the encoder and the unfused decoder by the rule tables: K1 runs
+  on each rank's packed shard and K3 on its kv heads, the logits are
+  gathered before sampling, so every rank of a tp row picks the same
+  tokens;
+- on a dp mesh one utterance of two or more windows takes the
+  sequence-parallel encode instead (the float and µ-law wires);
+- beam search is refused on dp meshes, group-dot on any mesh, as the
+  reference refuses them. Temperature draws are taken for the whole
+  request and sliced to the rank's rows, so a dp run samples what one
+  device samples.
+
 :meth:`Qwen3ASR.from_pretrained` loads a checkpoint from a local directory
-(hub download is not ported). Not ported yet: sharding.
+(hub download is not ported).
 """
 
 from __future__ import annotations
@@ -58,7 +76,8 @@ from ...serving.dispatch import BULK, LATENCY, gate_slot
 from ...tokenizers.bpe import BPETokenizer
 from .beam import beam_search
 from .config import CONFIG_SMALL, Qwen3ASRConfig, detect_config
-from .decoder import decode_step, fuse_for_inference, make_cache, prefill
+from .decoder import (decode_step, fuse_for_inference, local_kv_heads, make_cache, prefill,
+                      shard_decoder, tp_parts)
 from .encoder import encode
 
 # Audio buckets in seconds — multiples of 8 s so mel frames tile the
@@ -73,15 +92,20 @@ def _round_block(n: int, quantum: int = 32) -> int:
 
 @dataclasses.dataclass
 class _StagedBatch:
-    """A batch whose wire payload is already on the device."""
+    """A batch whose wire payload is already on the device (this rank's
+    rows of it on a dp mesh)."""
 
     padded: torch.Tensor
     scales: Optional[torch.Tensor]   # pcm4/dpcm4 block scales, else None
     n_valid: torch.Tensor            # [B] valid mel frames
     bucket: int                      # mel frames of the bucket
-    b: int
+    b: int                           # rows on this device
     n_req: int
     durations: List[float]
+    use_sp: bool = False             # one clip, sequence-parallel encode
+    dp: int = 1                      # dp ranks the rows are split over
+    rows: Optional[slice] = None     # this rank's rows of the padded batch
+    b_global: int = 0                # the padded batch over every dp rank
 
 
 @dataclasses.dataclass
@@ -103,6 +127,9 @@ class DecodeState:
     done: torch.Tensor         # [B] bool
     last_tok: torch.Tensor     # [B] int64
     generator: Optional[torch.Generator] = None   # temperature noise
+    #: (first row, rows of the request) on a dp rank: temperature noise is
+    #: drawn for the request and this rank's rows kept (ops/sampling.py)
+    noise_rows: Optional[tuple] = None
 
 
 class Qwen3ASR(SpeechRecognitionModel):
@@ -156,6 +183,13 @@ class Qwen3ASR(SpeechRecognitionModel):
         self.max_tokens = 448
         self.mel_cfg = mel_cfg
         self.tokenizer = tokenizer
+        self._mesh = None  # set by shard()
+        #: introspection: the last staged batch's size, sharding, this
+        #: device's rows and their shape
+        self.last_staging: dict = {}
+        #: decode steps (``decode_step`` calls) the last greedy or sampled
+        #: generate ran
+        self.last_loop = {"decode_steps": 0}
         if isinstance(wire_dtype, str) and wire_dtype not in _WIRES:
             raise ValueError(f"unknown wire format {wire_dtype!r}")
         self._wire_name = wire_dtype if isinstance(wire_dtype, str) else None
@@ -278,11 +312,29 @@ class Qwen3ASR(SpeechRecognitionModel):
         return stage, prepared
 
     def prestage(self, audios: Sequence[np.ndarray], sample_rate: int = 16000) -> _StagedBatch:
-        """Host preparation and the copy to the device, apart from compute."""
+        """Host preparation and the copy to the device, apart from compute.
+        On a dp mesh the batch is padded with copies of the last clip so
+        that dp divides it, and this rank copies only its rows; one clip of
+        two or more encoder windows takes the sequence-parallel encode
+        instead (every rank stages it)."""
         durations = [len(a) / sample_rate for a in audios]
+        n_req = len(audios)
+        mesh = self._mesh
+        dp = mesh.dp if mesh is not None else 1
+        if dp > 1 and n_req % dp:
+            audios = list(audios) + [audios[-1]] * (dp - n_req % dp)
         stage, prepared = self.staging_buffer(audios, sample_rate)
         bucket = max(p[2] for p in prepared)
-        b = len(prepared)
+        use_sp = (n_req == 1 and dp > 1 and not self._wire4
+                  and bucket >= 2 * self.cfg.encoder.n_window_infer)
+        if use_sp:
+            dp, stage, prepared = 1, stage[:1], prepared[:1]
+        b_global = len(prepared)
+        rows = slice(0, b_global)
+        if dp > 1:
+            from ...parallel import batch_sharding
+
+            rows = batch_sharding(mesh, b_global)
         scales = None
         if self._wire4:
             enc4 = dpcm4_encode_np if self._wire_name == "dpcm4" else pcm4_encode_np
@@ -291,11 +343,20 @@ class Qwen3ASR(SpeechRecognitionModel):
             stage = mulaw_encode_np(stage)
         elif self.wire_dtype == np.int16:
             stage = np.round(np.clip(stage, -1.0, 1.0) * 32767.0).astype(np.int16)
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)  # noqa: E731
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a[rows])).to(self.device)  # noqa: E731
         n_valid = np.array([p[1] for p in prepared], np.int64)
-        return _StagedBatch(padded=put(stage), scales=put(scales) if scales is not None else None,
-                            n_valid=put(n_valid), bucket=bucket, b=b, n_req=len(audios),
-                            durations=durations)
+        padded = put(stage)
+        self.last_staging = {
+            "batch": b_global,
+            "sharding": (f"dp {dp}: rows [{rows.start}, {rows.stop})" if dp > 1
+                         else "sequence-parallel" if use_sp else "whole"),
+            "rows": (rows.start, rows.stop),
+            "per_device_shape": tuple(padded.shape),
+        }
+        return _StagedBatch(padded=padded, scales=put(scales) if scales is not None else None,
+                            n_valid=put(n_valid), bucket=bucket, b=padded.shape[0],
+                            n_req=n_req, durations=durations, use_sp=use_sp, dp=dp,
+                            rows=rows, b_global=b_global)
 
     # ------------------------------------------------------------------ #
     # device stages
@@ -314,7 +375,8 @@ class Qwen3ASR(SpeechRecognitionModel):
     def _encode(self, st: _StagedBatch):
         """wire → mel → encoder: (audio tokens [B, a_pad, out], n_audio [B])."""
         mel = self._wire_to_mel(st.padded, st.n_valid, st.bucket, st.scales)
-        return encode(self.encoder_params, mel, st.n_valid, self.cfg.encoder)
+        return encode(self.encoder_params, mel, st.n_valid, self.cfg.encoder, mesh=self._mesh,
+                      sp_mesh=self._mesh if st.use_sp else None)
 
     def _build_prompt(self, language: Optional[str], context: Optional[str]):
         """Chat-template ids around the audio block."""
@@ -354,36 +416,40 @@ class Qwen3ASR(SpeechRecognitionModel):
         sb = prompt.suffix_ids.shape[1]
         a_pad = audio_tokens.shape[1]
         table = self.decoder_params["embed_tokens"]
-        emb_prefix = embedding_lookup(table, prompt.prefix_ids, dcfg.hidden_size)
-        emb_suffix = embedding_lookup(table, prompt.suffix_ids, dcfg.hidden_size)
+        vocab_mesh = tp_parts(self.decoder_params, dcfg, self._mesh)[2]
+        emb_prefix = embedding_lookup(table, prompt.prefix_ids, dcfg.hidden_size, vocab_mesh)
+        emb_suffix = embedding_lookup(table, prompt.suffix_ids, dcfg.hidden_size, vocab_mesh)
         embeds = torch.cat([emb_prefix, audio_tokens.to(emb_prefix.dtype), emb_suffix], dim=1)
         valid = torch.cat([
             torch.arange(pb, device=dev)[None] < prompt.prefix_len[:, None],
             torch.arange(a_pad, device=dev)[None] < n_audio[:, None],
             torch.arange(sb, device=dev)[None] < prompt.suffix_len[:, None],
         ], dim=1)
-        cache = make_cache(dcfg, b, cache_len, kv_dtype, device=dev)
-        hidden, cache = prefill(self.decoder_params, dcfg, embeds, valid, cache)
+        cache = make_cache(dcfg, b, cache_len, kv_dtype, device=dev,
+                           kv_heads=local_kv_heads(self.decoder_params, dcfg))
+        hidden, cache = prefill(self.decoder_params, dcfg, embeds, valid, cache, self._mesh)
         last_idx = pb + a_pad + prompt.suffix_len - 1
-        logits = tied_lm_head(hidden[torch.arange(b, device=dev), last_idx], table)
+        logits = tied_lm_head(hidden[torch.arange(b, device=dev), last_idx], table, vocab_mesh)
         return logits, cache, valid
 
     @torch.inference_mode()
     def _gen_start(self, audio_tokens, n_audio, prompt: _Prompt, max_new: int,
-                   opts: SamplingOptions, generator: Optional[torch.Generator] = None
-                   ) -> DecodeState:
-        """Prefill a cache with room for ``max_new`` tokens, pick token 0."""
+                   opts: SamplingOptions, generator: Optional[torch.Generator] = None,
+                   noise_rows: Optional[tuple] = None) -> DecodeState:
+        """Prefill a cache with room for ``max_new`` tokens, pick token 0.
+        ``noise_rows``: see :class:`DecodeState`."""
         t_prompt = prompt.prefix_ids.shape[1] + audio_tokens.shape[1] + prompt.suffix_ids.shape[1]
         logits, cache, _ = self._prefill(audio_tokens, n_audio, prompt, t_prompt + max_new,
                                          self.kv_dtype)
         b, dev = logits.shape[0], self.device
         tokens = torch.full((b, max_new), self.cfg.pad_id, dtype=torch.int64, device=dev)
         logprobs = torch.zeros((b, max_new), dtype=torch.float32, device=dev)
-        tok0 = sample_token(logits, opts, generator, tokens, 0)
+        tok0 = sample_token(logits, opts, generator, tokens, 0, noise_rows=noise_rows)
         tokens[:, 0] = tok0
         logprobs[:, 0] = log_softmax_confidence(logits, tok0)
         return DecodeState(step=1, tokens=tokens, logprobs=logprobs, cache=cache,
-                           done=tok0 == self.cfg.eos_id, last_tok=tok0, generator=generator)
+                           done=tok0 == self.cfg.eos_id, last_tok=tok0, generator=generator,
+                           noise_rows=noise_rows)
 
     @torch.inference_mode()
     def _gen_chunk(self, state: DecodeState, end: int, opts: SamplingOptions) -> DecodeState:
@@ -391,8 +457,9 @@ class Qwen3ASR(SpeechRecognitionModel):
         pad, eos = self.cfg.pad_id, self.cfg.eos_id
         for step in range(state.step, end):
             logits, _ = decode_step(self.decoder_params, self.cfg.decoder, state.last_tok,
-                                    state.cache)
-            tok = sample_token(logits, opts, state.generator, state.tokens, step)
+                                    state.cache, self._mesh)
+            tok = sample_token(logits, opts, state.generator, state.tokens, step,
+                               noise_rows=state.noise_rows)
             tok = force_eos_after(tok, step, opts, eos)
             lp = log_softmax_confidence(logits, tok)
             tok = torch.where(state.done, torch.full_like(tok, pad), tok)
@@ -414,7 +481,8 @@ class Qwen3ASR(SpeechRecognitionModel):
         gate = self.dispatch_gate
         max_new = opts.max_tokens
         chunk = self.decode_chunk_tokens or max_new
-        fused = gate is not None and st.n_req == 1 and timings is None and opts.beam <= 1
+        fused = (gate is not None and st.n_req == 1 and timings is None and opts.beam <= 1
+                 and self._mesh is None)
         enc_prio = priority if priority is not None else (LATENCY if st.n_req == 1 else BULK)
         first_prio = LATENCY if priority is None else priority
         cont_prio = BULK if priority is None else priority
@@ -429,9 +497,11 @@ class Qwen3ASR(SpeechRecognitionModel):
                 timings["encode"] = time.perf_counter() - t0
             return audio
 
+        noise_rows = (st.rows.start, st.n_req) if st.dp > 1 else None
+
         def start(audio):
             return self._gen_start(*audio, self._prompt(st.b, *prompt_args), max_new, opts,
-                                   generator)
+                                   generator, noise_rows)
 
         if opts.beam > 1:
             # one monolithic search under the latency lane, as the reference
@@ -475,6 +545,7 @@ class Qwen3ASR(SpeechRecognitionModel):
                     self._gen_chunk(state, end, opts)
                     done = self._all_done(state)
             step = end
+        self.last_loop = {"decode_steps": state.step - 1}
         return state.tokens, state.logprobs
 
     def _sync(self) -> None:
@@ -509,6 +580,10 @@ class Qwen3ASR(SpeechRecognitionModel):
         opts = options or SamplingOptions(
             max_tokens=self.max_tokens if max_tokens is None else max_tokens)
         check_supported(opts)
+        if opts.beam > 1 and self._mesh is not None and self._mesh.dp > 1:
+            raise ValueError("beam decode runs single-chip or TP-sharded; "
+                             "dp/multi-process meshes batch greedy decodes "
+                             "instead (the beam dim folds into batch)")
         st = prestaged if prestaged is not None else self.prestage(audios, sample_rate)
         if timings is not None:
             self._sync()
@@ -521,6 +596,8 @@ class Qwen3ASR(SpeechRecognitionModel):
             self._sync()
             timings["generate"] = time.perf_counter() - t_gen - timings.get("encode", 0.0)
         t_post = time.perf_counter()
+        if st.dp > 1:   # every rank returns every row
+            tokens, logprobs = self._mesh.dp_gather(tokens), self._mesh.dp_gather(logprobs)
         n_gen = (tokens != self.cfg.pad_id).sum(dim=1)
         tokens = tokens.to(torch.int32).cpu().numpy()
         logprobs = logprobs.cpu().numpy()
@@ -548,6 +625,35 @@ class Qwen3ASR(SpeechRecognitionModel):
                 text=text, language=language, confidence=conf,
                 duration=durations[i], processing_time=elapsed / n_req))
         return results
+
+    # ------------------------------------------------------------------ #
+
+    def shard(self, mesh=None, dp: Optional[int] = None, tp: Optional[int] = None) -> "Qwen3ASR":
+        """Spread the model over a (dp, tp) mesh of ranks (encoder and
+        decoder partition rules; packed params shard too). Every rank calls
+        this with the same arguments on the same weights; each keeps its
+        shard. Returns self.
+
+            model = Qwen3ASR.init_random(cfg, device=f"cuda:{rank}").shard(tp=2)
+        """
+        from ...parallel import QWEN3_ENCODER_RULES, make_mesh, shard_pytree
+
+        if self.quant_compute == "groupdot":
+            raise ValueError(
+                "quant_compute='groupdot' is single-chip (the repacked int8 "
+                "layout has no TP partition rules); use 'packed' or "
+                "'dequant' for sharded execution")
+        mesh = mesh or make_mesh(dp=dp, tp=tp, device=self.device)
+        ecfg, dcfg = self.cfg.encoder, self.cfg.decoder
+        layer = r"(.*layers/\d+/)"
+        self.encoder_params = shard_pytree(
+            self.encoder_params, mesh, QWEN3_ENCODER_RULES,
+            heads=((r".*(q_proj|k_proj|v_proj|out_proj)/", ecfg.num_heads),),
+            ties=(layer + r"(q_proj|k_proj|v_proj|out_proj)/", layer + r"(fc1|fc2)/",
+                  r"(.*)(proj1|proj2)/"))
+        self.decoder_params = shard_decoder(self.decoder_params, dcfg, mesh)
+        self._mesh = mesh
+        return self
 
     def warm_up(self, max_tokens: int = 448, buckets_s: Optional[Sequence[int]] = None) -> None:
         """Run the shapes real requests use once (kernel build, allocator)."""

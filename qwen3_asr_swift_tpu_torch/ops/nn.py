@@ -90,12 +90,45 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
-def swiglu_mlp(x: torch.Tensor, p) -> torch.Tensor:
-    """down(silu(gate(x)) * up(x)), fused ``gate_up_proj`` or separate."""
+def out_features(p) -> int:
+    """Output width of a dense or packed linear (this rank's, if sharded)."""
+    return p["codes"].shape[0] if "codes" in p else p["kernel"].shape[-1]
+
+
+def row_linear(x: torch.Tensor, p, mesh=None) -> torch.Tensor:
+    """A row-parallel product: x [..., in/tp] is this rank's slice of the
+    input and ``p`` holds the matching rows of W (a dense kernel or a
+    packed triple cut on group boundaries); the partial products are summed
+    over ``mesh``'s tp row in fp32 and the bias, whole on every rank, is
+    added once after the sum. For packed weights this is exact: the group
+    term Σ_g β[o,g]·Σx_g splits with the groups. A dense bf16/fp16 partial
+    is taken in fp32, so no rank rounds before the sum (the whole product
+    rounds once, as it does on one device). ``mesh`` None: :func:`linear`."""
+    if mesh is None:
+        return linear(x, p)
+    if "codes" in p:
+        from .quant import _matmul
+
+        y = _matmul(x, p)                       # fp32 (K1 at decode shapes)
+    else:
+        w = p["kernel"]
+        y = torch.matmul(upcast(x), upcast(w)) if x.dtype in (torch.bfloat16, torch.float16) \
+            else torch.matmul(x, w.to(x.dtype))
+    y = mesh.tp_sum(upcast(y))
+    if "bias" in p:
+        y = y + upcast(p["bias"])
+    return y.to(x.dtype)
+
+
+def swiglu_mlp(x: torch.Tensor, p, mesh=None) -> torch.Tensor:
+    """down(silu(gate(x)) * up(x)), fused ``gate_up_proj`` or separate.
+    ``mesh``: gate/up hold this rank's columns and down the matching rows
+    (:func:`row_linear`)."""
     if "gate_up_proj" in p:
         gate, up = linear(x, p["gate_up_proj"]).chunk(2, dim=-1)
-        return linear(silu(gate) * up, p["down_proj"])
-    return linear(silu(linear(x, p["gate_proj"])) * linear(x, p["up_proj"]), p["down_proj"])
+        return row_linear(silu(gate) * up, p["down_proj"], mesh)
+    return row_linear(silu(linear(x, p["gate_proj"])) * linear(x, p["up_proj"]),
+                      p["down_proj"], mesh)
 
 
 def fuse_linears(ps):
@@ -153,11 +186,47 @@ def fuse_qkv_gate_up(params) -> dict:
     return out
 
 
-def embedding_lookup(table, ids: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
+def unfuse_qkv_gate_up(params, q_dim: int, kv_dim: int) -> dict:
+    """Exact inverse of :func:`fuse_qkv_gate_up`: slice fused rows back
+    into per-projection params (``q_dim`` query rows, ``kv_dim`` key and
+    value rows each; the gate/up split is inferred from shapes). No-op on
+    already-unfused layers."""
+    out = dict(params)
+    layers = []
+    for p in params["layers"]:
+        p = dict(p)
+        if "qkv_proj" in p:
+            p["q_proj"], p["k_proj"], p["v_proj"] = split_linear(
+                p.pop("qkv_proj"), (q_dim, q_dim + kv_dim))
+        mlp = dict(p["mlp"])
+        if "gate_up_proj" in mlp:
+            gu = mlp.pop("gate_up_proj")
+            mlp["gate_proj"], mlp["up_proj"] = split_linear(gu, (out_features(gu) // 2,))
+            p["mlp"] = mlp
+        layers.append(p)
+    out["layers"] = layers
+    return out
+
+
+def table_rows(table) -> int:
+    """Rows of an embedding table, dense or packed (this rank's, if sharded)."""
+    return (table["codes"] if isinstance(table, dict) else table).shape[0]
+
+
+def embedding_lookup(table, ids: torch.Tensor, dim: Optional[int] = None,
+                     mesh=None) -> torch.Tensor:
     """table [vocab, dim], or a packed table dict (then ``dim`` is required
     and the rows come back in bf16, as the reference's
     ``quant_embedding_lookup`` returns them whatever the model dtype);
-    ids integer [...]."""
+    ids integer [...]. ``mesh``: the table holds this tp rank's contiguous
+    vocab shard; ids outside it read zeros and the rows are summed over tp
+    (one rank adds its row, the others zeros: exact)."""
+    if mesh is not None:
+        n = table_rows(table)
+        local = ids.long() - mesh.tp_rank * n
+        inside = (local >= 0) & (local < n)
+        rows = embedding_lookup(table, local.clamp(0, n - 1), dim)
+        return mesh.tp_sum(torch.where(inside[..., None], rows, torch.zeros_like(rows)))
     if isinstance(table, dict) and "codes" in table:
         from .quant import quant_embedding_lookup
 
@@ -165,13 +234,17 @@ def embedding_lookup(table, ids: torch.Tensor, dim: Optional[int] = None) -> tor
     return table[ids.long()]
 
 
-def tied_lm_head(hidden: torch.Tensor, table) -> torch.Tensor:
-    """Embedding table reused as the LM head; fp32 logits."""
+def tied_lm_head(hidden: torch.Tensor, table, mesh=None) -> torch.Tensor:
+    """Embedding table reused as the LM head; fp32 logits. ``mesh``: the
+    table holds this tp rank's vocab shard, and the local logits are
+    gathered over tp into the whole vocabulary."""
     if isinstance(table, dict) and "codes" in table:
         from .quant import quant_tied_lm_head
 
-        return quant_tied_lm_head(hidden, table)
-    return torch.matmul(hidden, table.T).float()
+        logits = quant_tied_lm_head(hidden, table)
+    else:
+        logits = torch.matmul(hidden, table.T).float()
+    return logits if mesh is None else mesh.tp_gather(logits, dim=-1)
 
 
 def lstm_loop(gx: torch.Tensor, wh: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:

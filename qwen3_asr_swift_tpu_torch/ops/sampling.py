@@ -123,10 +123,16 @@ def apply_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
 
 def sample_token(logits: torch.Tensor, opts: SamplingOptions,
                  generator: Optional[torch.Generator] = None,
-                 generated: Optional[torch.Tensor] = None, gen_len=None) -> torch.Tensor:
+                 generated: Optional[torch.Tensor] = None, gen_len=None,
+                 noise_rows: Optional[tuple] = None) -> torch.Tensor:
     """Select the next token: logits [B, V] → int64 [B] (first maximum on
     ties, as ``jnp.argmax``). The penalties read ``generated`` [B, L] up to
-    ``gen_len``; temperature draws its Gumbel noise from ``generator``."""
+    ``gen_len``; temperature draws its Gumbel noise from ``generator``.
+    ``noise_rows`` (first row, rows of the request): the logits are rows of
+    a larger batch (a dp rank's); the noise is drawn for the request's rows
+    and this rank's kept, so the draws do not depend on how the batch is
+    split. Rows past the request (the copies of its last clip that pad it
+    for dp) take the last row's noise."""
     lg = logits.float()
     if opts.repetition_penalty != 1.0 and generated is not None:
         lg = apply_repetition_penalty(lg, generated, gen_len, opts.repetition_penalty)
@@ -138,7 +144,14 @@ def sample_token(logits: torch.Tensor, opts: SamplingOptions,
         if generator is None:
             raise ValueError("temperature sampling needs a torch.Generator")
         # Gumbel-max: argmax(logits/T + G) ~ Categorical(softmax(logits/T))
-        u = torch.rand(lg.shape, generator=generator, device=lg.device, dtype=torch.float32)
+        if noise_rows is None:
+            u = torch.rand(lg.shape, generator=generator, device=lg.device, dtype=torch.float32)
+        else:
+            first, total = noise_rows
+            u = torch.rand((total, lg.shape[-1]), generator=generator, device=lg.device,
+                           dtype=torch.float32)
+            rows = torch.arange(first, first + lg.shape[0], device=lg.device)
+            u = u[rows.clamp(max=total - 1)]
         gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
         lg = lg / opts.temperature + gumbel
     return torch.argmax(lg, dim=-1)

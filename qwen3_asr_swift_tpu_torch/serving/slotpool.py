@@ -145,6 +145,9 @@ class SlotPoolASR:
                  max_new: int = 448, tick_tokens: int = 8,
                  options: Optional[SamplingOptions] = None,
                  admit_batch: int = 4, oversize: str = "reject"):
+        if getattr(model, "_mesh", None) is not None:
+            raise ValueError("SlotPoolASR is the single-chip serving path; "
+                             "sharded models use transcribe_batch dp/sp")
         if oversize not in ("reject", "fallback"):
             raise ValueError(f"oversize must be 'reject' or 'fallback', got {oversize!r}")
         opts = options or SamplingOptions(max_tokens=max_new)

@@ -186,9 +186,9 @@ def step_logits(module, jax_side):
                                logits, step)
             return real(logits, key, opts, tokens, step)
     else:
-        def sample(logits, opts, generator, tokens, step):
+        def sample(logits, opts, generator, tokens, step, **kw):
             seen[int(step)] = logits.float().numpy().copy()
-            return real(logits, opts, generator, tokens, step)
+            return real(logits, opts, generator, tokens, step, **kw)
     return seen, sample
 
 

@@ -329,6 +329,40 @@ def test_k2_rejects_bad_inputs(card):
             k1.quant_matmul_plane_cuda(x.to(dt), p)
 
 
+# row-parallel shards: (in, out) of the 0.6B's o_proj and down and the 7B's
+# o_proj and down
+ROW_PARALLEL = [(2048, 1024), (3072, 1024), (4096, 4096), (11264, 4096)]
+
+
+@pytest.mark.parametrize("xdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows", [1, 32])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("in_dim,out_dim", ROW_PARALLEL)
+def test_k1_row_parallel_shards_sum_to_the_whole_product(card, xdt, rows, tp, in_dim, out_dim):
+    """K1 on each tp rank's row-parallel shard (the packed triple cut on
+    group boundaries by ``shard_pytree``, contiguous), the partials summed
+    over the ranks as the tp sum does (fp32), against the plain product on
+    the whole weight."""
+    from qwen3_asr_swift_tpu_torch.parallel import QWEN3_DECODER_RULES, Mesh, shard_pytree
+
+    p = packed(out_dim, in_dim, 4, card, seed=tp)
+    g = torch.Generator(device=card).manual_seed(rows)
+    x = torch.randn((rows, in_dim), generator=g, device=card).to(getattr(torch, xdt))
+    whole = k1.quant_matmul(x, p)
+    n = in_dim // tp
+    total = torch.zeros_like(whole)
+    for r in range(tp):
+        shard = shard_pytree({"o_proj": p}, Mesh(dp=1, tp=tp, rank=r),
+                             QWEN3_DECODER_RULES)["o_proj"]
+        assert shard["codes"].shape == (out_dim, n * 4 // 32)
+        assert all(t.is_contiguous() for t in shard.values())
+        before = k1.K1_LAUNCHES.value
+        total += k1.quant_matmul_cuda(x[:, r * n:(r + 1) * n], shard)
+        torch.cuda.synchronize()
+        assert k1.K1_LAUNCHES.value == before + 1
+    assert rel(total, whole) <= TOL
+
+
 def k3_inputs(dev, b, hq, hkv, length, d, seed=None):
     g = torch.Generator(device=dev).manual_seed(length if seed is None else seed)
     q = torch.randn((b, hq, 1, d), generator=g, device=dev).to(torch.bfloat16)
@@ -346,6 +380,7 @@ def k3_inputs(dev, b, hq, hkv, length, d, seed=None):
     (2, 4, 2, 1, 128), (2, 4, 2, 63, 128), (2, 4, 2, 64, 128), (2, 4, 2, 65, 128),
     (2, 4, 2, 129, 128), (2, 4, 2, 192, 128), (2, 4, 2, 193, 128), (2, 4, 2, 385, 128),
     (16, 16, 8, 580, 128),          # beam's rows
+    (8, 8, 4, 580, 128), (8, 4, 2, 580, 128),   # a tp rank's heads of the 0.6B at tp 2, 4
     (2, 16, 2, 300, 128),           # G 8 at D 128
     (1, 4, 1, 2000, 256)])          # G 4 at D 256, many splits
 def test_k3_matches_plain(card, b, hq, hkv, length, d):
