@@ -61,9 +61,19 @@ host_prep. After serve, the rest of the Qwen3-ASR family:
 
 11. load     — a full-width checkpoint in the published MLX-4bit layout
                (bf16 floats, packed 4-bit decoder, byte-level vocab), written
-               to a temporary directory and loaded with
-               ``Qwen3ASR.from_pretrained``: greedy tokens equal to the model
-               built in memory from the same arrays;
+               once into a temporary cache as the snapshot of
+               ``aufklarer/Qwen3-ASR-0.6B-MLX-4bit`` (with the
+               ``.snapshot_complete`` marker) and loaded with
+               ``Qwen3ASR.from_pretrained`` twice: by id from the cache
+               offline, and by the snapshot's directory; both models'
+               greedy tokens equal the model built in memory from the same
+               arrays, K1 and K3 on every step of the id-loaded one (the
+               code's counts). One ``transcribe`` inside ``profile_trace``,
+               whose Chrome trace must name K1's kernel and K3's split
+               kernel;
+               ``MelFrontend`` card vs host within 1e-4 of max |host| on
+               30 s and 0.5 s; ``resample_torch`` card vs host within 1e-5
+               of max |host| on 10 s at 48 kHz → 16 kHz;
 12. groupdot — ``quant_compute="groupdot"``: the decode step card vs host
                with every group-dot product teacher-forced (each product
                on the host's input within 1e-5, each input within 2^-6 of
@@ -1412,14 +1422,100 @@ def phase_codec(model, dev_name, power):
             f"of {dev_name} ({power}); {verdict}")
 
 
-def phase_load(weights, dev_name, power):
+LOAD_MODEL_ID = "aufklarer/Qwen3-ASR-0.6B-MLX-4bit"   # the cache's snapshot (detect_config: 0.6B, 4 bits)
+LOAD_TOKENS = 32         # the greedy budget of the 2 x 8 s clips
+LOAD_TRACE_TOKENS = 4    # the profiled transcribe's budget (a 4 s clip)
+LOAD_MEL_TOL = 1e-4      # MelFrontend card vs host, of max |host| (fp32 both)
+LOAD_MEL_S = (30, 0.5)   # seconds of the MelFrontend clips
+LOAD_RESAMPLE_TOL = 1e-5  # resample_torch card vs host, of max |host|
+LOAD_RESAMPLE_S = 10     # seconds of 48 kHz audio resampled to 16 kHz
+#: the kernels' names in the profiler's trace (demangled templates); K3's
+#: merge kernel runs only where its split count is above 1, so it is listed
+#: when present and not required
+TRACE_KERNELS = {"quant_matmul_cuda": "quant_matmul_kernel",
+                 "decode_attention_int8": "decode_attn_int8_split"}
+
+
+def trace_kernel_names(trace_dir):
+    """The names of the device kernels in the Chrome traces under ``trace_dir``."""
+    from pathlib import Path
+
+    names = set()
+    for f in Path(trace_dir).glob("*.pt.trace.json"):
+        for e in json.loads(f.read_text())["traceEvents"]:
+            if str(e.get("cat", "")).lower() == "kernel":
+                names.add(e.get("name", ""))
+    return names
+
+
+def load_surface_checks(model, dev_name, power):
+    """``profile_trace`` around one ``transcribe`` of ``model`` (the trace
+    must name K1's and K3's kernels), then ``MelFrontend`` and
+    ``resample_torch`` card vs host."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from qwen3_asr_swift_tpu_torch.audio import resample_torch
+    from qwen3_asr_swift_tpu_torch.core.logging import profile_trace
+    from qwen3_asr_swift_tpu_torch.ops.mel import MelFrontend
+
+    import re
+
+    rng = np.random.default_rng(9)
+    clip = (0.1 * rng.standard_normal(4 * SR)).astype(np.float32)
+    with tempfile.TemporaryDirectory(prefix="qs_trace_") as trace_dir:
+        t0 = time.perf_counter()
+        with profile_trace(trace_dir, "load transcribe"):
+            model.transcribe(clip, max_tokens=LOAD_TRACE_TOKENS)
+        trace_s = time.perf_counter() - t0
+        names = trace_kernel_names(trace_dir)
+        size = sum(f.stat().st_size for f in Path(trace_dir).iterdir())
+    ours = sorted({m for n in names for m in re.findall(r"(quant_matmul\w*|decode_attn\w*)", n)})
+    log(f"load: profile_trace of one transcribe ({LOAD_TRACE_TOKENS} tokens of a 4 s clip) in "
+        f"{trace_s:.1f} s, a {size / 1e6:.1f} MB Chrome trace of {len(names)} kernel names, "
+        f"the port's {ours}, on {dev_name} ({power})")
+    missing = [k for k, word in TRACE_KERNELS.items() if not any(word in n for n in names)]
+    if missing:
+        raise AssertionError(f"profile_trace's trace names no kernel of {missing}")
+
+    host, card = MelFrontend(device="cpu"), MelFrontend(device="cuda")
+    for seconds in LOAD_MEL_S:
+        audio = (0.1 * rng.standard_normal(int(seconds * SR))).astype(np.float32)
+        want = host(audio)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = card(audio)
+        card_ms = (time.perf_counter() - t0) * 1e3
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        log(f"load: MelFrontend {seconds} s card vs host {err:.3e} of max |host| (limit "
+            f"{LOAD_MEL_TOL:g}), shape {got.shape}, {card_ms:.1f} ms a call on the card")
+        if got.shape != want.shape or not err <= LOAD_MEL_TOL:
+            raise AssertionError(f"MelFrontend {seconds} s: card vs host {err:.3e}")
+
+    audio = (0.1 * rng.standard_normal(LOAD_RESAMPLE_S * 48000)).astype(np.float32)
+    want = resample_torch(audio, 48000, SR, device="cpu").numpy()
+    got = resample_torch(audio, 48000, SR).cpu().numpy()
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    log(f"load: resample_torch {LOAD_RESAMPLE_S} s 48 kHz -> 16 kHz card vs host {err:.3e} of "
+        f"max |host| (limit {LOAD_RESAMPLE_TOL:g}), {got.shape[-1]} samples")
+    if got.shape != want.shape or not err <= LOAD_RESAMPLE_TOL:
+        raise AssertionError(f"resample_torch: card vs host {err:.3e}")
+
+
+def phase_load(weights, counters, dev_name, power):
     """Write a full-width 0.6B checkpoint in the published MLX-4bit layout
     (floats and the group scales and biases in bf16, packed 4-bit decoder
-    codes, a byte-level vocab.json and merges.txt), load it with
-    ``Qwen3ASR.from_pretrained`` on the card, and hold its greedy tokens
-    against a model built in memory from the same arrays."""
+    codes, a byte-level vocab.json and merges.txt) once, as the cached
+    snapshot of :data:`LOAD_MODEL_ID` with its marker; load it with
+    ``Qwen3ASR.from_pretrained`` on the card by id (``cache_dir``,
+    ``offline_mode=True``) and by the snapshot's directory, and hold both
+    models' greedy tokens against a model built in memory from the same
+    arrays, with K1 and K3 counted on the id-loaded model's run. Then
+    :func:`load_surface_checks` on that model. Returns the (K1, K3)
+    launches of the id-loaded run."""
     import dataclasses
-    import json
     import shutil
     import tempfile
     from pathlib import Path
@@ -1430,38 +1526,70 @@ def phase_load(weights, dev_name, power):
                                                         save_checkpoint)
     from qwen3_asr_swift_tpu_torch.models.qwen3_asr import CONFIG_SMALL, Qwen3ASR, detect_config
 
+    t_phase = time.perf_counter()
     enc, dec = round_floats(weights)        # the values a bf16 checkpoint holds
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
-    model_dir = tmp / "Qwen3-ASR-0.6B-MLX-4bit"
+    cache = tmp / "cache"
+    model_dir = cache / LOAD_MODEL_ID
     try:
         t0 = time.perf_counter()
         save_checkpoint(checkpoint_flat(enc, dec), model_dir)
         vocab, tok = byte_tokenizer()
         (model_dir / "vocab.json").write_text(json.dumps(vocab))
         (model_dir / "merges.txt").write_text("#version: 0.2\n")
+        (model_dir / ".snapshot_complete").touch()
         write_s = time.perf_counter() - t0
         size = sum(f.stat().st_size for f in model_dir.iterdir())
         want_cfg = dataclasses.replace(CONFIG_SMALL, decoder=dataclasses.replace(
             CONFIG_SMALL.decoder, bits=4, group_size=64))
-        if detect_config(str(model_dir)) != want_cfg:
-            raise AssertionError(f"detect_config({model_dir.name}) is not CONFIG_SMALL at 4 bits")
+        for name in (LOAD_MODEL_ID, str(model_dir)):
+            if detect_config(name) != want_cfg:
+                raise AssertionError(f"detect_config({name}) is not CONFIG_SMALL at 4 bits")
         t0 = time.perf_counter()
-        loaded = Qwen3ASR.from_pretrained(str(model_dir), device="cuda", **model_options())
+        by_id = Qwen3ASR.from_pretrained(LOAD_MODEL_ID, cache_dir=str(cache), offline_mode=True,
+                                         device="cuda", **model_options())
         torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
+        id_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        by_dir = Qwen3ASR.from_pretrained(str(model_dir), device="cuda", **model_options())
+        torch.cuda.synchronize()
+        dir_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     built = build_model(enc, dec, "cuda", torch.bfloat16, tokenizer=tok)
     rng = np.random.default_rng(8)
     clips = [(0.1 * rng.standard_normal(8 * SR)).astype(np.float32) for _ in range(2)]
-    got, want = greedy_tokens(loaded, clips, 32), greedy_tokens(built, clips, 32)
-    same = all(np.array_equal(a, b) for a, b in zip(got, want))
-    log(f"load: {size / 1e6:.1f} MB checkpoint written in {write_s:.1f} s, loaded to the card in "
-        f"{load_s:.1f} s on {dev_name} ({power}); tokenizer {loaded.tokenizer is not None}; "
-        f"greedy tokens of 2 x 8 s equal to the model built in memory: {same} "
-        f"(n_gen {got[1].tolist()})")
-    if not same or loaded.tokenizer is None:
-        raise AssertionError("the loaded model's tokens differ from the in-memory model's")
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    got_id = greedy_tokens(by_id, clips, LOAD_TOKENS)
+    torch.cuda.synchronize()
+    launches = tuple(c.value for c in counters)
+    steps = by_id.last_loop["decode_steps"]
+    from_code = (asr_k1_launches(steps, by_id.decoder_params),
+                 steps * by_id.cfg.decoder.num_layers)
+    got_dir, want = greedy_tokens(by_dir, clips, LOAD_TOKENS), greedy_tokens(built, clips,
+                                                                             LOAD_TOKENS)
+    same = [all(np.array_equal(a, b) for a, b in zip(got, want)) for got in (got_id, got_dir)]
+    log(f"load: {size / 1e6:.1f} MB checkpoint written in {write_s:.1f} s as the cached snapshot "
+        f"of {LOAD_MODEL_ID}; loaded to the card by id offline in {id_s:.1f} s and by its "
+        f"directory in {dir_s:.1f} s on {dev_name} ({power}); tokenizers "
+        f"{by_id.tokenizer is not None}, {by_dir.tokenizer is not None}; greedy tokens of 2 x 8 s "
+        f"equal to the model built in memory: by id {same[0]}, by directory {same[1]} "
+        f"(n_gen {got_id[1].tolist()}); the id-loaded run's {steps} decode steps launched "
+        f"K1 {launches[0]} and K3 {launches[1]} (the code's counts {from_code[0]}, {from_code[1]})")
+    if not all(same) or by_id.tokenizer is None or by_dir.tokenizer is None:
+        raise AssertionError("a loaded model's tokens differ from the in-memory model's")
+    if launches != from_code:
+        raise AssertionError(f"load: K1/K3 launches {launches}, the code's {from_code}")
+    del by_dir, built
+    t0 = time.perf_counter()
+    load_surface_checks(by_id, dev_name, power)
+    log(f"load: the surface checks took {time.perf_counter() - t0:.1f} s; phase load "
+        f"{time.perf_counter() - t_phase:.1f} s in all")
+    del by_id
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_groupdot(weights, counters, dev_name, power):
@@ -3042,7 +3170,7 @@ def phase_voxcpm2(dev, counters, dev_name, power):
 
     import torch
 
-    from qwen3_asr_swift_tpu_torch.core.params import param_bytes
+    from qwen3_asr_swift_tpu_torch.core.weights import param_bytes
     from qwen3_asr_swift_tpu_torch.models.voxcpm2 import CONFIG_2B, VoxCPM2TTS
     from qwen3_asr_swift_tpu_torch.models.voxcpm2 import model as vox_mod
     from qwen3_asr_swift_tpu_torch.models.voxcpm2.vae import vae_decode
@@ -3559,7 +3687,7 @@ def phase_respond(dev, k1_counter, dev_name, power):
     import torch
 
     from qwen3_asr_swift_tpu_torch.audio.io import read_wav, wav_bytes
-    from qwen3_asr_swift_tpu_torch.core.params import param_bytes
+    from qwen3_asr_swift_tpu_torch.core.weights import param_bytes
     from qwen3_asr_swift_tpu_torch.core.types import to_float32, to_pcm16
     from qwen3_asr_swift_tpu_torch.models.personaplex import (CONFIG_7B, PersonaPlex,
                                                               PersonaSampling)
@@ -3777,7 +3905,7 @@ def phase_chat(dev, k1_counter, dev_name, power):
 
     import torch
 
-    from qwen3_asr_swift_tpu_torch.core.params import param_bytes
+    from qwen3_asr_swift_tpu_torch.core.weights import param_bytes
     from qwen3_asr_swift_tpu_torch.models.chat import CONFIG_08B, Qwen3Chat
     from qwen3_asr_swift_tpu_torch.models.chat import model as chat
 
@@ -5619,7 +5747,8 @@ def shard_rank(rank, dp, tp, asr_tok0, pp_text_token, pp_dep_tokens, dp_split, o
     import torch
 
     import qwen3_asr_swift_tpu_torch.parallel.mesh as mesh_mod
-    from qwen3_asr_swift_tpu_torch.core.params import init_random_params, param_bytes
+    from qwen3_asr_swift_tpu_torch.core.params import init_random_params
+    from qwen3_asr_swift_tpu_torch.core.weights import param_bytes
     from qwen3_asr_swift_tpu_torch.models.personaplex import CONFIG_7B, PersonaPlex
     from qwen3_asr_swift_tpu_torch.models.qwen3_asr import CONFIG_SMALL
     from qwen3_asr_swift_tpu_torch.ops.attention_int8 import K3_LAUNCHES
@@ -6011,7 +6140,8 @@ def main() -> int:
     phase_beam_sampling(model, (K1_LAUNCHES, K3_LAUNCHES))
     phase_serve(model)
     mark("pool, beam, serve")
-    phase_load(host_weights, dev_name, power)
+    k1["launches_load"], k3["launches_load"] = phase_load(
+        host_weights, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
     phase_groupdot(host_weights, (K1_LAUNCHES, K3_LAUNCHES), dev_name, power)
     del host_weights
     vad, stream = phase_vad(dev_name, power)

@@ -8,7 +8,9 @@ the GIL for the call), below it, or where no g++ exists, numpy. pcm4 and
 dpcm4 are byte-identical on both paths; the native µ-law goes through a
 lookup table and may differ from numpy by one code on under 1 % of
 samples. Each native call counts one in :data:`WIRE_NATIVE_CALLS`. Only
-the payload crosses to the device, and the decoders below decode it there.
+the payload crosses to the device, and the decoders below decode it there;
+their host twins (``mulaw_decode_np``, ``pcm4_decode_np``,
+``dpcm4_decode_np``) are the reference's numpy decoders.
 """
 
 from __future__ import annotations
@@ -168,6 +170,12 @@ def mulaw_decode(y: torch.Tensor, mu: float = MU) -> torch.Tensor:
     return torch.sign(yf) * (torch.pow(1.0 + mu, yf.abs()) - 1.0) / mu
 
 
+def mulaw_decode_np(y: np.ndarray, mu: float = MU) -> np.ndarray:
+    """Host-side decode (tests, non-jit callers)."""
+    yf = y.astype(np.float32) / _QMAX
+    return np.sign(yf) * ((1.0 + mu) ** np.abs(yf) - 1.0) / mu
+
+
 def _unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
     """uint8 [..., N//2] → signed int32 nibbles [..., N] (low nibble first)."""
     p = packed.to(torch.int32)
@@ -186,6 +194,19 @@ def pcm4_decode(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return x.reshape(*packed.shape[:-1], -1)
 
 
+def pcm4_decode_np(packed: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """Host-side decode (tests, non-jit callers)."""
+    lo = (packed & 0xF).astype(np.int32)
+    hi = ((packed >> 4) & 0xF).astype(np.int32)
+    lo = np.where(lo > 7, lo - 16, lo)
+    hi = np.where(hi > 7, hi - 16, hi)
+    q = np.stack([lo, hi], axis=-1).reshape(*packed.shape[:-1], -1)
+    x = q.astype(np.float32) / _Q4MAX
+    x = x.reshape(*x.shape[:-1], scales.shape[-1], PCM4_BLOCK)
+    x = x * scales.astype(np.float32)[..., None]
+    return x.reshape(*packed.shape[:-1], -1)
+
+
 def dpcm4_decode(packed: torch.Tensor, scales2: torch.Tensor) -> torch.Tensor:
     """(uint8 [..., N//2], float16 [..., 2*N//128] of (delta scale, first
     sample) pairs) → fp32 PCM: one parallel cumsum per block."""
@@ -196,4 +217,22 @@ def dpcm4_decode(packed: torch.Tensor, scales2: torch.Tensor) -> torch.Tensor:
     inc = q.reshape(*q.shape[:-1], nb, PCM4_BLOCK).float() * scale[..., None]
     inc[..., 0] = 0.0
     x = x0[..., None] + torch.cumsum(inc, dim=-1)
+    return x.reshape(*packed.shape[:-1], -1)
+
+
+def dpcm4_decode_np(packed: np.ndarray, scales2: np.ndarray) -> np.ndarray:
+    """Host-side decode (tests, non-jit callers); the reference's, with its
+    nibble unpacking inlined."""
+    lo = (packed & 0xF).astype(np.int32)
+    hi = ((packed >> 4) & 0xF).astype(np.int32)
+    lo = np.where(lo > 7, lo - 16, lo)
+    hi = np.where(hi > 7, hi - 16, hi)
+    q = np.stack([lo, hi], axis=-1).reshape(*packed.shape[:-1], -1)
+    nb = scales2.shape[-1] // 2
+    pairs = scales2.reshape(*scales2.shape[:-1], nb, 2).astype(np.float32)
+    scale, x0 = pairs[..., 0], pairs[..., 1]
+    inc = q.reshape(*q.shape[:-1], nb, PCM4_BLOCK).astype(np.float32) \
+        * scale[..., None]
+    inc[..., 0] = 0.0
+    x = x0[..., None] + np.cumsum(inc, axis=-1)
     return x.reshape(*packed.shape[:-1], -1)

@@ -14,8 +14,9 @@ Every model runs on ``--device`` (default ``cuda``, the first card; a
 request for a card on a machine without one raises); nothing picks the CPU
 unless ``--device cpu`` asks for it. ``--random-weights`` builds each
 model from a seed at the reference's tiny config (byte-level tokenizer)
-for smoke tests without a checkpoint; ``--model`` takes a local checkpoint
-directory (hub download is not ported). The output is the reference's
+for smoke tests without a checkpoint; ``--model`` takes a checkpoint
+directory or a model id, found in the cache or fetched as
+``core/hub.py::download_weights`` finds it. The output is the reference's
 JSON.
 
 Usage: python -m qwen3_asr_swift_tpu_torch.cli [--device cpu] <command> [options]
@@ -362,23 +363,24 @@ def cmd_voxcpm2(args):
 def cmd_serve(args):
     import asyncio
 
-    from .serving.server import ModelRegistry, SpeechServer
+    from .serving.server import ModelRegistry, SpeechServer, build_default_registry
 
-    registry = ModelRegistry()
     decode_chunk = args.decode_chunk or None
+    if args.random_weights:
+        registry = ModelRegistry()
 
-    def load_asr():
-        import torch
+        def load_asr():
+            import torch
 
-        from .models.qwen3_asr import Qwen3ASR, config_tiny
+            from .models.qwen3_asr import Qwen3ASR, config_tiny
 
-        if args.random_weights:
             return Qwen3ASR.init_random(config_tiny(), dtype=torch.float32,
                                         tokenizer=byte_tokenizer(), audio_buckets_s=(8,),
                                         decode_chunk_tokens=decode_chunk, device=args.device)
-        return Qwen3ASR.from_pretrained(decode_chunk_tokens=decode_chunk, device=args.device)
 
-    registry.register("asr", load_asr)
+        registry.register("asr", load_asr)
+    else:
+        registry = build_default_registry(decode_chunk_tokens=decode_chunk, device=args.device)
     server = SpeechServer(registry, host=args.host, port=args.port, scheduler=args.scheduler,
                           slotpool_max_s=args.slotpool_max_s, bulk_nice=args.bulk_nice)
     asyncio.run(server.serve_forever())

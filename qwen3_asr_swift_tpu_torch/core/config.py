@@ -1,11 +1,30 @@
-"""The port's copy of the model-id sniffing of
-``qwen3_asr_swift_tpu/core/config.py``: size presets and quantization bits
-from a model id or a checkpoint directory's name.
+"""The port's copy of ``qwen3_asr_swift_tpu/core/config.py``: dataclass
+configs from a HF-style ``config.json`` or a dict, and size presets and
+quantization bits from a model id or a checkpoint directory's name.
 """
 
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+import json
+from pathlib import Path
+from typing import Any, Type, TypeVar
+
+T = TypeVar("T")
+
+
+def from_json_file(cls: Type[T], path: str | Path, **overrides: Any) -> T:
+    """Build a dataclass config from a HF-style config.json, ignoring
+    unknown keys, applying ``overrides`` last."""
+    data = json.loads(Path(path).read_text())
+    return from_dict(cls, data, **overrides)
+
+
+def from_dict(cls: Type[T], data: dict, **overrides: Any) -> T:
+    names = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {k: v for k, v in data.items() if k in names}
+    kwargs.update({k: v for k, v in overrides.items() if k in names})
+    return cls(**kwargs)
 
 
 def detect_size(model_id: str, sizes: dict[str, Any], default: Any) -> Any:

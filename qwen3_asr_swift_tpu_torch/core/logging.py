@@ -1,5 +1,6 @@
-"""The port's copy of ``qwen3_asr_swift_tpu/core/logging.py`` (``profile_trace``,
-which imports jax, is left out).
+"""The port's copy of ``qwen3_asr_swift_tpu/core/logging.py``;
+``profile_trace`` captures the block with ``torch.profiler`` in place of
+``jax.profiler``.
 
 Structured logging categories.
 
@@ -46,3 +47,43 @@ def log_stage(logger: logging.Logger, stage: str):
         yield
     finally:
         logger.debug("%s took %.1f ms", stage, (time.perf_counter() - t0) * 1e3)
+
+
+@contextmanager
+def profile_trace(trace_dir: str | None = None, annotate: str = ""):
+    """Capture a device profile around a block with ``torch.profiler`` (CPU
+    activity, and CUDA activity when a card is present), the block inside
+    ``record_function(annotate)``, and export it as a Chrome trace
+    (``<pid>.<ns>.pt.trace.json``, viewed in Perfetto or
+    ``chrome://tracing``) into ``trace_dir`` (default: ``speech_trace``
+    under the temporary directory). Also logs wall time like
+    :func:`log_stage`.
+
+    Usage::
+
+        with profile_trace("/tmp/trace", "asr-batch"):
+            model.transcribe_batch(clips)
+    """
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    trace_dir = trace_dir or os.path.join(tempfile.gettempdir(), "speech_trace")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    t0 = time.perf_counter()
+    try:
+        with profile(activities=activities) as prof:
+            if annotate:
+                with record_function(annotate):
+                    yield
+            else:
+                yield
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir,
+                                              f"{os.getpid()}.{time.time_ns()}.pt.trace.json"))
+    finally:
+        inference.info("profile %s: %.1f ms → %s", annotate or "block",
+                       (time.perf_counter() - t0) * 1e3, trace_dir)

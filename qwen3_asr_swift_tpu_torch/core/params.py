@@ -106,10 +106,6 @@ def tree_tensors(tree):
         yield tree
 
 
-def param_bytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_tensors(tree))
-
-
 # ---------------------------------------------------------------------------
 # random initialisation (numpy, from a seed) — mirrors the layouts of
 # qwen3_asr_swift_tpu/models/qwen3_asr/{encoder,decoder}.py init_*_params

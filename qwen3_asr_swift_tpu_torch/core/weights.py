@@ -6,8 +6,10 @@
 ``ml_dtypes``: numpy has no bfloat16, so a bf16 tensor is read through
 safetensors' torch reader and handed back as float32 (bf16 is a subset of
 fp32, so the values are the same). ``dequantize_mlx`` and ``quantize_mlx``
-are copies, and so are ``unflatten``, ``relist``, ``flatten`` and
-``fuse_weight_norm`` (the CosyVoice converter's weight-norm fusion).
+are copies, and so are ``maybe_dequantize_linear``, ``unflatten``,
+``relist``, ``flatten`` and ``fuse_weight_norm`` (the CosyVoice converter's
+weight-norm fusion). ``param_bytes`` sums the bytes of a tree's tensors and
+arrays.
 """
 
 from __future__ import annotations
@@ -192,3 +194,30 @@ def flatten(tree: dict, prefix: str = "", sep: str = ".") -> Dict[str, np.ndarra
         else:
             out[name] = value
     return out
+
+
+def maybe_dequantize_linear(params: Dict[str, np.ndarray], prefix: str, bits: int, group_size: int = 64,
+                            dtype=np.float32) -> Optional[np.ndarray]:
+    """If ``{prefix}.weight`` is MLX-quantized (scales present), return the
+    dequantized fp matrix; if plain fp weight, return it; else None."""
+    w = params.get(f"{prefix}.weight")
+    if w is None:
+        return None
+    scales = params.get(f"{prefix}.scales")
+    if scales is None:
+        return w.astype(dtype) if np.issubdtype(w.dtype, np.floating) else w
+    biases = params.get(f"{prefix}.biases")
+    if biases is None:
+        # symmetric/scale-only quant exports ship no biases: zeros
+        biases = np.zeros_like(np.asarray(scales))
+    return dequantize_mlx(w, scales, biases, bits=bits, group_size=group_size, dtype=dtype)
+
+
+def param_bytes(tree) -> int:
+    """Total bytes of all leaves (for ModelMemoryStats): every tensor or
+    array in a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(param_bytes(v) for v in tree)
+    return tree.nbytes if hasattr(tree, "nbytes") else 0

@@ -13,14 +13,17 @@ import torch
 
 def resolve_device(device="cuda") -> torch.device:
     """``"cpu"``, ``"cuda"``, ``"cuda:N"``, a ``torch.device`` or ``None``
-    (the first card) → a ``torch.device``. Raises ``RuntimeError`` for a
+    → a ``torch.device``. ``"cuda"`` and ``None`` name the current card
+    (``torch.cuda.current_device()``: card 0 unless the process chose
+    another with ``torch.cuda.set_device``, as each rank of
+    ``parallel.spawn`` or ``torchrun`` does). Raises ``RuntimeError`` for a
     CUDA device that this machine does not have, and ``ValueError`` for any
     other type."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but torch sees no CUDA device")
-        index = 0 if dev.index is None else dev.index
+        index = torch.cuda.current_device() if dev.index is None else dev.index
         if index >= torch.cuda.device_count():
             raise RuntimeError(f"device {device!r} requested but only "
                                f"{torch.cuda.device_count()} CUDA device(s) exist")

@@ -436,13 +436,15 @@ class Qwen3Chat(PipelineLLM):
                         cfg: Optional[ChatConfig] = None, **kw) -> "Qwen3Chat":
         """A checkpoint from a local directory (safetensors, HF or MLX-packed
         layout, with ``vocab.json``, ``merges.txt`` and
-        ``tokenizer_config.json``). Hub download is not ported."""
+        ``tokenizer_config.json``); a model id is found in the cache or
+        fetched (``core/hub.py``)."""
         from ...core.hub import download_weights
         from ...core.weights import load_safetensors
         from ...tokenizers.bpe import BPETokenizer
         from .convert import convert_chat_checkpoint
 
-        model_dir = download_weights(model_id, cache_dir=cache_dir, offline_mode=offline_mode)
+        model_dir = download_weights(model_id, cache_dir=cache_dir, offline_mode=offline_mode,
+                                     additional_files=("vocab.json", "merges.txt", "tokenizer_config.json"))
         tokenizer = BPETokenizer.from_pretrained_dir(model_dir)
         cfg = cfg or CONFIG_08B
         params = convert_chat_checkpoint(load_safetensors(model_dir), cfg)

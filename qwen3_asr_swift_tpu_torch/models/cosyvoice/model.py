@@ -368,8 +368,8 @@ class CosyVoiceTTS(SpeechGenerationModel):
                         dtype: torch.dtype = torch.float32, **kw) -> "CosyVoiceTTS":
         """Load a local checkpoint directory: the upstream llm/flow/hift trio
         (``.pt`` or ``.safetensors``) or a converted
-        ``cosyvoice_tpu.safetensors``, plus the tokenizer files if present.
-        Hub download is not ported."""
+        ``cosyvoice_tpu.safetensors``, plus the tokenizer files if present;
+        a model id is found in the cache or fetched (``core/hub.py``)."""
         from ...core.hub import download_weights
         from ...tokenizers.bpe import BPETokenizer
         from .convert import load_or_convert
@@ -399,8 +399,7 @@ class CosyVoiceTTS(SpeechGenerationModel):
         voice (reference: VoiceCloning.swift — CamPlusPlusSpeaker.embed →
         flow spk conditioning). Pass a loaded ``CampPlusSpeaker`` (or any
         object with ``.embed``); defaults to ``CampPlusSpeaker.from_pretrained()``
-        on the model's device (a local checkpoint directory: hub download
-        is not ported)."""
+        on the model's device."""
         if speaker_model is None:
             from ..speaker.campplus import CampPlusSpeaker
 

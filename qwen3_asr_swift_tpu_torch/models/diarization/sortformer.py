@@ -206,7 +206,7 @@ class SortformerDiarizer:
     @classmethod
     def from_pretrained(cls, model_id: str = "nvidia/diar_streaming_sortformer_4spk-v2",
                         cache_dir=None, offline_mode: bool = False, **kw):
-        """A local checkpoint directory (hub download is not ported)."""
+        """A checkpoint from a directory, a cached snapshot or a fetch (``core/hub.py``)."""
         from ...core.hub import download_weights
         from .sortformer_convert import convert_checkpoint
 

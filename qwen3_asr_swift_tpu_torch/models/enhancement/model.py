@@ -243,7 +243,8 @@ class SpeechEnhancer(SpeechEnhancementModel):
                         **kw) -> "SpeechEnhancer":
         """An upstream DeepFilterNet3 checkpoint from a local directory
         (``convert.py``; ``auxiliary.npz`` for the norm states when
-        present). Hub download is not ported."""
+        present); a model id is found in the cache or fetched
+        (``core/hub.py``)."""
         from ...core.hub import download_weights
         from .convert import convert_checkpoint
 

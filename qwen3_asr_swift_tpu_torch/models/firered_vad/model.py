@@ -208,7 +208,7 @@ class FireRedVAD(VoiceActivityDetectionModel):
     @classmethod
     def from_pretrained(cls, model_id: str = "aufklarer/FireRedVAD",
                         cache_dir=None, offline_mode: bool = False, **kw):
-        """A local checkpoint directory or file (hub download is not ported)."""
+        """A checkpoint file, or one from a directory, a cached snapshot or a fetch (``core/hub.py``)."""
         from ...core.hub import download_weights
         from .convert import convert_checkpoint
 

@@ -669,7 +669,8 @@ class KokoroTTS(SpeechGenerationModel):
                         **kw) -> "KokoroTTS":
         """Load a local checkpoint directory (``kokoro-v1_0.pth`` or
         per-module safetensors, ``voices/*.pt``, the gold/silver
-        dictionaries). Hub download is not ported."""
+        dictionaries); a model id is found in the cache or fetched
+        (``core/hub.py``)."""
         from ...core.hub import download_weights
         from .convert import convert_checkpoint, load_voices
         from .phonemizer import load_dictionaries

@@ -186,7 +186,7 @@ class OmnilingualASR(SpeechRecognitionModel):
     def from_pretrained(cls, model_id: str = "facebook/omnilingual-asr-300m", cache_dir=None,
                         offline_mode: bool = False, dtype: torch.dtype = torch.bfloat16,
                         **kw) -> "OmnilingualASR":
-        """A local checkpoint directory (hub download is not ported)."""
+        """A checkpoint from a directory, a cached snapshot or a fetch (``core/hub.py``)."""
         from pathlib import Path
 
         from ...core.hub import download_weights

@@ -184,11 +184,12 @@ class ParakeetASR(SpeechRecognitionModel):
                         cache_dir=None, offline_mode: bool = False,
                         progress_handler=None, dtype: torch.dtype = torch.bfloat16,
                         **kw) -> "ParakeetASR":
-        """A local checkpoint directory (hub download is not ported)."""
+        """A checkpoint from a directory, a cached snapshot or a fetch (``core/hub.py``)."""
         from ...core.hub import download_weights
         from .convert import load_parakeet_checkpoint
 
-        model_dir = download_weights(model_id, cache_dir=cache_dir, offline_mode=offline_mode)
+        model_dir = download_weights(model_id, cache_dir=cache_dir, offline_mode=offline_mode,
+                                     patterns=("*.safetensors", "*.json", "*.nemo", "*.model", "*.txt"))
         cfg, enc, dec, tokenizer = load_parakeet_checkpoint(model_dir)
         return cls(cfg, enc, dec, tokenizer=tokenizer, dtype=dtype, **kw)
 

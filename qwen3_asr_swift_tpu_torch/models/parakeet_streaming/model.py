@@ -300,12 +300,13 @@ class ParakeetStreamingASR(SpeechRecognitionModel):
     @classmethod
     def from_pretrained(cls, model_id: Optional[str] = None, cache_dir=None,
                         offline_mode: bool = False, **kw):
-        """A local checkpoint directory (hub download is not ported)."""
+        """A checkpoint from a directory, a cached snapshot or a fetch (``core/hub.py``)."""
         from ...core.hub import download_weights
         from .convert import convert_streaming_checkpoint, load_vocabulary
 
         model_id = model_id or cls.DEFAULT_MODEL_ID
-        model_dir = download_weights(model_id, cache_dir=cache_dir, offline_mode=offline_mode)
+        model_dir = download_weights(model_id, cache_dir=cache_dir, offline_mode=offline_mode,
+                                     additional_files=("vocab.txt", "tokenizer.model"))
         cfg = cls.DEFAULT_CONFIG
         enc, dec = convert_streaming_checkpoint(model_dir, cfg)
         vocab = load_vocabulary(model_dir)

@@ -613,14 +613,16 @@ class PersonaPlex(SpeechToSpeechModel):
         ``depformer.safetensors``, ``mimi.safetensors``, and
         ``tokenizer_spm_32k_3.model`` and ``voices/`` when present.
         ``quant_bits`` re-packs the temporal linears and the text head after
-        conversion. Hub download is not ported."""
+        conversion. A model id is found in the cache or fetched
+        (``core/hub.py``)."""
         from ...core.hub import download_weights
         from ...core.weights import read_safetensors_file
         from .convert import convert_mimi_tree, convert_moshi_tree, dequantize_state_dict
 
         cfg = cfg or CONFIG_7B
-        model_dir = Path(download_weights(model_id, cache_dir=cache_dir,
-                                          offline_mode=offline_mode))
+        model_dir = Path(download_weights(
+            model_id, cache_dir=cache_dir, offline_mode=offline_mode,
+            additional_patterns=["voices/*", "*.model"]))
         tok_path = model_dir / "tokenizer_spm_32k_3.model"
         if "tokenizer" not in kw and tok_path.exists():
             from ...tokenizers.sentencepiece_model import SentencePieceModel

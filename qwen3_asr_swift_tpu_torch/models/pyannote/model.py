@@ -232,7 +232,7 @@ class PyannoteSegmentation:
     @classmethod
     def from_pretrained(cls, model_id: str = "pyannote/segmentation-3.0",
                         cache_dir=None, offline_mode: bool = False, **kw):
-        """A local checkpoint directory (hub download is not ported)."""
+        """A checkpoint from a directory, a cached snapshot or a fetch (``core/hub.py``)."""
         from ...core.hub import download_weights
         from ...core.weights import load_safetensors
         from .convert import convert_segmentation

@@ -223,8 +223,8 @@ class Qwen3ForcedAligner(ForcedAlignmentModel):
                         device="cuda", dtype: torch.dtype = torch.bfloat16,
                         **kw) -> "Qwen3ForcedAligner":
         """Load a checkpoint in the published layout (``thinker.*`` prefix
-        optional, ``lm_head`` the classify head) from a local directory.
-        Hub download is not ported."""
+        optional, ``lm_head`` the classify head) from a local directory, or
+        by model id from the cache or a fetch (``core/hub.py``)."""
         import dataclasses as dc
 
         from ...core.hub import download_weights
@@ -233,7 +233,10 @@ class Qwen3ForcedAligner(ForcedAlignmentModel):
         from .convert import convert_decoder, convert_encoder, strip_prefixes
 
         cfg = dc.replace(detect_config(model_id), encoder=ENCODER_ALIGNER)
-        model_dir = download_weights(model_id, cache_dir=cache_dir, offline_mode=offline_mode)
+        model_dir = download_weights(
+            model_id, cache_dir=cache_dir, offline_mode=offline_mode,
+            additional_files=("vocab.json", "merges.txt", "tokenizer_config.json"),
+        )
         tokenizer = BPETokenizer.from_pretrained_dir(model_dir)
         flat = strip_prefixes(load_safetensors(model_dir))
         enc = convert_encoder(flat, cfg)

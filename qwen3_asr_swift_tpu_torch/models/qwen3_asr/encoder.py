@@ -39,6 +39,20 @@ from ...parallel.mesh import sharded
 from .config import AudioEncoderConfig
 
 
+def conv_output_length(cfg: AudioEncoderConfig, n_frames: int) -> int:
+    """Valid encoder tokens for n_frames mel frames
+    (reference: AudioEncoder.getOutputLength, AudioEncoder.swift:287-303)."""
+    chunk = cfg.chunk_frames
+    full = (n_frames // chunk) * cfg.tokens_per_chunk
+    rem = n_frames % chunk
+    if rem == 0:
+        return full
+    f = rem
+    for _ in range(3):
+        f = (f - 1) // 2 + 1
+    return full + max(f, 1)
+
+
 @functools.lru_cache(maxsize=4)
 def sinusoidal_positions(seq_len: int, d_model: int) -> np.ndarray:
     """[seq_len, d_model] — sin/cos concatenated (not interleaved)."""

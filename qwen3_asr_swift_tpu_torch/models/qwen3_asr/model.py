@@ -45,8 +45,8 @@ encode, prefill and its first chunk under one latency slot.
   request and sliced to the rank's rows, so a dp run samples what one
   device samples.
 
-:meth:`Qwen3ASR.from_pretrained` loads a checkpoint from a local directory
-(hub download is not ported).
+:meth:`Qwen3ASR.from_pretrained` loads a checkpoint from a local directory,
+from the cache by model id (offline too) or by fetch (``core/hub.py``).
 """
 
 from __future__ import annotations
@@ -64,7 +64,8 @@ from ...audio.resample import resample
 from ...core.logging import inference as log
 from ...core.protocols import SpeechRecognitionModel
 from ...core.types import ModelMemoryStats, TranscriptionResult
-from ...core.params import init_random_params, param_bytes, params_from_jax
+from ...core.params import init_random_params, params_from_jax
+from ...core.weights import param_bytes
 from ...device import resolve_device
 from ...ops.kv_cache import KVCache
 from ...ops.mel import MelConfig, log_mel_kernel, num_frames, reflect_pad_np
@@ -243,7 +244,9 @@ class Qwen3ASR(SpeechRecognitionModel):
         """Load a checkpoint in the published layout from a local directory
         (``*.safetensors``, and ``vocab.json``/``merges.txt`` for text; without
         them decode returns ids). The directory's name picks the size and the
-        bits, as a model id does. ``kw`` go to the constructor (``device``,
+        bits, as a model id does. A model id is found in the cache
+        (``cache_dir``, ``QWEN3_CACHE_DIR``, offline too) or fetched
+        (``core/hub.py``). ``kw`` go to the constructor (``device``,
         ``kv_dtype``, ...)."""
         from ...core.hub import download_weights
         from ...core.weights import load_safetensors
@@ -252,7 +255,11 @@ class Qwen3ASR(SpeechRecognitionModel):
         if progress_handler:
             progress_handler(0.0, "Downloading model...")
         cfg = detect_config(model_id)
-        model_dir = download_weights(model_id, cache_dir=cache_dir, offline_mode=offline_mode)
+        model_dir = download_weights(
+            model_id, cache_dir=cache_dir, offline_mode=offline_mode,
+            additional_files=("vocab.json", "merges.txt", "tokenizer_config.json"),
+            progress_handler=(lambda p: progress_handler(p * 0.8, "Downloading weights...")) if progress_handler else None,
+        )
         if progress_handler:
             progress_handler(0.8, "Loading tokenizer...")
         tokenizer = None

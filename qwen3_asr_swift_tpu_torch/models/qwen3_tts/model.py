@@ -179,13 +179,17 @@ class Qwen3TTS(SpeechGenerationModel):
         """Load a checkpoint in the published layout from a local directory
         (``*.safetensors``, the tokenizer files, and ``config.json`` for
         named speakers). The directory's name picks the size and the bits,
-        as a model id does. Hub download is not ported."""
+        as a model id does. A model id is found in the cache or fetched
+        (``core/hub.py``)."""
         from ...core.config import detect_bits
         from ...core.hub import download_weights
         from ...core.weights import load_safetensors
         from .convert import convert_tts_checkpoint, detect_tts_config, load_speaker_config
 
-        model_dir = download_weights(model_id, cache_dir=cache_dir, offline_mode=offline_mode)
+        model_dir = download_weights(
+            model_id, cache_dir=cache_dir, offline_mode=offline_mode,
+            additional_files=("vocab.json", "merges.txt", "tokenizer_config.json", "config.json"),
+        )
         cfg = detect_tts_config(model_id, model_dir)
         tokenizer = BPETokenizer.from_pretrained_dir(model_dir)
         flat = load_safetensors(model_dir)

@@ -276,8 +276,8 @@ class SourceSeparator(SourceSeparationModel):
     @classmethod
     def from_pretrained(cls, model_id: str = "open-unmix/umxhq", cache_dir=None,
                         offline_mode: bool = False, **kw) -> "SourceSeparator":
-        """A local directory of per-stem ``.pth`` or ``.safetensors`` files
-        (hub download is not ported)."""
+        """A directory of per-stem ``.pth`` or ``.safetensors`` files, local,
+        cached or fetched (``core/hub.py``)."""
         from ...core.hub import download_weights
         from .convert import load_umx_checkpoint
 

@@ -271,8 +271,8 @@ class SileroVAD(VoiceActivityDetectionModel, StreamingVADProvider):
                         **kw) -> "SileroVAD":
         """A local directory with the MLX-converted safetensors, or the
         upstream TorchScript archive itself (a ``*.jit`` file, or a
-        directory holding one and no safetensors). Hub download is not
-        ported."""
+        directory holding one and no safetensors); a model id is found in the
+        cache or fetched (``core/hub.py``)."""
         from pathlib import Path
 
         from ...core.hub import download_weights

@@ -366,7 +366,7 @@ class CampPlusSpeaker(SpeakerEmbeddingModel):
     @classmethod
     def from_pretrained(cls, model_id: str = "aufklarer/CamPlusPlus-Speaker-CoreML",
                         cache_dir=None, offline_mode: bool = False, **kw):
-        """A local checkpoint directory (hub download is not ported)."""
+        """A checkpoint from a directory, a cached snapshot or a fetch (``core/hub.py``)."""
         from ...core.hub import download_weights
         from .campplus_convert import convert_checkpoint
 

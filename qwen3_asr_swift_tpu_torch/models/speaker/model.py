@@ -152,7 +152,7 @@ class WeSpeaker(SpeakerEmbeddingModel):
     @classmethod
     def from_pretrained(cls, model_id: str = "wespeaker-resnet34", cache_dir=None,
                         offline_mode: bool = False, progress_handler=None, **kw) -> "WeSpeaker":
-        """A local checkpoint directory (hub download is not ported)."""
+        """A checkpoint from a directory, a cached snapshot or a fetch (``core/hub.py``)."""
         from ...core.hub import download_weights
         from ...core.weights import load_safetensors
         from .convert import convert_wespeaker

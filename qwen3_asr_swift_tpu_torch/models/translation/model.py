@@ -327,8 +327,8 @@ class MADLADTranslator(TranslationModel):
     def from_pretrained(cls, model_id: str = "google/madlad400-3b-mt", cache_dir=None,
                         offline_mode: bool = False, dtype: torch.dtype = torch.bfloat16,
                         **kw) -> "MADLADTranslator":
-        """A local checkpoint directory, loaded in bf16 as the reference
-        loads it (hub download is not ported)."""
+        """A checkpoint from a directory, a cached snapshot or a fetch (``core/hub.py``), loaded in bf16 as the
+        reference loads it."""
         from pathlib import Path
 
         from ...core.hub import download_weights

@@ -528,7 +528,8 @@ class VoxCPM2TTS(SpeechGenerationModel):
                         **kw) -> "VoxCPM2TTS":
         """Load a local checkpoint directory (MLX-format or torch-named
         safetensors, or a ``.pt``/``.pth``/``.bin``; the tokenizer files if
-        present). Hub download is not ported."""
+        present); a model id is found in the cache or fetched
+        (``core/hub.py``)."""
         from ...core.hub import download_weights
         from ...tokenizers.bpe import BPETokenizer
         from .convert import convert_checkpoint

@@ -99,8 +99,7 @@ class WakeWordDetector(WakeWordModel):
                         progress_handler=None, **kw) -> "WakeWordDetector":
         """Load a converted checkpoint directory: ``model.safetensors`` in
         the canonical tree (see convert.py for the icefall mapping) plus
-        ``config.json`` hyperparameters. A local directory (hub download is
-        not ported)."""
+        ``config.json`` hyperparameters, from a directory, a cached snapshot or a fetch (``core/hub.py``)."""
         import dataclasses
         from pathlib import Path
 
@@ -108,7 +107,8 @@ class WakeWordDetector(WakeWordModel):
         from ...core.weights import load_safetensors, relist, unflatten
 
         model_dir = Path(download_weights(model_id, cache_dir=cache_dir,
-                                          offline_mode=offline_mode))
+                                          offline_mode=offline_mode,
+                                          progress_handler=progress_handler))
         cfg = ZipformerConfig()
         cfg_path = model_dir / "config.json"
         if cfg_path.exists():

@@ -199,7 +199,7 @@ def param_count(params) -> int:
 # Streaming state
 # ---------------------------------------------------------------------------
 
-def init_states(cfg: ZipformerConfig, batch: int = 1, dtype=torch.float32, device="cpu") -> dict:
+def init_states(cfg: ZipformerConfig, batch: int = 1, dtype=torch.float32, device="cuda") -> dict:
     """Zeroed caches, leaf for leaf the reference's state pytree."""
     zeros = functools.partial(torch.zeros, dtype=dtype, device=device)
     layer_states = []

@@ -49,6 +49,14 @@ class KVCache:
     def quantized(self) -> bool:
         return self.layers[0].k_scale is not None
 
+    @property
+    def max_len(self) -> int:
+        return self.layers[0].k.shape[2]
+
+    @property
+    def batch(self) -> int:
+        return self.layers[0].k.shape[0]
+
 
 def init_cache(num_layers: int, batch: int, num_kv_heads: int, max_len: int, head_dim: int,
                dtype=torch.bfloat16, *, device) -> KVCache:

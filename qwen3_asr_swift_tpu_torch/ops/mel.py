@@ -1,12 +1,14 @@
 """Log-mel over a fixed frame budget — port of ``qwen3_asr_swift_tpu/ops/mel.py``.
 
 The host half is a copy of the reference's numpy code: ``MelConfig``,
-the filterbank and windowed-DFT builders, ``num_frames`` and
-``reflect_pad_np``. The device half, :func:`log_mel_kernel`, is a frame
-gather, the windowed DFT as two matmuls (cos and sin), the power
-spectrum, a mel matmul, then log10 / max-clamp / normalize over the valid
-frames only, batched over clips; its constant matrices are cached per
-device.
+the filterbank and windowed-DFT constructors, ``num_frames``,
+``reflect_pad_np`` and the per-frame FFT golden ``log_mel_reference``.
+The device half, :func:`log_mel_kernel`, is a frame gather, the windowed
+DFT as two matmuls (cos and sin), the power spectrum, a mel matmul, then
+log10 / max-clamp / normalize over the valid frames only, batched over
+clips; its constant matrices are cached per device. :func:`reflect_pad`
+pads on the device, and :class:`MelFrontend` is the reference's bucketed
+extractor over :func:`log_mel_kernel`.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..device import resolve_device
 
 MAX_MEL_FRAMES = 120_000  # 1200 s at 16 kHz / hop 160
 
@@ -115,6 +119,14 @@ def _reflect_indices(n: int, pad: int):
     return left_src, right_src
 
 
+def reflect_pad(audio: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reference-exact reflect pad (device): mirror without repeating the
+    edge sample, degenerating gracefully for signals shorter than the pad."""
+    left_src, right_src = (torch.from_numpy(i).to(audio.device)
+                           for i in _reflect_indices(audio.shape[-1], pad))
+    return torch.cat([audio[..., left_src], audio, audio[..., right_src]], dim=-1)
+
+
 def reflect_pad_np(audio: np.ndarray, pad: int) -> np.ndarray:
     left_src, right_src = _reflect_indices(audio.shape[-1], pad)
     return np.concatenate([audio[..., left_src], audio, audio[..., right_src]], axis=-1)
@@ -156,3 +168,97 @@ def log_mel_kernel(padded_audio: torch.Tensor, n_valid_frames: torch.Tensor,
     log_spec = (log_spec + 4.0) / 4.0
     log_spec = torch.where(valid[..., None], log_spec, torch.zeros_like(log_spec))
     return log_spec.transpose(1, 2)
+
+
+class MelFrontend:
+    """Host-facing mel extractor with length bucketing, on ``device``.
+
+    Arbitrary-length audio is reflect-padded on the host, zero-padded up to
+    the next frame-budget bucket and run through :func:`log_mel_kernel`
+    with its valid-frame count, as the reference's one program per bucket
+    is; a 30 s clip is 3 matmuls of shape [3000,400]@[400,257] +
+    [3000,257]@[257,128].
+    """
+
+    # Bucket boundaries in seconds (frames = seconds * 100 at 16 kHz/160 hop)
+    DEFAULT_BUCKETS_S = (1, 2, 5, 10, 20, 30, 60, 120, 300, 600, 1200)
+
+    def __init__(self, cfg: MelConfig = MelConfig(), buckets_s=DEFAULT_BUCKETS_S,
+                 device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._frame_buckets = [
+            min(int(s * cfg.sample_rate / cfg.hop_length), cfg.max_frames) for s in buckets_s
+        ]
+
+    def _bucket_for(self, frames_needed: int) -> int:
+        for b in self._frame_buckets:
+            if frames_needed <= b:
+                return b
+        return self.cfg.max_frames
+
+    def padded_len_for_frames(self, frames: int) -> int:
+        """Padded-signal samples the kernel reads for a `frames` budget."""
+        return (frames - 1) * self.cfg.hop_length + self.cfg.n_fft
+
+    def __call__(self, audio: np.ndarray) -> np.ndarray:
+        """audio: [n_samples] float32 at cfg.sample_rate →
+        [n_mels, n_valid_frames] float32 (on device, sliced on host)."""
+        audio = np.atleast_1d(np.asarray(audio, np.float32))
+        if len(audio) < 2:  # reflect padding indexes sample 1
+            audio = np.pad(audio, (0, 2 - len(audio)))
+        n_valid = num_frames(self.cfg, len(audio))
+        bucket = self._bucket_for(n_valid)
+        padded = reflect_pad_np(audio.astype(np.float32), self.cfg.n_fft // 2)
+        need = self.padded_len_for_frames(bucket)
+        if len(padded) < need:
+            padded = np.pad(padded, (0, need - len(padded)))
+        else:
+            padded = padded[:need]
+        out = self.device_call(torch.from_numpy(padded).to(self.device),
+                               torch.tensor(n_valid, dtype=torch.int32), total_frames=bucket)
+        return out[:, :n_valid].cpu().numpy()
+
+    def device_call(self, padded_audio: torch.Tensor, n_valid_frames,
+                    total_frames: int) -> torch.Tensor:
+        """On-device variant for larger pipelines: ``padded_audio`` fp32
+        ``[L]``, already reflect-padded (:func:`reflect_pad`) →
+        ``[n_mels, total_frames]``."""
+        n_valid = torch.as_tensor(n_valid_frames).reshape(1)
+        return log_mel_kernel(padded_audio[None], n_valid, self.cfg, total_frames)[0]
+
+
+# ---------------------------------------------------------------------------
+# Pure-numpy reference (for golden-parity tests, mirrors the reference's
+# vDSP pipeline step by step)
+# ---------------------------------------------------------------------------
+
+def log_mel_reference(audio: np.ndarray, cfg: MelConfig = MelConfig()) -> np.ndarray:
+    """Direct per-frame FFT implementation of the same semantics; the unit
+    tests pin the XLA kernel against this (golden-fixture strategy,
+    reference: Tests/SpeechWakeWordTests fbank parity)."""
+    pad = cfg.n_fft // 2
+    n = len(audio)
+    left_src = np.maximum(np.minimum(np.arange(pad, 0, -1), n - 1), 0)
+    right_src = np.maximum(n - 2 - np.arange(pad), 0)
+    padded = np.concatenate([audio[left_src], audio, audio[right_src]])
+
+    n_frames = (len(padded) - cfg.n_fft) // cfg.hop_length + 1
+    window = 0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(cfg.n_fft) / cfg.n_fft))
+    mags = np.empty((n_frames, cfg.n_freqs), dtype=np.float64)
+    for f in range(n_frames):
+        frame = padded[f * cfg.hop_length : f * cfg.hop_length + cfg.n_fft] * window
+        spec = np.fft.rfft(frame, n=cfg.padded_fft)
+        mags[f] = np.abs(spec) ** 2
+
+    fb = mel_filterbank(cfg.n_mels, cfg.n_freqs, cfg.sample_rate, cfg.padded_fft).astype(np.float64)
+    mel = mags @ fb
+    log_spec = np.log10(np.maximum(mel, cfg.log_clamp_floor))
+    # drop the last frame BEFORE the max-normalization (HF Whisper drops
+    # it from the magnitudes before any statistic; the jitted kernel masks
+    # it out of global_max the same way)
+    log_spec = log_spec[: n_frames - 1]
+    log_spec = np.maximum(log_spec, log_spec.max() - cfg.dynamic_range)
+    log_spec = (log_spec + 4.0) / 4.0
+    log_spec = log_spec[: cfg.max_frames]
+    return log_spec.T.astype(np.float32)  # [n_mels, frames]

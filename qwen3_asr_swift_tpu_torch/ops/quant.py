@@ -58,6 +58,10 @@ K1_LAUNCHES = cuda_build.LaunchCounter("quant_matmul_cuda")
 K2_LAUNCHES = cuda_build.LaunchCounter("quant_matmul_plane_cuda")
 
 
+def is_quantized(p) -> bool:
+    return isinstance(p, dict) and "codes" in p
+
+
 def infer_quant_dims(in_dim: int, codes_shape, scales_shape):
     """(bits, group_size) from static shapes."""
     packed = codes_shape[-1]

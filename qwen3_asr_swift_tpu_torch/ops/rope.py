@@ -41,3 +41,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     x1 = upcast(x[..., :half])
     x2 = upcast(x[..., half:])
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def rope_reference(x: np.ndarray, positions: np.ndarray, base: float = 1e6) -> np.ndarray:
+    """Pure-numpy split-half RoPE for parity tests."""
+    head_dim = x.shape[-1]
+    half = head_dim // 2
+    inv_freq = 1.0 / (base ** (np.arange(0, half, dtype=np.float64) / half))
+    ang = positions[..., None].astype(np.float64) * inv_freq
+    cos, sin = np.cos(ang), np.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    return np.concatenate([x1 * cos - x2 * sin, x2 * cos + x1 * sin], axis=-1).astype(x.dtype)

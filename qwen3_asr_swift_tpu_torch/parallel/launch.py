@@ -50,7 +50,7 @@ def _rank_main(job, rank, world, init_method, backend, device, threads, results)
         raise
 
 
-def spawn(work: Callable, world_size: int, args=(), *, device="cpu",
+def spawn(work: Callable, world_size: int, args=(), *, device="cuda",
           backend: Optional[str] = None, timeout: float = 600.0,
           threads: Optional[int] = 1) -> List[object]:
     """Run ``work(rank, *args)`` on ``world_size`` new processes in one

@@ -7,9 +7,9 @@ over its group batchers (``ContinuousBatcher`` +
 from .batching import ContinuousBatcher, TTSBatcher
 from .dispatch import DispatchGate
 from .registry import build_registry
-from .server import ModelRegistry, RealtimeSession, SpeechServer
+from .server import ModelRegistry, RealtimeSession, SpeechServer, build_default_registry
 from .slotpool import SlotPoolASR
 from .ttspool import SlotPoolTTS
 
 __all__ = ["ContinuousBatcher", "DispatchGate", "ModelRegistry", "RealtimeSession", "SlotPoolASR",
-           "SlotPoolTTS", "SpeechServer", "TTSBatcher", "build_registry"]
+           "SlotPoolTTS", "SpeechServer", "TTSBatcher", "build_default_registry", "build_registry"]

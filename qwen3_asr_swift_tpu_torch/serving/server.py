@@ -14,6 +14,10 @@ limits, read timeouts). ASR requests flow through the
 A JSON ``/transcribe`` body may carry ``max_tokens``, the request's decode
 budget (the reference's route has none; its ``/respond`` takes
 ``max_steps`` so).
+
+:func:`build_default_registry` serves ``Qwen3ASR.from_pretrained()``'s
+default model as ``"asr"``, loaded at its first request; ``python -m
+qwen3_asr_swift_tpu_torch.serving.server`` (:func:`main`) serves it.
 """
 
 from __future__ import annotations
@@ -669,3 +673,42 @@ class RealtimeSession:
         await self._send({"type": "response.audio.done", "event_id": self._event_id()})
         await self._send({"type": "response.done", "event_id": self._event_id(),
                           "response": {"status": "completed"}})
+
+
+def build_default_registry(decode_chunk_tokens: Optional[int] = 15,
+                           device="cuda") -> ModelRegistry:
+    """Registry wired to the real model loaders (lazy): ``"asr"`` is
+    ``Qwen3ASR.from_pretrained()`` on ``device``, its default id found in
+    the cache or fetched (``core/hub.py``).
+
+    ``decode_chunk_tokens`` bounds each dispatched ASR decode program so a
+    newly arriving request interleaves at chunk boundaries instead of
+    waiting out an in-flight batch's full generate (loaded first-token
+    latency); None = monolithic decode. Default 15, the reference's."""
+    reg = ModelRegistry()
+
+    def load_asr():
+        from ..models.qwen3_asr import Qwen3ASR
+
+        return Qwen3ASR.from_pretrained(decode_chunk_tokens=decode_chunk_tokens, device=device)
+
+    reg.register("asr", load_asr)
+    return reg
+
+
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description="speech server on PyTorch/CUDA")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8321)
+    parser.add_argument("--device", default="cuda",
+                        help="'cuda' (the current card, the default), 'cuda:N' or 'cpu'")
+    args = parser.parse_args(argv)
+    server = SpeechServer(build_default_registry(device=args.device), host=args.host,
+                          port=args.port)
+    asyncio.run(server.serve_forever())
+
+
+if __name__ == "__main__":
+    main()

@@ -436,4 +436,5 @@ def test_converter_and_from_pretrained(tmp_path, monkeypatch):
     assert port.tokenizer.encode("<|im_start|>hi") == ref.tokenizer.encode("<|im_start|>hi")
     assert port.generate_ids(PROMPT, max_new=10) == ref.generate_ids(PROMPT, max_new=10)
     with pytest.raises(FileNotFoundError):
-        Qwen3Chat.from_pretrained(str(tmp_path / "missing"), cfg=WIDE, device="cpu")
+        Qwen3Chat.from_pretrained(str(tmp_path / "missing"), cfg=WIDE, device="cpu",
+                                  cache_dir=str(tmp_path / "cache"), offline_mode=True)

@@ -68,8 +68,30 @@ def test_cuda_device_without_card_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     assert resolve_device(None) == torch.device("cuda", 0)
     assert resolve_device() == torch.device("cuda", 0)
+
+
+def test_cuda_device_follows_set_device(monkeypatch):
+    """``"cuda"`` and ``None`` name the current card, so a rank that called
+    ``torch.cuda.set_device`` (``parallel.spawn``, ``torchrun``) keeps it;
+    an explicit index is taken as it is and checked against the count."""
+    from qwen3_asr_swift_tpu_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 2)
+    for device in ("cuda", None, torch.device("cuda")):
+        assert resolve_device(device) == torch.device("cuda", 2)
+    assert resolve_device() == torch.device("cuda", 2)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="4 CUDA device"):
+        resolve_device("cuda:4")
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 5)
+    with pytest.raises(RuntimeError, match="4 CUDA device"):
+        resolve_device("cuda")
 
 
 def test_model_refuses_cuda_without_card(monkeypatch):

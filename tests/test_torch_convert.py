@@ -12,7 +12,7 @@ embedding) at the group-64 tiny config, with fp32, fp16 and bf16 tensors.
   ``detect_config`` patched to the tiny config in both packages: identical
   greedy tokens dequantized; packed (bf16 activations in both), identical
   up to a near-tie, which the test shows is one;
-- a model id that is not a local directory raises (no hub download).
+- a model id that is neither a directory nor a cached snapshot raises offline.
 """
 
 import dataclasses
@@ -251,10 +251,16 @@ def test_from_pretrained_without_tokenizer_files_and_round_trip(tmp_path, monkey
 
 
 def test_model_id_that_is_not_a_directory_raises(tmp_path):
-    with pytest.raises(FileNotFoundError, match="hub download is not ported"):
-        Qwen3ASR.from_pretrained(str(tmp_path / "missing"), device="cpu")
-    with pytest.raises(FileNotFoundError, match="hub download is not ported"):
-        Qwen3ASR.from_pretrained("aufklarer/Qwen3-ASR-0.6B-MLX-4bit", device="cpu")
+    """An id that is neither a directory nor a snapshot in the cache raises
+    the reference's ``FileNotFoundError`` offline (no fetch is tried)."""
+    cache = str(tmp_path / "cache")
+    with pytest.raises(FileNotFoundError, match="offline mode: no cached snapshot"):
+        Qwen3ASR.from_pretrained(str(tmp_path / "missing"), device="cpu", cache_dir=cache,
+                                 offline_mode=True)
+    with pytest.raises(FileNotFoundError, match="offline mode: no cached snapshot for "
+                                                "aufklarer/Qwen3-ASR-0.6B-MLX-4bit"):
+        Qwen3ASR.from_pretrained("aufklarer/Qwen3-ASR-0.6B-MLX-4bit", device="cpu",
+                                 cache_dir=cache, offline_mode=True)
 
 
 @pytest.mark.parametrize("model_id", ["aufklarer/Qwen3-ASR-0.6B-MLX-4bit", "x/Qwen3-ASR-1.7B-8bit",

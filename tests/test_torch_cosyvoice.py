@@ -448,11 +448,11 @@ def test_dialogue_and_icl_voice_match(models):
     wav_close(got, want, exact)
 
 
-def test_clone_voice_needs_a_speaker_model(models, monkeypatch):
+def test_clone_voice_needs_a_speaker_model(models, monkeypatch, tmp_path):
     """Without a speaker model, ``clone_voice`` loads CAM++ with
     ``CampPlusSpeaker.from_pretrained()`` on the model's device (the
-    reference's default; here a missing local checkpoint raises, as hub
-    download is not ported); a given model's ``embed`` is used as it is."""
+    reference's default; here, offline on an empty cache, the missing
+    snapshot raises); a given model's ``embed`` is used as it is."""
     from qwen3_asr_swift_tpu_torch.models.speaker import campplus
 
     port = models[1]
@@ -466,7 +466,10 @@ def test_clone_voice_needs_a_speaker_model(models, monkeypatch):
         m.setattr(campplus.CampPlusSpeaker, "from_pretrained", from_pretrained)
         port.clone_voice("x", np.full(16000, 0.1, np.float32))
     assert seen == [((), {"device": port.device})] and "x" in port.voices
-    with pytest.raises(FileNotFoundError, match="CamPlusPlus"):
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    monkeypatch.setenv("QWEN3_CACHE_DIR", str(tmp_path / "cache"))
+    with pytest.raises(FileNotFoundError, match="offline mode: no cached snapshot for "
+                                                "aufklarer/CamPlusPlus"):
         port.clone_voice("x", np.zeros(16000, np.float32))
 
     class Embedder:

@@ -168,7 +168,7 @@ def test_clustering_matches(seed):
 
 def test_from_pretrained_resolves_to_the_ports_models(monkeypatch):
     """``from_pretrained`` builds the port's Silero and WeSpeaker (their own
-    default ids, hub download not ported), and the pipeline reaches the
+    default ids), and the pipeline reaches the
     port's batched WeSpeaker."""
     seen = []
 

@@ -262,4 +262,5 @@ def test_converted_state_dict_matches_reference(params, tmp_path):
     direct = SpeechEnhancer(params, device="cpu", mean_norm_init=mean0).enhance(audio, 48000)
     np.testing.assert_array_equal(loaded.enhance(audio, 48000).samples, direct.samples)
     with pytest.raises(FileNotFoundError):
-        SpeechEnhancer.from_pretrained("no/such/dfn3-checkpoint", device="cpu")
+        SpeechEnhancer.from_pretrained("no/such/dfn3-checkpoint", device="cpu",
+                                       cache_dir=str(tmp_path / "cache"), offline_mode=True)

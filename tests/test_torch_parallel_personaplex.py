@@ -120,7 +120,7 @@ def jax_side():
 @pytest.fixture(scope="module")
 def runs():
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        ranks = pool.submit(spawn, rank_checks, WORLD, timeout=300)
+        ranks = pool.submit(spawn, rank_checks, WORLD, device="cpu", timeout=300)
         ref = jax_side()
         return ranks.result(), ref
 

@@ -462,4 +462,5 @@ def test_from_pretrained_reads_a_written_checkpoint(models, tmp_path):
     with pytest.raises(FileNotFoundError):
         PersonaPlex.from_pretrained(str(tmp_path), cfg=CFG, device="cpu")
     with pytest.raises(FileNotFoundError):
-        PersonaPlex.from_pretrained("nvidia/personaplex-7b-v1", device="cpu")
+        PersonaPlex.from_pretrained("nvidia/personaplex-7b-v1", device="cpu",
+                                    cache_dir=str(tmp_path / "cache"), offline_mode=True)

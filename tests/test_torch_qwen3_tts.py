@@ -559,8 +559,9 @@ def test_checkpoint_round_trip(tmp_path, dense, monkeypatch):
     want, wn = port.generate_codes("hello world", sampling=GREEDY)
     assert n == wn
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(FileNotFoundError, match="not ported"):
-        Qwen3TTS.from_pretrained("aufklarer/Qwen3-TTS-1.7B-MLX-4bit", device="cpu")
+    with pytest.raises(FileNotFoundError, match="offline mode: no cached snapshot"):
+        Qwen3TTS.from_pretrained("aufklarer/Qwen3-TTS-1.7B-MLX-4bit", device="cpu",
+                                 cache_dir=str(tmp_path / "cache"), offline_mode=True)
 
 
 def test_fbank_matches_reference():

@@ -241,8 +241,9 @@ def test_from_pretrained_safetensors_directory(params, audio, tmp_path):
     want = p_model.SileroVAD(params, device="cpu").speech_probabilities(x)
     np.testing.assert_array_equal(pv.speech_probabilities(x), want)
     np.testing.assert_allclose(jv.speech_probabilities(x), want, atol=1e-5, rtol=0)
-    with pytest.raises(FileNotFoundError, match="hub download is not ported"):
-        p_model.SileroVAD.from_pretrained("silero-vad-v5", device="cpu")
+    with pytest.raises(FileNotFoundError, match="offline mode: no cached snapshot for silero-vad-v5"):
+        p_model.SileroVAD.from_pretrained("silero-vad-v5", device="cpu",
+                                          cache_dir=str(tmp_path / "cache"), offline_mode=True)
 
 
 class _Enc(torch.nn.Module):

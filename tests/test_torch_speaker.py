@@ -375,5 +375,8 @@ def test_clone_voice_loads_campplus_from_pretrained(tmp_path, monkeypatch):
     n = config_tiny().flow.spk_embed_dim
     np.testing.assert_array_equal(port.voices["bob"].embedding, direct.embed(audio)[:n])
     monkeypatch.chdir(tmp_path / "aufklarer")
-    with pytest.raises(FileNotFoundError, match="CamPlusPlus"):
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    monkeypatch.setenv("QWEN3_CACHE_DIR", str(tmp_path / "cache"))
+    with pytest.raises(FileNotFoundError, match="offline mode: no cached snapshot for "
+                                                "aufklarer/CamPlusPlus"):
         port.clone_voice("carol", audio)

@@ -264,5 +264,6 @@ def test_from_pretrained_loads_bf16(tmp_path, tree):
 
     sig = inspect.signature(p_model.MADLADTranslator.from_pretrained)
     assert sig.parameters["dtype"].default == torch.bfloat16
-    with pytest.raises(FileNotFoundError, match="hub download"):
-        p_model.MADLADTranslator.from_pretrained(device="cpu")
+    with pytest.raises(FileNotFoundError, match="offline mode: no cached snapshot for google/madlad"):
+        p_model.MADLADTranslator.from_pretrained(device="cpu", cache_dir=str(tmp_path / "cache"),
+                                                 offline_mode=True)

@@ -82,6 +82,12 @@ from qwen3_asr_swift_tpu.models.parakeet_streaming import encoder as j_pks_enc
 from qwen3_asr_swift_tpu.models.parakeet_streaming import model as j_pks
 from qwen3_asr_swift_tpu.models.wakeword import model as j_wake
 from qwen3_asr_swift_tpu.models.wakeword import zipformer as j_zip
+from qwen3_asr_swift_tpu.core import hub as j_hub
+from qwen3_asr_swift_tpu.models.qwen3_asr import encoder as j_asr_enc
+from qwen3_asr_swift_tpu.ops import attention as j_att
+from qwen3_asr_swift_tpu.ops import kv_cache as j_kv
+from qwen3_asr_swift_tpu.ops import quant as j_quant
+from qwen3_asr_swift_tpu.ops import rope as j_rope
 from qwen3_asr_swift_tpu_torch.audio import companding as p_comp
 from qwen3_asr_swift_tpu_torch.audio import io as p_io
 from qwen3_asr_swift_tpu_torch.core import config as p_config
@@ -144,6 +150,12 @@ from qwen3_asr_swift_tpu_torch.models.parakeet_streaming import encoder as p_pks
 from qwen3_asr_swift_tpu_torch.models.parakeet_streaming import model as p_pks
 from qwen3_asr_swift_tpu_torch.models.wakeword import model as p_wake
 from qwen3_asr_swift_tpu_torch.models.wakeword import zipformer as p_zip
+from qwen3_asr_swift_tpu_torch.core import hub as p_hub
+from qwen3_asr_swift_tpu_torch.models.qwen3_asr import encoder as p_asr_enc
+from qwen3_asr_swift_tpu_torch.ops import attention as p_att
+from qwen3_asr_swift_tpu_torch.ops import kv_cache as p_kv
+from qwen3_asr_swift_tpu_torch.ops import quant as p_quant
+from qwen3_asr_swift_tpu_torch.ops import rope as p_rope
 
 # the audio packages export the function ``resample`` over the module's name
 j_resample = importlib.import_module("qwen3_asr_swift_tpu.audio.resample")
@@ -355,6 +367,16 @@ def test_bpe_tokenizer_matches(text):
     (p_pks, j_pks, ["StreamingResult"]),
     (p_sortformer, j_sortformer, ["SortformerConfig", "config_tiny"]),
     (p_omni, j_omni, ["OmniConfig", "config_tiny", "conv_output_length", "ctc_greedy_collapse"]),
+    (p_hub, j_hub, ["sanitized_cache_key", "validated_remote_file_name", "get_cache_directory",
+                    "_have_local_snapshot", "download_weights"]),
+    (p_comp, j_comp, ["mulaw_decode_np", "pcm4_decode_np"]),
+    (p_config, j_config, ["from_json_file", "from_dict"]),
+    (p_weights, j_weights, ["maybe_dequantize_linear"]),
+    (p_mel, j_mel, ["log_mel_reference"]),
+    (p_att, j_att, ["sdpa_reference"]),
+    (p_rope, j_rope, ["rope_reference"]),
+    (p_quant, j_quant, ["is_quantized"]),
+    (p_asr_enc, j_asr_enc, ["conv_output_length"]),
 ])
 def test_copied_code_is_the_original(port, ref, names):
     """Whole copies keep their originals' source, so a fix to one shows as
@@ -406,6 +428,8 @@ def test_copied_code_is_the_original(port, ref, names):
      ["new_session", "decode_tokens", "transcribe", "transcribe_stream", "warm_up", "unload",
       "is_loaded"]),
     (p_omni.OmnilingualASR, j_omni.OmnilingualASR, ["warm_up", "unload", "is_loaded"]),
+    (p_kv.KVCache, j_kv.KVCache, ["max_len", "batch"]),
+    (p_mel.MelFrontend, j_mel.MelFrontend, ["_bucket_for", "padded_len_for_frames"]),
 ])
 def test_copied_methods_are_the_originals(port, ref, names):
     for name in names:
@@ -685,7 +709,7 @@ WHOLE_COPIES = ["audio/ringbuffer.py", "audio/player.py", "ui/__init__.py", "ui/
                 "models/diarization/sortformer_convert.py",
                 "models/wakeword/__init__.py", "models/parakeet/__init__.py",
                 "models/parakeet_streaming/__init__.py", "models/omnilingual/__init__.py",
-                "models/diarization/__init__.py"]
+                "models/diarization/__init__.py", "core/hub.py"]
 
 
 @pytest.mark.parametrize("path", WHOLE_COPIES)

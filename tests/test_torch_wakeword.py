@@ -128,7 +128,7 @@ def test_encode_chunk_and_its_states_match(pair):
     (attention keys, both value caches, the nonlin cache, both conv caches,
     the ConvNeXt pad, the processed count) within 1e-5 of the reference's."""
     rng = np.random.default_rng(3)
-    js, ps = j_zip.init_states(J_CFG), p_zip.init_states(CFG)
+    js, ps = j_zip.init_states(J_CFG), p_zip.init_states(CFG, device="cpu")
     assert [x.shape for x in leaves(ps)] == [x.shape for x in jax.tree_util.tree_leaves(js)]
     for _ in range(3):
         mel = rng.standard_normal((1, CFG.mel_window, CFG.num_mel_bins)).astype(np.float32)
