@@ -70,7 +70,8 @@ host_prep. After serve, the rest of the Qwen3-ASR family:
                arrays, K1 and K3 on every step of the id-loaded one (the
                code's counts). One ``transcribe`` inside ``profile_trace``,
                whose Chrome trace must name K1's kernel and K3's split
-               kernel;
+               kernel, and hold the program's spans (``asr.batch``,
+               ``asr.step``, ``asr.decoder``, ``asr.sample``) as ranges;
                ``MelFrontend`` card vs host within 1e-4 of max |host| on
                30 s and 0.5 s; ``resample_torch`` card vs host within 1e-5
                of max |host| on 10 s at 48 kHz → 16 kHz;
@@ -1434,23 +1435,25 @@ LOAD_RESAMPLE_S = 10     # seconds of 48 kHz audio resampled to 16 kHz
 #: when present and not required
 TRACE_KERNELS = {"quant_matmul_cuda": "quant_matmul_kernel",
                  "decode_attention_int8": "decode_attn_int8_split"}
+TRACE_SPANS = ("asr.batch", "asr.step", "asr.decoder", "asr.sample")
 
 
-def trace_kernel_names(trace_dir):
-    """The names of the device kernels in the Chrome traces under ``trace_dir``."""
+def trace_kernel_names(trace_dir, cat="kernel"):
+    """The names of the device kernels (or of the events of category
+    ``cat``) in the Chrome traces under ``trace_dir``."""
     from pathlib import Path
 
     names = set()
     for f in Path(trace_dir).glob("*.pt.trace.json"):
         for e in json.loads(f.read_text())["traceEvents"]:
-            if str(e.get("cat", "")).lower() == "kernel":
+            if str(e.get("cat", "")).lower() == cat:
                 names.add(e.get("name", ""))
     return names
 
 
 def load_surface_checks(model, dev_name, power):
     """``profile_trace`` around one ``transcribe`` of ``model`` (the trace
-    must name K1's and K3's kernels), then ``MelFrontend`` and
+    must name K1's and K3's kernels and hold the program's spans), then ``MelFrontend`` and
     ``resample_torch`` card vs host."""
     import tempfile
     from pathlib import Path
@@ -1471,14 +1474,19 @@ def load_surface_checks(model, dev_name, power):
             model.transcribe(clip, max_tokens=LOAD_TRACE_TOKENS)
         trace_s = time.perf_counter() - t0
         names = trace_kernel_names(trace_dir)
+        ranges = trace_kernel_names(trace_dir, "user_annotation")
         size = sum(f.stat().st_size for f in Path(trace_dir).iterdir())
     ours = sorted({m for n in names for m in re.findall(r"(quant_matmul\w*|decode_attn\w*)", n)})
+    spans = sorted(r for r in ranges if r.startswith("asr."))
     log(f"load: profile_trace of one transcribe ({LOAD_TRACE_TOKENS} tokens of a 4 s clip) in "
         f"{trace_s:.1f} s, a {size / 1e6:.1f} MB Chrome trace of {len(names)} kernel names, "
-        f"the port's {ours}, on {dev_name} ({power})")
+        f"the port's {ours}, the program's spans {spans}, on {dev_name} ({power})")
     missing = [k for k, word in TRACE_KERNELS.items() if not any(word in n for n in names)]
     if missing:
         raise AssertionError(f"profile_trace's trace names no kernel of {missing}")
+    if not set(TRACE_SPANS) <= ranges:
+        raise AssertionError(f"profile_trace's trace holds no range of "
+                             f"{sorted(set(TRACE_SPANS) - ranges)}")
 
     host, card = MelFrontend(device="cpu"), MelFrontend(device="cuda")
     for seconds in LOAD_MEL_S:

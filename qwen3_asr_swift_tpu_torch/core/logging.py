@@ -1,6 +1,6 @@
 """The port's copy of ``qwen3_asr_swift_tpu/core/logging.py``;
 ``profile_trace`` captures the block with ``torch.profiler`` in place of
-``jax.profiler``.
+``jax.profiler``, with the program's spans in it.
 
 Structured logging categories.
 
@@ -15,6 +15,8 @@ import logging
 import os
 import time
 from contextlib import contextmanager
+
+from . import trace
 
 _FMT = "%(asctime)s %(name)s %(levelname)s %(message)s"
 _LEVEL = os.environ.get("SPEECH_LOG_LEVEL", "INFO").upper()
@@ -56,7 +58,9 @@ def profile_trace(trace_dir: str | None = None, annotate: str = ""):
     ``record_function(annotate)``, and export it as a Chrome trace
     (``<pid>.<ns>.pt.trace.json``, viewed in Perfetto or
     ``chrome://tracing``) into ``trace_dir`` (default: ``speech_trace``
-    under the temporary directory). Also logs wall time like
+    under the temporary directory). The program's spans (``core/trace.py``)
+    are recorded and put into the trace as ranges for the block, and the
+    tracer's state is restored after it. Also logs wall time like
     :func:`log_stage`.
 
     Usage::
@@ -75,7 +79,7 @@ def profile_trace(trace_dir: str | None = None, annotate: str = ""):
         activities.append(ProfilerActivity.CUDA)
     t0 = time.perf_counter()
     try:
-        with profile(activities=activities) as prof:
+        with profile(activities=activities) as prof, trace.annotating():
             if annotate:
                 with record_function(annotate):
                     yield

@@ -61,6 +61,7 @@ import torch
 from ...audio.companding import (dpcm4_decode, dpcm4_encode_np, mulaw_decode, mulaw_encode_np,
                                  pcm4_decode, pcm4_encode_np)
 from ...audio.resample import resample
+from ...core import trace
 from ...core.logging import inference as log
 from ...core.protocols import SpeechRecognitionModel
 from ...core.types import ModelMemoryStats, TranscriptionResult
@@ -324,6 +325,12 @@ class Qwen3ASR(SpeechRecognitionModel):
         that dp divides it, and this rank copies only its rows; one clip of
         two or more encoder windows takes the sequence-parallel encode
         instead (every rank stages it)."""
+        with trace.span("asr.prestage"):
+            # in a call of its own, so that the span holds the freeing of
+            # the staging buffers (tens of ms for a batch of long clips)
+            return self._stage(audios, sample_rate)
+
+    def _stage(self, audios: Sequence[np.ndarray], sample_rate: int) -> _StagedBatch:
         durations = [len(a) / sample_rate for a in audios]
         n_req = len(audios)
         mesh = self._mesh
@@ -381,9 +388,10 @@ class Qwen3ASR(SpeechRecognitionModel):
 
     def _encode(self, st: _StagedBatch):
         """wire → mel → encoder: (audio tokens [B, a_pad, out], n_audio [B])."""
-        mel = self._wire_to_mel(st.padded, st.n_valid, st.bucket, st.scales)
-        return encode(self.encoder_params, mel, st.n_valid, self.cfg.encoder, mesh=self._mesh,
-                      sp_mesh=self._mesh if st.use_sp else None)
+        with trace.span("asr.encode"):
+            mel = self._wire_to_mel(st.padded, st.n_valid, st.bucket, st.scales)
+            return encode(self.encoder_params, mel, st.n_valid, self.cfg.encoder,
+                          mesh=self._mesh, sp_mesh=self._mesh if st.use_sp else None)
 
     def _build_prompt(self, language: Optional[str], context: Optional[str]):
         """Chat-template ids around the audio block."""
@@ -445,41 +453,49 @@ class Qwen3ASR(SpeechRecognitionModel):
                    noise_rows: Optional[tuple] = None) -> DecodeState:
         """Prefill a cache with room for ``max_new`` tokens, pick token 0.
         ``noise_rows``: see :class:`DecodeState`."""
-        t_prompt = prompt.prefix_ids.shape[1] + audio_tokens.shape[1] + prompt.suffix_ids.shape[1]
-        logits, cache, _ = self._prefill(audio_tokens, n_audio, prompt, t_prompt + max_new,
-                                         self.kv_dtype)
-        b, dev = logits.shape[0], self.device
-        tokens = torch.full((b, max_new), self.cfg.pad_id, dtype=torch.int64, device=dev)
-        logprobs = torch.zeros((b, max_new), dtype=torch.float32, device=dev)
-        tok0 = sample_token(logits, opts, generator, tokens, 0, noise_rows=noise_rows)
-        tokens[:, 0] = tok0
-        logprobs[:, 0] = log_softmax_confidence(logits, tok0)
-        return DecodeState(step=1, tokens=tokens, logprobs=logprobs, cache=cache,
-                           done=tok0 == self.cfg.eos_id, last_tok=tok0, generator=generator,
-                           noise_rows=noise_rows)
+        with trace.span("asr.prefill"):
+            t_prompt = (prompt.prefix_ids.shape[1] + audio_tokens.shape[1]
+                        + prompt.suffix_ids.shape[1])
+            logits, cache, _ = self._prefill(audio_tokens, n_audio, prompt, t_prompt + max_new,
+                                             self.kv_dtype)
+            b, dev = logits.shape[0], self.device
+            tokens = torch.full((b, max_new), self.cfg.pad_id, dtype=torch.int64, device=dev)
+            logprobs = torch.zeros((b, max_new), dtype=torch.float32, device=dev)
+            tok0 = sample_token(logits, opts, generator, tokens, 0, noise_rows=noise_rows)
+            tokens[:, 0] = tok0
+            logprobs[:, 0] = log_softmax_confidence(logits, tok0)
+            return DecodeState(step=1, tokens=tokens, logprobs=logprobs, cache=cache,
+                               done=tok0 == self.cfg.eos_id, last_tok=tok0, generator=generator,
+                               noise_rows=noise_rows)
 
     @torch.inference_mode()
     def _gen_chunk(self, state: DecodeState, end: int, opts: SamplingOptions) -> DecodeState:
         """Decode steps ``state.step .. end-1`` with no host sync."""
         pad, eos = self.cfg.pad_id, self.cfg.eos_id
-        for step in range(state.step, end):
-            logits, _ = decode_step(self.decoder_params, self.cfg.decoder, state.last_tok,
-                                    state.cache, self._mesh)
-            tok = sample_token(logits, opts, state.generator, state.tokens, step,
-                               noise_rows=state.noise_rows)
-            tok = force_eos_after(tok, step, opts, eos)
-            lp = log_softmax_confidence(logits, tok)
-            tok = torch.where(state.done, torch.full_like(tok, pad), tok)
-            state.tokens[:, step] = tok  # rows already done write the pad they hold
-            state.logprobs[:, step] = torch.where(state.done, torch.zeros_like(lp), lp)
-            state.done = state.done | (tok == eos)
-            state.last_tok = tok
+        with trace.span("asr.decode_chunk"):
+            for step in range(state.step, end):
+                with trace.span("asr.step"):
+                    with trace.span("asr.decoder"):
+                        logits, _ = decode_step(self.decoder_params, self.cfg.decoder,
+                                                state.last_tok, state.cache, self._mesh)
+                    with trace.span("asr.sample"):
+                        tok = sample_token(logits, opts, state.generator, state.tokens, step,
+                                           noise_rows=state.noise_rows)
+                        tok = force_eos_after(tok, step, opts, eos)
+                        lp = log_softmax_confidence(logits, tok)
+                        tok = torch.where(state.done, torch.full_like(tok, pad), tok)
+                        state.tokens[:, step] = tok  # rows already done write their pad
+                        state.logprobs[:, step] = torch.where(state.done,
+                                                              torch.zeros_like(lp), lp)
+                        state.done = state.done | (tok == eos)
+                        state.last_tok = tok
         state.step = max(state.step, end)
         return state
 
     @staticmethod
     def _all_done(state: DecodeState) -> bool:
-        return bool(state.done.all().item())  # host sync: chunk boundaries only
+        with trace.span("asr.done_read"):
+            return bool(state.done.all().item())  # host sync: chunk boundaries only
 
     def _generate(self, st: _StagedBatch, prompt_args, opts: SamplingOptions, priority,
                   generator: torch.Generator, timings=None):
@@ -583,55 +599,59 @@ class Qwen3ASR(SpeechRecognitionModel):
         temperature sampling draws from. ``timings`` receives per-stage wall
         times ({host_prep, encode, generate, postprocess} s) with a device
         sync at each boundary. ``prestaged`` is a :meth:`prestage` handle."""
-        t_start = time.perf_counter()
-        opts = options or SamplingOptions(
-            max_tokens=self.max_tokens if max_tokens is None else max_tokens)
-        check_supported(opts)
-        if opts.beam > 1 and self._mesh is not None and self._mesh.dp > 1:
-            raise ValueError("beam decode runs single-chip or TP-sharded; "
-                             "dp/multi-process meshes batch greedy decodes "
-                             "instead (the beam dim folds into batch)")
-        st = prestaged if prestaged is not None else self.prestage(audios, sample_rate)
-        if timings is not None:
-            self._sync()
-            timings["host_prep"] = time.perf_counter() - t_start
-        t_gen = time.perf_counter()
-        generator = torch.Generator(device=self.device).manual_seed(seed)
-        tokens, logprobs = self._generate(st, (language, context), opts, priority, generator,
-                                          timings)
-        if timings is not None:
-            self._sync()
-            timings["generate"] = time.perf_counter() - t_gen - timings.get("encode", 0.0)
-        t_post = time.perf_counter()
-        if st.dp > 1:   # every rank returns every row
-            tokens, logprobs = self._mesh.dp_gather(tokens), self._mesh.dp_gather(logprobs)
-        n_gen = (tokens != self.cfg.pad_id).sum(dim=1)
-        tokens = tokens.to(torch.int32).cpu().numpy()
-        logprobs = logprobs.cpu().numpy()
-        n_gen = n_gen.cpu().numpy()
-        if timings is not None:
-            timings["postprocess"] = time.perf_counter() - t_post
-        return self._finalize(tokens, n_gen, logprobs, st.n_req, st.durations, language,
-                              time.perf_counter() - t_start)
+        with trace.span("asr.batch"):
+            t_start = time.perf_counter()
+            opts = options or SamplingOptions(
+                max_tokens=self.max_tokens if max_tokens is None else max_tokens)
+            check_supported(opts)
+            if opts.beam > 1 and self._mesh is not None and self._mesh.dp > 1:
+                raise ValueError("beam decode runs single-chip or TP-sharded; "
+                                 "dp/multi-process meshes batch greedy decodes "
+                                 "instead (the beam dim folds into batch)")
+            st = prestaged if prestaged is not None else self.prestage(audios, sample_rate)
+            if timings is not None:
+                self._sync()
+                timings["host_prep"] = time.perf_counter() - t_start
+            t_gen = time.perf_counter()
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+            tokens, logprobs = self._generate(st, (language, context), opts, priority, generator,
+                                              timings)
+            if timings is not None:
+                self._sync()
+                timings["generate"] = time.perf_counter() - t_gen - timings.get("encode", 0.0)
+            t_post = time.perf_counter()
+            with trace.span("asr.fetch"):
+                if st.dp > 1:   # every rank returns every row
+                    tokens = self._mesh.dp_gather(tokens)
+                    logprobs = self._mesh.dp_gather(logprobs)
+                n_gen = (tokens != self.cfg.pad_id).sum(dim=1)
+                tokens = tokens.to(torch.int32).cpu().numpy()
+                logprobs = logprobs.cpu().numpy()
+                n_gen = n_gen.cpu().numpy()
+            if timings is not None:
+                timings["postprocess"] = time.perf_counter() - t_post
+            return self._finalize(tokens, n_gen, logprobs, st.n_req, st.durations, language,
+                                  time.perf_counter() - t_start)
 
     def _finalize(self, tokens, n_gen, logprobs, n_req, durations, language,
                   elapsed) -> List[TranscriptionResult]:
-        results = []
-        for i in range(n_req):
-            ids = [t for t in tokens[i, : n_gen[i]].tolist() if t != self.cfg.eos_id]
-            if self.tokenizer:
-                text = self.tokenizer.decode(ids, skip_special=True)
-                if "<asr_text>" in text:
-                    text = text.split("<asr_text>", 1)[1].strip()
-                text = text.strip()
-            else:
-                text = " ".join(map(str, ids))
-            lp = logprobs[i, : max(n_gen[i], 1)]
-            conf = float(np.exp(lp.mean())) if n_gen[i] else 0.0
-            results.append(TranscriptionResult(
-                text=text, language=language, confidence=conf,
-                duration=durations[i], processing_time=elapsed / n_req))
-        return results
+        with trace.span("asr.finalize"):
+            results = []
+            for i in range(n_req):
+                ids = [t for t in tokens[i, : n_gen[i]].tolist() if t != self.cfg.eos_id]
+                if self.tokenizer:
+                    text = self.tokenizer.decode(ids, skip_special=True)
+                    if "<asr_text>" in text:
+                        text = text.split("<asr_text>", 1)[1].strip()
+                    text = text.strip()
+                else:
+                    text = " ".join(map(str, ids))
+                lp = logprobs[i, : max(n_gen[i], 1)]
+                conf = float(np.exp(lp.mean())) if n_gen[i] else 0.0
+                results.append(TranscriptionResult(
+                    text=text, language=language, confidence=conf,
+                    duration=durations[i], processing_time=elapsed / n_req))
+            return results
 
     # ------------------------------------------------------------------ #
 

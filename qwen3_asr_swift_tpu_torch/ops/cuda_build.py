@@ -11,7 +11,8 @@ never loads a stale library. Nothing here runs at import time.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero value into an
 exception. Each kernel's wrapper counts its launches in a
-:class:`LaunchCounter`.
+:class:`LaunchCounter` (``core/trace.py``, where :func:`core.trace.counters`
+reads every counter).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from ..core.trace import LaunchCounter  # noqa: F401  (the kernels' wrappers count here)
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -59,29 +62,6 @@ _lock = threading.Lock()
 _lib = None
 #: what the last build did: {"seconds", "path", "log", "cached"}
 build_info: dict = {}
-
-
-class LaunchCounter:
-    """Thread-safe count of one kernel's launches (the serving batcher
-    runs two worker threads through the same wrappers)."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self._n = 0
-        self._lock = threading.Lock()
-
-    def add(self, n: int = 1) -> None:
-        with self._lock:
-            self._n += n
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
-    @property
-    def value(self) -> int:
-        with self._lock:
-            return self._n
 
 
 def _nvcc() -> str:

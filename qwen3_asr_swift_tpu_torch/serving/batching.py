@@ -1,5 +1,8 @@
 """The port's copies of ``ContinuousBatcher`` and ``TTSBatcher`` from
-``qwen3_asr_swift_tpu/serving/batching.py``.
+``qwen3_asr_swift_tpu/serving/batching.py``. Lines that end in
+``# port: queue wait`` are the port's own: each request's wait in the
+queue, from ``enqueued_at`` to the start of its batch, averaged, is
+``mean_queue_wait_ms`` in ``stats``.
 
 Continuous batching scheduler for ASR/TTS serving.
 
@@ -86,6 +89,7 @@ class ContinuousBatcher:
         self._stats_lock = threading.Lock()
         self.requests_served = 0
         self.batches_run = 0
+        self.queue_wait_s = 0.0  # port: queue wait
         self._stop = False
         self._threads = [
             threading.Thread(target=self._run, daemon=True, name=f"batcher-{i}")
@@ -171,11 +175,13 @@ class ContinuousBatcher:
                         a = resample(a.astype(np.float32), r.sample_rate, 16000)
                     audios.append(a)
                 t0 = time.perf_counter()
+                waited = sum(t0 - r.enqueued_at for r in batch)  # port: queue wait
                 results = self.model.transcribe_batch(audios, sample_rate=16000, **batch[0].kwargs)
                 dt = time.perf_counter() - t0
                 with self._stats_lock:
                     self.requests_served += len(batch)
                     self.batches_run += 1
+                    self.queue_wait_s += waited  # port: queue wait
                 log.debug("batch of %d in %.0f ms", len(batch), dt * 1e3)
                 for r, res in zip(batch, results):
                     r.future.set_result(res)
@@ -192,6 +198,8 @@ class ContinuousBatcher:
                 "requests_served": self.requests_served,
                 "batches_run": self.batches_run,
                 "mean_batch_size": self.requests_served / max(1, self.batches_run),
+                "mean_queue_wait_ms":  # port: queue wait
+                    1e3 * self.queue_wait_s / max(1, self.requests_served),  # port: queue wait
             }
         if self.gate is not None:
             out["dispatch_gate"] = self.gate.stats
@@ -226,6 +234,7 @@ class TTSBatcher:
         self._stats_lock = threading.Lock()
         self.requests_served = 0
         self.batches_run = 0
+        self.queue_wait_s = 0.0  # port: queue wait
         self._stop = False
         self._threads = [
             threading.Thread(target=self._run, daemon=True, name=f"tts-batcher-{i}")
@@ -286,6 +295,7 @@ class TTSBatcher:
                 self._queue.put(req)
             try:
                 t0 = time.perf_counter()
+                waited = sum(t0 - r.enqueued_at for r in batch)  # port: queue wait
                 if len(batch) > 1 and hasattr(self.model, "synthesize_batch"):
                     results = self.model.synthesize_batch(
                         [r.text for r in batch], **first.kwargs)
@@ -294,6 +304,7 @@ class TTSBatcher:
                 with self._stats_lock:
                     self.requests_served += len(batch)
                     self.batches_run += 1
+                    self.queue_wait_s += waited  # port: queue wait
                 log.debug("tts batch of %d in %.0f ms", len(batch),
                           (time.perf_counter() - t0) * 1e3)
                 for r, res in zip(batch, results):
@@ -311,4 +322,6 @@ class TTSBatcher:
                 "requests_served": self.requests_served,
                 "batches_run": self.batches_run,
                 "mean_batch_size": self.requests_served / max(1, self.batches_run),
+                "mean_queue_wait_ms":  # port: queue wait
+                    1e3 * self.queue_wait_s / max(1, self.requests_served),  # port: queue wait
             }

@@ -14,7 +14,8 @@
 - ``resample_torch`` within 1e-5 of max |ref| of ``resample_jax``;
 - the masks equal to the reference's, and ``sdpa_reference``'s copy;
 - ``profile_trace`` writes a trace and logs, as JAX
-  ``tests/test_foundation.py`` holds its own;
+  ``tests/test_foundation.py`` holds its own, and the trace holds the
+  program's spans;
 - ``build_default_registry``, ``main`` and the card defaults of the new
   entry points.
 """
@@ -313,6 +314,47 @@ def test_profile_trace_writes_and_times(tmp_path, caplog):
     with profile_trace(str(d)):
         torch.zeros(3).sum()
     assert len(list(d.glob("*.pt.trace.json"))) == 2
+
+
+def test_profile_trace_holds_the_program_spans(tmp_path):
+    """The program's spans (``core/trace.py``) of a tiny CPU transcription
+    are ranges of the written trace; the tracer's state is restored: on,
+    with what it had recorded, or off."""
+    import dataclasses
+    import json
+
+    from qwen3_asr_swift_tpu_torch.core import trace
+    from qwen3_asr_swift_tpu_torch.core.logging import profile_trace
+    from qwen3_asr_swift_tpu_torch.models.qwen3_asr import Qwen3ASR, config_tiny
+
+    cfg = config_tiny()
+    cfg = dataclasses.replace(
+        cfg, decoder=dataclasses.replace(cfg.decoder, hidden_size=128, intermediate_size=256,
+                                         num_heads=4, num_kv_heads=2, head_dim=32),
+        encoder=dataclasses.replace(cfg.encoder, output_dim=128))
+    model = Qwen3ASR.init_random(cfg, seed=0, device="cpu", dtype=torch.float32, quant_bits=4,
+                                 kv_dtype=torch.int8, audio_buckets_s=(8,), decode_chunk_tokens=3)
+    clip = (0.1 * np.random.default_rng(7).standard_normal(16000)).astype(np.float32)
+    try:
+        trace.enable()
+        with trace.span("before"):
+            pass
+        with profile_trace(str(tmp_path), "tiny"):
+            model.transcribe_batch([clip], max_tokens=6)
+        assert trace.ON and not trace._annotate
+        names = [s.name for s in trace.spans()]
+        assert names[0] == "before" and "asr.batch" in names
+        (path,) = tmp_path.glob("*.pt.trace.json")
+        events = json.loads(path.read_text())["traceEvents"]
+        host = {e.get("name") for e in events if e.get("cat") == "user_annotation"}
+        assert {"tiny", "asr.batch", "asr.step", "asr.sample", "asr.done_read"} <= host
+        trace.disable()
+        with profile_trace(str(tmp_path / "off")):
+            model.transcribe_batch([clip], max_tokens=6)
+        assert not trace.ON and not trace._annotate
+        assert "asr.batch" in {s.name for s in trace.spans()}
+    finally:
+        trace.disable()
 
 
 # ---------------------------------------------------------------------------
