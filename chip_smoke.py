@@ -5523,7 +5523,10 @@ def shard_transcribe(model, clips, counters):
 
     model.transcribe_batch(clips[:2], options=SamplingOptions(max_tokens=2))  # allocator warm-up
     calls = []
-    with patch.object(asr_model, "sample_token", sampler_calls(asr_model.sample_token, calls)):
+    # every step's sampler call is kept, so the decode runs op by op: a step
+    # replayed from a CUDA graph calls no Python (world 1 would take one)
+    with patch.object(asr_model, "sample_token", sampler_calls(asr_model.sample_token, calls)), \
+            patch.object(asr_model, "uses_step_graph", lambda *a: False):
         torch.cuda.synchronize()
         for c in counters:
             c.reset()

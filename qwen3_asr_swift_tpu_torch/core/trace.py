@@ -1,4 +1,6 @@
-"""The port's tracer: named host spans on one clock, and the launch counters.
+"""The port's tracer: named host spans on one clock, and the named counters
+(each kernel's launches; the Qwen3-ASR decode loop's CUDA graph captures,
+replays and eager steps).
 
 Process-wide and off by default. ``span(name)`` is a context manager. While the tracer is off it returns one shared object whose
 methods do nothing, so a span site costs a boolean test and two empty
@@ -66,9 +68,11 @@ class Span(NamedTuple):
 
 class LaunchCounter:
     """Thread-safe count of one kernel's launches (the serving batcher
-    runs two worker threads through the same wrappers). Each counter is
-    registered under its name, which :func:`counters` reads; a later
-    counter of the same name takes the name over."""
+    runs two worker threads through the same wrappers), or of other events
+    of the program. Each counter is registered under its name, which
+    :func:`counters` reads; a later counter of the same name takes the
+    name over. Inside :func:`held_launches` the calling thread's ``add``
+    goes to the block's dict instead."""
 
     def __init__(self, name: str):
         self.name = name
@@ -77,6 +81,10 @@ class LaunchCounter:
         _counters[name] = self
 
     def add(self, n: int = 1) -> None:
+        held = getattr(_local, "held", None)
+        if held is not None:
+            held[self] = held.get(self, 0) + n
+            return
         with self._lock:
             self._n += n
 
@@ -93,6 +101,33 @@ class LaunchCounter:
 def counters() -> Dict[str, int]:
     """Every registered counter's value, by name."""
     return {name: c.value for name, c in list(_counters.items())}
+
+
+#: ``models/qwen3_asr/model.py``'s decode loop: the steps captured as a CUDA
+#: graph, the steps replayed from one, and the steps launched op by op
+GRAPH_CAPTURES = LaunchCounter("asr.graph_captures")
+GRAPH_REPLAYS = LaunchCounter("asr.graph_replays")
+EAGER_STEPS = LaunchCounter("asr.eager_steps")
+
+
+@contextmanager
+def held_launches():
+    """For the block, the calling thread's counts go to the dict it yields,
+    ``{counter: n}``, and not to the counters; other threads count as
+    before. A CUDA graph's capture launches nothing: each replay adds what
+    the capture held (:func:`add_held`)."""
+    outer = getattr(_local, "held", None)
+    held = _local.held = {}
+    try:
+        yield held
+    finally:
+        _local.held = outer
+
+
+def add_held(held: Dict["LaunchCounter", int]) -> None:
+    """Add each count of a :func:`held_launches` dict to its counter."""
+    for counter, n in held.items():
+        counter.add(n)
 
 
 class _Off:

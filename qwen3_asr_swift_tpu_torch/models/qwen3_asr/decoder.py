@@ -27,8 +27,8 @@ import torch
 
 from ...ops.attention import NEG_INF, sdpa
 from ...ops.attention_int8 import decode_attention_int8
-from ...ops.kv_cache import (KVCache, after_prefill, after_token, cache_kv,
-                             init_cache, write_prompt, write_token)
+from ...ops.kv_cache import (KVCache, after_prefill, after_token, after_token_at, cache_kv,
+                             init_cache, write_prompt, write_token, write_token_at)
 from ...ops.nn import (embedding_lookup, fuse_qkv_gate_up, linear, out_features, rms_norm,
                        row_linear, swiglu_mlp, table_rows, tied_lm_head, unfuse_qkv_gate_up)
 from ...ops.rope import apply_rope, rope_angles
@@ -135,10 +135,13 @@ def prefill(params, cfg: TextDecoderConfig, embeds, valid, cache: KVCache,
 
 
 def decode_step(params, cfg: TextDecoderConfig, token_ids, cache: KVCache,
-                mesh=None) -> Tuple[torch.Tensor, KVCache]:
+                mesh=None, cursor=None) -> Tuple[torch.Tensor, KVCache]:
     """One decode step for every slot. token_ids [B] → (logits fp32
     [B, vocab], the advanced cache). ``mesh``: the tree is this tp rank's
-    shard; the logits come back whole on every rank."""
+    shard; the logits come back whole on every rank. ``cursor``: the write
+    row as a device tensor (int64 [1]), read and advanced on the device in
+    place of ``cache.cursor``, which is then left to the caller (a step
+    captured as a CUDA graph reads no host integer)."""
     attn_mesh, mlp_mesh, vocab_mesh = tp_parts(params, cfg, mesh)
     b = token_ids.shape[0]
     x = embedding_lookup(params["embed_tokens"], token_ids, cfg.hidden_size,
@@ -146,7 +149,10 @@ def decode_step(params, cfg: TextDecoderConfig, token_ids, cache: KVCache,
     positions = cache.positions[:, None]
     # keys: the valid rows plus the row being written this step
     key_ok = cache.valid.clone()
-    key_ok[:, cache.cursor] = True
+    if cursor is None:
+        key_ok[:, cache.cursor] = True
+    else:
+        key_ok.index_fill_(1, cursor, True)
     mask = None
     if not cache.quantized:
         mask = torch.where(key_ok, 0.0, NEG_INF).to(torch.float32)[:, None, None, :]
@@ -154,7 +160,8 @@ def decode_step(params, cfg: TextDecoderConfig, token_ids, cache: KVCache,
     for i, p in enumerate(params["layers"]):
         h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
         q, k, v = _qkv(p, h, positions, cfg)
-        layer = write_token(cache.layers[i], k, v, cache.cursor)
+        layer = (write_token(cache.layers[i], k, v, cache.cursor) if cursor is None
+                 else write_token_at(cache.layers[i], k, v, cursor))
         if cache.quantized:
             attn = decode_attention_int8(q, layer.k, layer.k_scale, layer.v, layer.v_scale,
                                          key_ok, out_dtype=x.dtype)
@@ -166,7 +173,7 @@ def decode_step(params, cfg: TextDecoderConfig, token_ids, cache: KVCache,
         x = x + swiglu_mlp(h2, p["mlp"], mlp_mesh)
     x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
     logits = tied_lm_head(x[:, 0], params["embed_tokens"], vocab_mesh)
-    return logits, after_token(cache)
+    return logits, after_token(cache) if cursor is None else after_token_at(cache, cursor)
 
 
 def make_cache(cfg: TextDecoderConfig, batch: int, max_len: int, dtype=torch.bfloat16, *,

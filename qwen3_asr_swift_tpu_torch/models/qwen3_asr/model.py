@@ -11,7 +11,10 @@ The path of one ``transcribe_batch``:
    KV cache (:meth:`Qwen3ASR._gen_start`);
 4. decode in chunks (:meth:`Qwen3ASR._gen_chunk`), greedy or sampled
    (temperature, top-k, the repetition and n-gram penalties). The host
-   fetches ``done`` only at chunk boundaries, never per token. With
+   fetches ``done`` only at chunk boundaries, never per token. A greedy
+   decode on the card captures its second step as a CUDA graph and replays
+   it for the batch's later steps (:func:`uses_step_graph`), so that the
+   host issues one launch a step and not every kernel of it. With
    ``SamplingOptions(beam=K)`` steps 3-4 are beam search instead
    (``beam.py``), under the dispatch gate's latency lane.
 
@@ -52,6 +55,7 @@ from the cache by model id (offline too) or by fetch (``core/hub.py``).
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import List, Optional, Sequence
 
@@ -88,6 +92,29 @@ ASR_AUDIO_BUCKETS_S = (8, 16, 32, 64, 128, 320, 640, 1200)
 _WIRES = ("mulaw", "pcm4", "dpcm4")
 
 
+#: a greedy decode captures a step only with at least this many steps of its
+#: budget left to replay (a capture costs about one eager step of the host)
+GRAPH_MIN_STEPS = 8
+#: one capture at a time in the process; a device-wide synchronize (``_sync``)
+#: is invalid while another thread captures
+_CAPTURE_LOCK = threading.Lock()
+#: device → the side stream captures run on (under the lock)
+_capture_streams: dict = {}
+
+
+def uses_step_graph(device: torch.device, mesh, opts: SamplingOptions, step: int,
+                    max_new: int) -> bool:
+    """Whether decode step ``step`` of a ``max_new``-token budget is captured
+    as a CUDA graph, then replayed for the batch's later steps: on a CUDA
+    device, off any mesh, with a sampler that reads no generator and no
+    history (greedy: no temperature, penalty or top-k; ``force_eos_after``
+    is compared on the device), from the second step on (the first runs
+    eagerly and warms up what capture needs), and with
+    :data:`GRAPH_MIN_STEPS` steps of the budget left to replay."""
+    return (device.type == "cuda" and mesh is None and opts.is_greedy and step >= 2
+            and max_new - step >= GRAPH_MIN_STEPS)
+
+
 def _round_block(n: int, quantum: int = 32) -> int:
     return max(quantum, ((n + quantum - 1) // quantum) * quantum)
 
@@ -119,6 +146,33 @@ class _Prompt:
 
 
 @dataclasses.dataclass
+class StepGraph:
+    """A greedy decode step captured as a CUDA graph (:meth:`Qwen3ASR._capture`):
+    the step index and cache row that it reads and advances, on the device,
+    and the kernel launches that one replay makes, by counter."""
+
+    step: torch.Tensor         # int64 [1]: the step the next replay decodes
+    cursor: torch.Tensor       # int64 [1]: the cache row it writes
+    graph: object = None       # torch.cuda.CUDAGraph
+    launches: dict = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def at(cls, state: "DecodeState", step: int) -> "StepGraph":
+        """Step ``step`` of ``state``, its cache row ``state.cache.cursor``."""
+        def full(v):
+            return torch.full((1,), v, dtype=torch.int64, device=state.tokens.device)
+
+        return cls(full(step), full(state.cache.cursor))
+
+    def replay(self, state: "DecodeState") -> None:
+        """Run the next step of ``state`` and count it and its launches."""
+        self.graph.replay()
+        trace.add_held(self.launches)
+        trace.GRAPH_REPLAYS.add()
+        state.cache.cursor += 1
+
+
+@dataclasses.dataclass
 class DecodeState:
     """What the reference carries through its decode ``while_loop``."""
 
@@ -132,6 +186,12 @@ class DecodeState:
     #: (first row, rows of the request) on a dp rank: temperature noise is
     #: drawn for the request and this rank's rows kept (ops/sampling.py)
     noise_rows: Optional[tuple] = None
+    #: the batch's captured step, from the step captured on; dropped with the
+    #: state (the model keeps its CUDA graph, for the pool, until the thread's
+    #: next capture)
+    graph: Optional[StepGraph] = None
+    #: ``done.all()`` as the last chunk left it (bool [], on the device)
+    all_done: Optional[torch.Tensor] = None
 
 
 class Qwen3ASR(SpeechRecognitionModel):
@@ -186,6 +246,9 @@ class Qwen3ASR(SpeechRecognitionModel):
         self.mel_cfg = mel_cfg
         self.tokenizer = tokenizer
         self._mesh = None  # set by shard()
+        #: per thread, the last CUDA graph captured: the next capture shares
+        #: its memory pool, and it is dropped then
+        self._graphs = threading.local()
         #: introspection: the last staged batch's size, sharding, this
         #: device's rows and their shape
         self.last_staging: dict = {}
@@ -470,32 +533,96 @@ class Qwen3ASR(SpeechRecognitionModel):
 
     @torch.inference_mode()
     def _gen_chunk(self, state: DecodeState, end: int, opts: SamplingOptions) -> DecodeState:
-        """Decode steps ``state.step .. end-1`` with no host sync."""
-        pad, eos = self.cfg.pad_id, self.cfg.eos_id
+        """Decode steps ``state.step .. end-1`` with no host sync: op by op,
+        or, where :func:`uses_step_graph` says so, by replays of the step
+        captured once (:meth:`_capture`)."""
         with trace.span("asr.decode_chunk"):
             for step in range(state.step, end):
                 with trace.span("asr.step"):
-                    with trace.span("asr.decoder"):
-                        logits, _ = decode_step(self.decoder_params, self.cfg.decoder,
-                                                state.last_tok, state.cache, self._mesh)
-                    with trace.span("asr.sample"):
-                        tok = sample_token(logits, opts, state.generator, state.tokens, step,
-                                           noise_rows=state.noise_rows)
-                        tok = force_eos_after(tok, step, opts, eos)
-                        lp = log_softmax_confidence(logits, tok)
-                        tok = torch.where(state.done, torch.full_like(tok, pad), tok)
-                        state.tokens[:, step] = tok  # rows already done write their pad
-                        state.logprobs[:, step] = torch.where(state.done,
-                                                              torch.zeros_like(lp), lp)
-                        state.done = state.done | (tok == eos)
-                        state.last_tok = tok
+                    if state.graph is None and uses_step_graph(
+                            self.device, self._mesh, opts, step, state.tokens.shape[1]):
+                        with trace.span("asr.capture"):
+                            state.graph = self._capture(state, opts, step)
+                    if state.graph is not None:
+                        state.graph.replay(state)
+                    else:
+                        self._eager_step(state, opts, step)
+            # the chunk's last kernel, launched op by op: a profiler's device
+            # range of the chunk then ends after the last replay's kernels
+            state.all_done = state.done.all()
         state.step = max(state.step, end)
         return state
+
+    def _eager_step(self, state: DecodeState, opts: SamplingOptions, step: int) -> None:
+        """Decode step ``step``, each kernel launched from the host."""
+        pad, eos = self.cfg.pad_id, self.cfg.eos_id
+        with trace.span("asr.decoder"):
+            logits, _ = decode_step(self.decoder_params, self.cfg.decoder,
+                                    state.last_tok, state.cache, self._mesh)
+        with trace.span("asr.sample"):
+            tok = sample_token(logits, opts, state.generator, state.tokens, step,
+                               noise_rows=state.noise_rows)
+            tok = force_eos_after(tok, step, opts, eos)
+            lp = log_softmax_confidence(logits, tok)
+            tok = torch.where(state.done, torch.full_like(tok, pad), tok)
+            state.tokens[:, step] = tok  # rows already done write their pad
+            state.logprobs[:, step] = torch.where(state.done, torch.zeros_like(lp), lp)
+            state.done = state.done | (tok == eos)
+            state.last_tok = tok
+        trace.EAGER_STEPS.add()
+
+    def _device_step(self, state: DecodeState, opts: SamplingOptions, g: StepGraph) -> None:
+        """The greedy step that :meth:`_capture` records: :meth:`_eager_step`'s
+        work on the same operands, with the step index and the cache row read
+        from ``g`` and advanced there, and every write of ``state`` in place,
+        so that each replay decodes the next step. ``state.cache.cursor`` is
+        the caller's to advance."""
+        pad, eos = self.cfg.pad_id, self.cfg.eos_id
+        logits, _ = decode_step(self.decoder_params, self.cfg.decoder, state.last_tok,
+                                state.cache, self._mesh, cursor=g.cursor)
+        tok = sample_token(logits, opts)
+        if opts.force_eos_after:
+            tok = torch.where(g.step >= opts.force_eos_after, torch.full_like(tok, eos), tok)
+        lp = log_softmax_confidence(logits, tok)
+        tok = torch.where(state.done, torch.full_like(tok, pad), tok)
+        state.tokens.index_copy_(1, g.step, tok[:, None])
+        state.logprobs.index_copy_(1, g.step, torch.where(state.done, torch.zeros_like(lp),
+                                                          lp)[:, None])
+        state.done |= tok == eos
+        state.last_tok.copy_(tok)
+        g.step += 1
+
+    def _capture(self, state: DecodeState, opts: SamplingOptions, step: int) -> StepGraph:
+        """Capture step ``step`` of ``state`` (:meth:`_device_step`) as a CUDA
+        graph. Nothing runs: the caller replays it for this step and the
+        rest. The capture's launches are held and added at each replay. It
+        runs on a side stream of the device, one capture at a time in the
+        process, and shares the memory pool of the last graph this thread
+        captured, which is dropped then (each thread's graphs run one after
+        another; a new pool each batch would stay reserved once freed)."""
+        g = StepGraph.at(state, step)
+        graph = torch.cuda.CUDAGraph()
+        last = getattr(self._graphs, "last", None)
+        with _CAPTURE_LOCK:
+            stream = _capture_streams.get(self.device)
+            if stream is None:
+                stream = _capture_streams[self.device] = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(stream), trace.held_launches() as held:
+                graph.capture_begin(pool=None if last is None else last.pool(),
+                                    capture_error_mode="thread_local")
+                try:
+                    self._device_step(state, opts, g)
+                finally:
+                    graph.capture_end()
+        self._graphs.last = graph
+        g.graph, g.launches = graph, held
+        trace.GRAPH_CAPTURES.add()
+        return g
 
     @staticmethod
     def _all_done(state: DecodeState) -> bool:
         with trace.span("asr.done_read"):
-            return bool(state.done.all().item())  # host sync: chunk boundaries only
+            return bool(state.all_done.item())  # host sync: chunk boundaries only
 
     def _generate(self, st: _StagedBatch, prompt_args, opts: SamplingOptions, priority,
                   generator: torch.Generator, timings=None):
@@ -573,7 +700,8 @@ class Qwen3ASR(SpeechRecognitionModel):
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with _CAPTURE_LOCK:   # not while another thread captures
+                torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------ #
     # public inference

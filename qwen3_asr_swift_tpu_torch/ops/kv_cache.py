@@ -6,6 +6,8 @@ out at static offsets (``prefix | padded audio | suffix``) with a per-row
 ``positions`` keeps each row's next RoPE position so position ids stay
 contiguous across the gaps. ``cursor`` is the shared write row of decode
 steps, a host integer here (it advances by one per step for every slot).
+:func:`write_token_at` and :func:`after_token_at` take the row as a device
+tensor instead, so that a step can be captured as a CUDA graph and replayed.
 
 Unlike the reference's immutable arrays, the writes here update the
 buffers IN PLACE: ``write_prompt``/``write_token`` mutate the layer they
@@ -117,6 +119,22 @@ def write_token(layer: LayerKV, k_new, v_new, cursor: int) -> LayerKV:
     return _write(layer, k_new, v_new, cursor)
 
 
+def write_token_at(layer: LayerKV, k_new, v_new, cursor: torch.Tensor) -> LayerKV:
+    """:func:`write_token` at the row held by ``cursor`` (int64 [1], on the
+    cache's device), read by the device (in place)."""
+    if layer.k_scale is not None:
+        kq, ks = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+        layer.k.index_copy_(2, cursor, kq)
+        layer.v.index_copy_(2, cursor, vq)
+        layer.k_scale.index_copy_(2, cursor, ks)
+        layer.v_scale.index_copy_(2, cursor, vs)
+    else:
+        layer.k.index_copy_(2, cursor, k_new.to(layer.k.dtype))
+        layer.v.index_copy_(2, cursor, v_new.to(layer.v.dtype))
+    return layer
+
+
 def cache_kv(layer: LayerKV, dtype=torch.bfloat16):
     """Attendable (k, v): int8 caches dequantized, fp caches passed through."""
     if layer.k_scale is None:
@@ -139,6 +157,15 @@ def after_token(cache: KVCache) -> KVCache:
     cache.valid[:, cache.cursor] = True
     cache.positions += 1
     cache.cursor += 1
+    return cache
+
+
+def after_token_at(cache: KVCache, cursor: torch.Tensor) -> KVCache:
+    """:func:`after_token` with the row held by ``cursor`` (int64 [1]), which
+    advances on the device; ``cache.cursor`` is left to the caller."""
+    cache.valid.index_fill_(1, cursor, True)
+    cache.positions += 1
+    cursor += 1
     return cache
 
 

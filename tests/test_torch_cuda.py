@@ -22,8 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+from qwen3_asr_swift_tpu_torch.core import trace
 from qwen3_asr_swift_tpu_torch.core.params import init_random_params
 from qwen3_asr_swift_tpu_torch.models.qwen3_asr import Qwen3ASR, config_tiny
+from qwen3_asr_swift_tpu_torch.models.qwen3_asr import model as asr_model
+from qwen3_asr_swift_tpu_torch.models.qwen3_asr.config import CONFIG_LARGE, CONFIG_SMALL
 from qwen3_asr_swift_tpu_torch.models.qwen3_asr.decoder import decode_step
 from qwen3_asr_swift_tpu_torch.ops import attention_int8 as k3
 from qwen3_asr_swift_tpu_torch.ops import quant as k1
@@ -839,3 +842,131 @@ def test_tiny_asr_engines_wake_word_and_sortformer_on_card_match_host(card):
     dev = SortformerDiarizer(host.cfg, _tree_to(host.params, "cpu"), device=card)
     assert [(s.start, s.end, s.speaker) for s in dev.diarize(audio)] == \
         [(s.start, s.end, s.speaker) for s in host.diarize(audio)]
+
+
+# ---------------------------------------------------------------------------
+# the Qwen3-ASR decode loop replayed from a CUDA graph (models/qwen3_asr/model.py)
+# ---------------------------------------------------------------------------
+
+#: K1, K3, then the graph path's captures, replays and eager steps
+GRAPH_COUNTERS = (k1.K1_LAUNCHES, k3.K3_LAUNCHES, trace.GRAPH_CAPTURES, trace.GRAPH_REPLAYS,
+                  trace.EAGER_STEPS)
+
+
+def graph_model(card, base, layers, bits, kv):
+    """``base``'s widths cut to ``layers`` encoder and decoder layers, drawn
+    on the card and packed to ``bits``; q/k norm weights 2, so that tokens
+    vary (at 1 a random model decodes one token whatever it hears)."""
+    cfg = dataclasses.replace(
+        base, encoder=dataclasses.replace(base.encoder, num_layers=layers),
+        decoder=dataclasses.replace(base.decoder, num_layers=layers, bits=bits, group_size=64))
+    enc, dec = init_random_params(cfg, 0, quant_bits=bits, device=card)
+    for layer in dec["layers"]:
+        for name in ("q_norm", "k_norm"):
+            layer[name]["weight"] = layer[name]["weight"] * 2
+    return Qwen3ASR(cfg, enc, dec, device=card, dtype=torch.bfloat16, kv_dtype=kv,
+                    audio_buckets_s=(8,), decode_chunk_tokens=15)
+
+
+def graph_clips(n, seed=1):
+    rng = np.random.default_rng(seed)
+    return [(0.1 * rng.standard_normal(int(16000 * (3 + 5 * i / n)))).astype(np.float32)
+            for i in range(n)]
+
+
+def decode_with_counts(m, clips, opts, monkeypatch, graph=True):
+    """(tokens, logprobs, counter deltas, decode steps) of one batch, through
+    the graph path or (``graph`` False) the eager loop."""
+    if not graph:
+        monkeypatch.setattr(asr_model, "uses_step_graph", lambda *a: False)
+    before = [c.value for c in GRAPH_COUNTERS]
+    gen = torch.Generator(device=m.device).manual_seed(0)
+    tokens, logprobs = m._generate(m.prestage(clips), (None, None), opts, None, gen)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    return (tokens.cpu(), logprobs.cpu(), [c.value - b for c, b in zip(GRAPH_COUNTERS, before)],
+            m.last_loop["decode_steps"])
+
+
+@pytest.mark.parametrize("base,kv,bits", [(CONFIG_SMALL, torch.int8, 4),
+                                          (CONFIG_LARGE, torch.bfloat16, 8)],
+                         ids=["0.6b-int8-kv", "1.7b-bf16-kv"])
+def test_decode_graph_replays_the_eager_loop_bit_for_bit(card, monkeypatch, base, kv, bits):
+    layers = 3
+    m = graph_model(card, base, layers, bits, kv)
+    clips = graph_clips(8)
+    opts = SamplingOptions(max_tokens=40)
+    want_tok, want_lp, eager, steps = decode_with_counts(m, clips, opts, monkeypatch, False)
+    got_tok, got_lp, graph, got_steps = decode_with_counts(m, clips, opts, monkeypatch)
+    assert len(set(want_tok.flatten().tolist())) > 1
+    assert torch.equal(got_tok, want_tok) and torch.equal(got_lp, want_lp)
+    assert got_steps == steps == opts.max_tokens - 1
+    # K1: the prefill's head, then 4 packed products a layer and the head a
+    # step; K3 a layer a step (int8 cache only)
+    k3_want = steps * layers if kv == torch.int8 else 0
+    assert eager[:2] == graph[:2] == [1 + steps * (4 * layers + 1), k3_want]
+    assert eager[2:] == [0, 0, steps]
+    assert graph[2:] == [1, steps - 1, 1]
+
+
+@pytest.mark.parametrize("opts", [dict(temperature=0.7), dict(repetition_penalty=1.1),
+                                  dict(top_k=5, temperature=0.5)],
+                         ids=["temperature", "penalty", "top-k"])
+def test_sampled_decode_stays_eager(card, opts):
+    cfg = dataclasses.replace(config_tiny(), decoder=dataclasses.replace(
+        config_tiny().decoder, hidden_size=128, intermediate_size=256, num_heads=4,
+        num_kv_heads=2, head_dim=32), encoder=dataclasses.replace(config_tiny().encoder,
+                                                                  output_dim=128))
+    enc, dec = init_random_params(cfg, 0, quant_bits=4)
+    m = Qwen3ASR(cfg, enc, dec, device=card, kv_dtype=torch.int8, audio_buckets_s=(8,))
+    before = [c.value for c in GRAPH_COUNTERS[2:]]
+    m.transcribe_batch(graph_clips(3), options=SamplingOptions(max_tokens=20, **opts))
+    got = [c.value - b for c, b in zip(GRAPH_COUNTERS[2:], before)]
+    assert got == [0, 0, m.last_loop["decode_steps"]] == [0, 0, 19]
+
+
+def test_two_concurrent_batches_through_the_batcher(card, monkeypatch):
+    """Two worker threads and two gate slots: each batch captures one graph
+    of its own and replays it while the other thread dispatches, and each
+    batch's texts and confidences are those of the same batch run again
+    alone through the eager loop."""
+    from qwen3_asr_swift_tpu_torch.serving.batching import ContinuousBatcher
+
+    cfg = dataclasses.replace(config_tiny(), decoder=dataclasses.replace(
+        config_tiny().decoder, hidden_size=128, intermediate_size=256, num_heads=4,
+        num_kv_heads=2, head_dim=32), encoder=dataclasses.replace(config_tiny().encoder,
+                                                                  output_dim=128))
+    enc, dec = init_random_params(cfg, 0, quant_bits=4)
+    m = Qwen3ASR(cfg, enc, dec, device=card, kv_dtype=torch.int8, audio_buckets_s=(8,),
+                 decode_chunk_tokens=15)
+    m.transcribe(graph_clips(1)[0], max_tokens=12)   # kernels built, allocator warm
+    batches, states = [], {}
+    transcribe_batch, gen_chunk = m.transcribe_batch, m._gen_chunk
+
+    def record_batch(audios, **kw):
+        out = transcribe_batch(audios, **kw)
+        batches.append((list(audios), [(r.text, r.confidence) for r in out]))
+        return out
+
+    def record_chunk(state, end, opts):
+        states[id(state)] = state
+        return gen_chunk(state, end, opts)
+
+    m.transcribe_batch, m._gen_chunk = record_batch, record_chunk
+    before = [c.value for c in GRAPH_COUNTERS[2:]]
+    batcher = ContinuousBatcher(m, max_batch=4, max_wait_ms=200, workers=2, gate_slots=2)
+    try:
+        futures = [batcher.submit(c, max_tokens=24) for c in graph_clips(8, seed=2)]
+        results = [f.result(timeout=300) for f in futures]
+    finally:
+        batcher.shutdown()
+    captures, replays, eager = [c.value - b for c, b in zip(GRAPH_COUNTERS[2:], before)]
+    assert len(results) == 8 and batcher.stats["batches_run"] == len(batches) >= 2
+    steps = sum(s.step - 1 for s in states.values())
+    assert len(states) == len(batches)
+    assert captures == eager == len(batches) and replays == steps - len(batches)
+    del m.transcribe_batch, m._gen_chunk
+    states.clear()
+    monkeypatch.setattr(asr_model, "uses_step_graph", lambda *a: False)
+    for audios, got in batches:
+        assert [(r.text, r.confidence) for r in m.transcribe_batch(audios, max_tokens=24)] == got
